@@ -1,0 +1,82 @@
+"""Pass-scoped in-memory dataset — the port of ``data/dataset.py``.
+
+One pass of training data held columnar in host memory: files are parsed
+by a thread pool, concatenated, optionally shuffled on this host, and
+handed to the trainer as the pass's unique keys plus fixed-shape packed
+batches. Cross-host shuffling (the TCP shuffle service) is not ported
+yet; ``load_into_memory(global_shuffle=True)`` on one host is the same
+local permutation the JAX package draws when it has no service.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch.config import flags
+from paddlebox_tpu_torch.data.reader import read_file
+from paddlebox_tpu_torch.data.schema import DataFeedSchema
+from paddlebox_tpu_torch.data.slot_record import (PackedBatch,
+                                                  SlotRecordBatch,
+                                                  batch_iterator)
+
+
+class LocalShuffler:
+    """Single-host shuffle: a permutation from a persistent generator."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+
+    def shuffle(self, batch: SlotRecordBatch) -> SlotRecordBatch:
+        return batch.shuffle(self.rng)
+
+
+class SlotDataset:
+    """One pass of training data, held columnar in host memory."""
+
+    def __init__(self, schema: DataFeedSchema, seed: int = 0):
+        self.schema = schema
+        self.filelist: list[str] = []
+        self.records: SlotRecordBatch | None = None
+        self._shuffler = LocalShuffler(seed)
+
+    def set_filelist(self, files: Sequence[str]) -> None:
+        self.filelist = list(files)
+
+    def load_into_memory(self, global_shuffle: bool = True) -> None:
+        n_threads = min(flags.dataset_load_thread_num,
+                        max(1, len(self.filelist)))
+        with concurrent.futures.ThreadPoolExecutor(n_threads) as pool:
+            parts = list(pool.map(self._read_one, self.filelist))
+        parts = [p for p in parts if p.num > 0]
+        batch = (SlotRecordBatch.concat(parts) if parts
+                 else SlotRecordBatch.empty(self.schema))
+        if global_shuffle and batch.num > 0:
+            batch = self._shuffler.shuffle(batch)
+        self.records = batch
+
+    def _read_one(self, path: str) -> SlotRecordBatch:
+        return read_file(path, self.schema)
+
+    def local_shuffle(self) -> None:
+        if self.records is not None and self.records.num:
+            self.records = self._shuffler.shuffle(self.records)
+
+    def unique_keys(self) -> np.ndarray:
+        """The pass's feature-sign working set."""
+        if self.records is None:
+            raise RuntimeError("unique_keys before load_into_memory")
+        return self.records.unique_keys()
+
+    def batches(self, batch_size: int | None = None,
+                drop_last: bool = True) -> Iterator[PackedBatch]:
+        if self.records is None:
+            raise RuntimeError("batches before load_into_memory")
+        bs = batch_size or self.schema.batch_size
+        return batch_iterator(self.records, bs, drop_last=drop_last)
+
+    @property
+    def num_examples(self) -> int:
+        return 0 if self.records is None else self.records.num

@@ -1,0 +1,88 @@
+"""Slot schema — the DataFeedDesc/Slot equivalent.
+
+The reference describes its input with a protobuf ``DataFeedDesc`` whose
+``MultiSlotDesc`` lists ``Slot{name, type, is_dense, is_used, shape}``
+(reference: paddle/fluid/framework/data_feed.proto:17-37). We use a typed
+dataclass instead, and add the one thing XLA demands that LoD tensors never
+needed: a static ``max_len`` per sparse slot, so every batch has a fixed
+(batch, max_len) shape on device (SURVEY.md §7 "Static-shape discipline").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Sequence
+
+
+class SlotType(enum.Enum):
+    UINT64 = "uint64"   # feature-sign (hashed feature id) slots
+    FLOAT = "float"     # dense float slots (e.g. 13 Criteo numeric features)
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    """One input slot.
+
+    ``max_len`` bounds the ids per example for sparse slots (longer lists are
+    truncated, shorter padded); for float slots it is the fixed feature width.
+    """
+
+    name: str
+    type: SlotType = SlotType.UINT64
+    is_dense: bool = False
+    is_used: bool = True
+    max_len: int = 1
+
+    def __post_init__(self) -> None:
+        if self.max_len < 1:
+            raise ValueError(f"slot {self.name}: max_len must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataFeedSchema:
+    """Ordered slot list + batch geometry for one dataset."""
+
+    slots: tuple[Slot, ...]
+    batch_size: int = 64
+
+    def __init__(self, slots: Sequence[Slot], batch_size: int = 64):
+        object.__setattr__(self, "slots", tuple(slots))
+        object.__setattr__(self, "batch_size", int(batch_size))
+        names = [s.name for s in self.slots]
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate slot names in schema")
+
+    @property
+    def sparse_slots(self) -> tuple[Slot, ...]:
+        return tuple(s for s in self.slots if s.type == SlotType.UINT64 and s.is_used)
+
+    @property
+    def float_slots(self) -> tuple[Slot, ...]:
+        return tuple(s for s in self.slots if s.type == SlotType.FLOAT and s.is_used)
+
+    def float_split_cols(self, label_slot: str) -> tuple[int, int, int]:
+        """(label_col, label_width, total_float_cols) over the packed float
+        columns; label_col is -1 when `label_slot` is absent (legal at
+        serving time — training callers should treat that as an error)."""
+        col, lc, lw = 0, -1, 0
+        for slot in self.float_slots:
+            if slot.name == label_slot:
+                lc, lw = col, slot.max_len
+            col += slot.max_len
+        return lc, lw, col
+
+    @staticmethod
+    def ctr(num_sparse: int, num_float: int = 0, batch_size: int = 64,
+            max_len: int = 1, label_slot: str = "label") -> "DataFeedSchema":
+        """Convenience constructor for synthetic CTR schemas used in tests.
+
+        Layout mirrors Criteo-style data: a label slot, ``num_float`` dense
+        floats, ``num_sparse`` uint64 feature slots.
+        """
+        slots = [Slot(label_slot, SlotType.FLOAT, max_len=1)]
+        slots += [Slot(f"dense_{i}", SlotType.FLOAT, max_len=1)
+                  for i in range(num_float)]
+        slots += [Slot(f"slot_{i}", SlotType.UINT64, max_len=max_len)
+                  for i in range(num_sparse)]
+        return DataFeedSchema(slots, batch_size=batch_size)

@@ -1,0 +1,115 @@
+"""Per-pass embedding working set — the port of ``PassWorkingSet``.
+
+The device never holds the whole table, only the keys seen in the
+current pass:
+
+- ``begin_pass(store, keys, device)`` dedups the pass's keys, assigns
+  dense indices 1..K in sorted-key order (0 = the all-zero NULL_INDEX row
+  that padding tokens point at), fetches their rows from the host store
+  and lays them out as one (n_rows, W) float32 tensor on the device.
+- ``translate(ids, mask)`` maps uint64 feature signs to int32 working-set
+  indices on the host (one KeyIndex batch probe), so the device only ever
+  sees dense int32 indices; it also records which rows a batch touched.
+- ``end_pass(store)`` gathers the touched rows on the device and writes
+  them back to the host store.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from paddlebox_tpu_torch.config import flags
+from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
+from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
+from paddlebox_tpu_torch.native.key_index import KeyIndex
+
+
+def device_width(cfg: EmbeddingConfig) -> int:
+    """Physical column count of the f32 device table
+    (flags.table_pad_width): the logical row width unless padding is
+    asked for; pad columns are zeros that pass through every update and
+    never reach the host."""
+    rw = cfg.row_width
+    pad = flags.table_pad_width
+    if not pad:
+        return rw
+    if pad == "auto":
+        return 64 if 14 <= rw < 64 else rw
+    return max(rw, int(pad))
+
+
+class PassWorkingSet:
+    def __init__(self, cfg: EmbeddingConfig, sorted_keys: np.ndarray,
+                 table: torch.Tensor):
+        self.cfg = cfg
+        self.sorted_keys = sorted_keys      # uint64 (K,), ascending
+        self.table = table                  # (n_rows, W) float32
+        self._tindex = KeyIndex(len(sorted_keys) or 1)
+        self._tindex.rebuild(sorted_keys)
+        # rows any batch referenced: end_pass ships only these (push never
+        # modifies a row that no batch indexed)
+        self.touched = np.zeros(self.padded_rows, dtype=bool)
+
+    @property
+    def num_keys(self) -> int:
+        return len(self.sorted_keys)
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.table.shape[0])
+
+    @classmethod
+    def begin_pass(cls, store: HostEmbeddingStore, keys: np.ndarray,
+                   device: str | torch.device | None = None,
+                   min_rows: int = 8) -> "PassWorkingSet":
+        """Build the pass working set on ``device`` (the card unless
+        ``device="cpu"``), inserting unseen keys into the store."""
+        dev = resolve_device(device)
+        cfg = store.cfg
+        if cfg.storage != "f32":
+            raise NotImplementedError(
+                f"storage={cfg.storage!r}: quantized device tables are not "
+                f"ported yet (ROADMAP, storage variants)")
+        keys = np.unique(np.asarray(keys).astype(np.uint64))
+        rows = store.lookup_or_init(keys)
+        n_rows = max(min_rows, len(keys) + 1)      # +1: the null row
+        host = np.zeros((n_rows, device_width(cfg)), dtype=np.float32)
+        host[1:1 + len(keys), :cfg.row_width] = rows
+        return cls(cfg, keys, torch.from_numpy(host).to(dev))
+
+    def translate(self, ids: np.ndarray, mask: np.ndarray | None = None
+                  ) -> np.ndarray:
+        """uint64 feature signs → dense int32 working-set indices.
+
+        Keys not in this pass and masked positions map to the null
+        index 0."""
+        ids_arr = np.asarray(ids)
+        if len(self.sorted_keys) == 0:
+            return np.zeros(ids_arr.shape, dtype=np.int32)
+        flat = ids_arr.astype(np.uint64).reshape(-1)
+        if self._tindex.is_native:
+            pos = self._tindex.lookup(flat)      # -1 = not in this pass
+        else:
+            pos = np.searchsorted(self.sorted_keys, flat)
+            pos[pos >= len(self.sorted_keys)] = 0
+            pos = np.where(self.sorted_keys[pos] == flat, pos, -1)
+        idx = (pos + 1).astype(np.int32).reshape(ids_arr.shape)
+        if mask is not None:
+            idx = np.where(mask, idx, 0).astype(np.int32)
+        self.touched[idx.reshape(-1)] = True
+        self.touched[0] = False          # the null row is never persisted
+        return idx
+
+    def end_pass(self, store: HostEmbeddingStore) -> int:
+        """Write the touched rows back to the host store; returns the
+        bytes moved device → host."""
+        t = self.table
+        dirty = np.flatnonzero(self.touched[1:1 + self.num_keys]) + 1
+        if len(dirty) == 0:
+            return 0
+        sel = torch.from_numpy(dirty.astype(np.int64)).to(t.device)
+        rows = t.index_select(0, sel)[:, :self.cfg.row_width].cpu().numpy()
+        store.write_back(self.sorted_keys[dirty - 1], rows)
+        return rows.nbytes
