@@ -3,25 +3,34 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
+Two layouts of bench.py's Criteo DeepFM (26 sparse slots, 13 dense, MLP
+400-400-400, adagrad table, adam dense, batch 8192):
+
+- multihot4_dim32: 26 slots x 1..4 ids, dim 32, a 2^20-key table — the
+  fused pull (gather_pool) and the premerged push (scatter_accumulate);
+- onehot_dim8 (the bench's headline): 26 slots x 1 id, dim 8, a 2^19-key
+  table — the plain gather pull and the binned push (binned_merge_acc,
+  then merge_update).
+
 Phases, each of which exits non-zero on failure:
 
 1. header — the card (nvidia-smi name, power limit), torch, CUDA, nvcc;
-2. build — both kernels from csrc/ with nvcc (in parallel) and the host
-   key index with g++, timed;
-3. kernels vs their plain PyTorch versions at the training step's
-   shapes (Criteo-width DeepFM, batch 8192, 26 slots x 4 ids, dim 32 with
-   adagrad, a 2^20-key table), edge cases included: pads, a real row-0
-   lane mixed with pads, an all-pad batch, untouched rows bitwise;
+2. build — all four kernels from csrc/ with nvcc (in parallel) and the
+   host key index with g++, timed;
+3. kernels vs their plain PyTorch versions at each layout's step shapes,
+   edge cases included (pads, out-of-range ids, an all-pad batch, row 0
+   staying zero, untouched rows bitwise, exact count columns);
 4. timing — each kernel, its plain version and (where one exists) one
    PyTorch library call computing the same function, with CUDA events,
    beside the least time the card could take (bound_ms);
-5. the main path — HostEmbeddingStore, an in-memory SlotDataset of
-   16 x 8192 multi-hot examples (plus a small text-file parse check),
-   BoxPS.begin_pass -> Trainer.train_pass -> BoxPS.end_pass with every
-   kernel's launch count reset just before and read just after, then a
-   breakdown of one step (host pack, device step, profiler split); then
-   the same small pass on the card and on the CPU (plain versions) must
-   agree.
+5. each layout's main path — HostEmbeddingStore, an in-memory SlotDataset
+   of 16 x 8192 examples, BoxPS.begin_pass -> Trainer.train_pass ->
+   BoxPS.end_pass with every kernel's launch count reset just before and
+   read just after, then a breakdown of one step (host pack, device step,
+   profiler split); for the one-hot layout also the device step under
+   each push engine on pre-staged batches carrying that engine's plan;
+6. a small pass of each layout on the card and on the CPU (plain
+   versions) must agree.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -30,6 +39,8 @@ beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -40,21 +51,41 @@ import time
 import numpy as np
 
 SEED = 0
-B, S, L, DENSE = 8192, 26, 4, 13          # bench.py's Criteo DeepFM
-DIM, HIDDEN = 32, (400, 400, 400)         # the multihot4_dim32 point
-N_KEYS = 1 << 20
-STEPS = 16
+B, S, DENSE = 8192, 26, 13                # bench.py's Criteo DeepFM
+HIDDEN = (400, 400, 400)
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12
 GATHER_TOL = dict(rtol=1e-6, atol=1e-6)   # test_gather_pool.py
 SCATTER_TOL = dict(rtol=1e-5, atol=1e-6)  # test_scatter_accumulate.py
+MERGE_TOL = dict(rtol=1e-6, atol=1e-6)    # test_pallas_kernels.py
+ACC_TOL = dict(rtol=1e-4, atol=2e-5)      # test_binned_push.py
 LOSS_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/golden_deepfm.py
 TABLE_TOL = dict(rtol=1e-3, atol=2e-5)
 
-GATHER_SRC = "paddlebox_tpu_torch/csrc/gather_pool.cu"
-SCATTER_SRC = "paddlebox_tpu_torch/csrc/scatter_accumulate.cu"
-GATHER_TPU = "paddlebox_tpu/ops/pallas_kernels.py:854"
-SCATTER_TPU = "paddlebox_tpu/ops/pallas_kernels.py:1080"
+CSRC = "paddlebox_tpu_torch/csrc/"
+TPU = "paddlebox_tpu/ops/pallas_kernels.py:"
+SOURCES = {"gather_pool": (CSRC + "gather_pool.cu", TPU + "854"),
+           "scatter_accumulate": (CSRC + "scatter_accumulate.cu",
+                                  TPU + "1080"),
+           "binned_merge_acc": (CSRC + "binned_merge_acc.cu", TPU + "264"),
+           "merge_update": (CSRC + "merge_update.cu", TPU + "79")}
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    name: str
+    dim: int
+    max_len: int
+    n_keys: int
+    steps: int
+    kernels: tuple            # launched once per main-path step
+    engine: str               # the push engine auto picks on the card
+
+
+MULTI = Layout("multihot4_dim32", 32, 4, 1 << 20, 16,
+               ("gather_pool", "scatter_accumulate"), "scatter_accumulate")
+ONEHOT = Layout("onehot_dim8", 8, 1, 1 << 19, 16,
+                ("binned_merge_acc", "merge_update"), "binned_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -91,24 +122,68 @@ def assert_close(name, got, want, tol) -> float:
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean ms per call over ``iters`` launches between CUDA events."""
+    """Mean device ms per call over ``iters`` calls between CUDA events.
+
+    The calls are queued behind a device-side sleep longer than their
+    host dispatch, so the events time the device's work and not the
+    wrappers' Python overhead (a 0.03 ms kernel behind a 0.1 ms wrapper
+    would otherwise read 0.1 ms). If the device catches up with the queue
+    anyway, because the calls hold more launches than CUDA keeps
+    pending, the count drops to a quarter and the timing repeats; a
+    function that waits for the device itself (a boolean-mask index does)
+    is timed with its waits, and a line says so."""
     import torch
+    t = time.perf_counter()
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t) / warmup   # dispatch + any waits
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    while True:
+        torch.cuda.synchronize()
+        # 2e9 cycles/s is at least the SM clock: the sleep is no shorter
+        torch.cuda._sleep(int((2 * iters * host_s + 0.005) * 2e9))
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        drained = t0.query()     # the device reached t0 before the host
+        torch.cuda.synchronize()  # had queued every call
+        ms = t0.elapsed_time(t1) / iters
+        if not drained:
+            return ms
+        if iters == 1:
+            print(f"  ({ms:.4f} ms includes host waits: the function "
+                  f"waits for the device)")
+            return ms
+        iters = max(1, iters // 4)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def kernel_row(name, err, ms, plain_ms, n_bytes, n_ops, library_ms,
+               note) -> dict:
+    b_ms, b_by = bound(n_bytes, n_ops)
+    lib = ("no single PyTorch call computes this" if library_ms is None
+           else f"library {library_ms:.4f} ms")
+    print(f"  timing: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | {lib} "
+          f"| bound {b_ms:.4f} ms ({b_by}; {note})")
+    src, tpu = SOURCES[name]
+    return dict(name=name, route="cuda", source=src, replaces=tpu,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+def launch_counts(kernels) -> dict[str, int]:
+    return {k: getattr(kernels, k).launches for k in SOURCES}
+
+
+def reset_counts(kernels) -> None:
+    for k in SOURCES:
+        getattr(kernels, k).launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +212,8 @@ def build() -> None:
     t1 = time.perf_counter()
     check(key_index.get_lib() is not None, "native key index did not build")
     t2 = time.perf_counter()
+    check(sorted(paths) == sorted(SOURCES),
+          f"built {sorted(paths)}, expected {sorted(SOURCES)}")
     print(f"build: kernels {t1 - t0:.1f} s ({', '.join(sorted(paths))}), "
           f"key index {t2 - t1:.1f} s")
     for name, log in sorted(kernels.build_logs.items()):
@@ -149,16 +226,25 @@ def build() -> None:
 # phase 3-4: kernels at slice shapes
 # ---------------------------------------------------------------------------
 
-def slice_inputs(torch, cfg, dev, gen):
-    """A 2^20-key pass table and one batch's translated multi-hot ids
-    (slot lengths 1..4 with real pad masking, as bench.py makes them)."""
-    n_rows = N_KEYS + 1
-    W = cfg.row_width
-    table = torch.randn((n_rows, W), generator=gen, device=dev) * 0.05
+def slice_table(torch, cfg, n_rows, dev, gen):
+    """A pass table with counter-like show/clk, non-negative optimizer
+    state and the all-zero null row 0."""
+    table = torch.randn((n_rows, cfg.row_width), generator=gen,
+                        device=dev) * 0.05
     table[:, 0] = torch.randint(0, 50, (n_rows,), generator=gen, device=dev)
     table[:, 1] = torch.randint(0, 5, (n_rows,), generator=gen, device=dev)
     table[:, cfg.opt_cols] = table[:, cfg.opt_cols].abs()
     table[0] = 0.0
+    return table
+
+
+def slice_inputs(torch, lay, cfg, dev, gen):
+    """A pass table of lay.n_keys keys and one batch's translated ids:
+    slot lengths 1..max_len with real pad masking, as bench.py makes
+    them (every slot holds one id in the one-hot layout)."""
+    n_rows = lay.n_keys + 1
+    L = lay.max_len
+    table = slice_table(torch, cfg, n_rows, dev, gen)
     lens = torch.randint(1, L + 1, (B, S, 1), generator=gen, device=dev)
     mask = (torch.arange(L, device=dev) < lens).reshape(B, S * L)
     ids = torch.randint(1, n_rows, (B, S * L), generator=gen, device=dev)
@@ -166,8 +252,21 @@ def slice_inputs(torch, cfg, dev, gen):
     return table, idx, mask
 
 
-def check_gather_pool(torch, kernels, cfg, table, idx) -> dict:
+def token_payload(torch, cfg, idx, mask, gen):
+    """One step's per-token push payload: random grads, unit shows, 25%
+    clicks, all zero on masked tokens (which point at row 0)."""
+    flat = idx.reshape(-1)
+    n = flat.numel()
+    maskf = mask.reshape(-1).float()
+    grads = torch.randn((n, cfg.grad_width), generator=gen,
+                        device=idx.device) * 1e-3 * maskf[:, None]
+    clks = (torch.rand((n,), generator=gen, device=idx.device) < 0.25)
+    return flat, grads, maskf, clks.float() * maskf
+
+
+def check_gather_pool(torch, kernels, lay, cfg, table, idx) -> dict:
     import torch.nn.functional as F
+    L = lay.max_len
     print("gather_pool vs gather_pool_plain at (B, S, L, W) = "
           f"({B}, {S}, {L}, {table.shape[1]}):")
     err = assert_close("no filters", kernels.gather_pool(table, idx, cfg, S, L),
@@ -203,32 +302,22 @@ def check_gather_pool(torch, kernels, cfg, table, idx) -> dict:
     # least work: each distinct referenced row's P columns read once, the
     # ids read once, the pooled output written once; one add per element
     n_bytes = distinct * P * 4 + idx.numel() * 4 + B * S * P * 4
-    b_ms, b_by = bound(n_bytes, idx.numel() * P)
-    print(f"  timing: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-          f"embedding_bag {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}; "
-          f"{distinct} distinct rows)")
-    return dict(name="gather_pool", route="cuda", source=GATHER_SRC,
-                replaces=GATHER_TPU, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    return kernel_row("gather_pool", err, ms, plain_ms, n_bytes,
+                      idx.numel() * P, lib_ms, f"{distinct} distinct rows")
 
 
 def premerged_lanes(torch, table, idx, mask, cfg, gen):
-    """The push operands of one step: the host dedup plan and the device
-    premerge over random per-token grads (zero on masked tokens)."""
+    """The push operands of one multi-hot step: the host dedup plan and
+    the device premerge over random per-token grads."""
     from paddlebox_tpu_torch.embedding import sharded
     from paddlebox_tpu_torch.native.key_index import dedup_plan
     dev = table.device
     n_rows = table.shape[0]
-    flat = idx.reshape(-1)
-    n = flat.numel()
-    maskf = mask.reshape(-1).float()
-    grads = torch.randn((n, cfg.grad_width), generator=gen,
-                        device=dev) * 1e-3 * maskf[:, None]
-    clks = (torch.rand((n,), generator=gen, device=dev) < 0.25).float()
+    flat, grads, shows, clks = token_payload(torch, cfg, idx, mask, gen)
     o, u, s, _, _ = dedup_plan(flat.cpu().numpy(), n_rows, n_rows, 1)
-    plan = tuple(torch.from_numpy(a).to(dev) for a in (o, u, s))
-    return sharded.plan_premerge(flat, grads, maskf, clks * maskf, plan)
+    plan = sharded.DedupPlan(*(torch.from_numpy(a).to(dev)
+                               for a in (o, u, s)))
+    return sharded.plan_premerge(flat, grads, shows, clks, plan)
 
 
 def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
@@ -270,11 +359,8 @@ def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
     # the other optimizers at the same lanes (their own row widths)
     sub = 1 << 16
     for opt in ("sgd", "adam", "ftrl"):
-        c = EmbeddingConfig(dim=DIM, optimizer=opt, learning_rate=0.05)
-        t = torch.randn((sub, c.row_width), generator=gen,
-                        device=table.device) * 0.05
-        t[:, c.opt_cols] = t[:, c.opt_cols].abs()
-        t[0] = 0.0
+        c = EmbeddingConfig(dim=cfg.dim, optimizer=opt, learning_rate=0.05)
+        t = slice_table(torch, c, sub, table.device, gen)
         # lanes past the smaller table become out-of-range pads
         li = torch.where(uniq < sub, uniq, sub).to(torch.int32)
         args = (li, *lanes[1:])
@@ -291,25 +377,183 @@ def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
     # least work: each valid lane's row read and written once, its payload
     # read once, every lane's id read once; ~20 flops per row element
     n_bytes = u * W * 4 * 2 + u * (cfg.grad_width + 2) * 4 + n * 4
-    b_ms, b_by = bound(n_bytes, u * W * 20)
-    print(f"  timing: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | no "
-          f"single PyTorch call computes this | bound {b_ms:.4f} ms "
-          f"({b_by}; {u} valid of {n} lanes)")
-    return dict(name="scatter_accumulate", route="cuda", source=SCATTER_SRC,
-                replaces=SCATTER_TPU, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return kernel_row("scatter_accumulate", err, ms, plain_ms, n_bytes,
+                      u * W * 20, None, f"{u} valid of {n} lanes")
+
+
+def check_acc(torch, name, got, want, gw) -> float:
+    """binned_merge_acc's columns: grads within ACC_TOL, show, clk and
+    count exact."""
+    err = assert_close(f"{name}, grad columns", got[:, :gw], want[:, :gw],
+                       ACC_TOL)
+    check(torch.equal(got[:, gw:], want[:, gw:]),
+          f"{name}: the show, clk or count column is not exact")
+    print(f"  {name}: show, clk and count columns exact ok")
+    return err
+
+
+def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
+                           gen) -> tuple[dict, tuple]:
+    from paddlebox_tpu_torch.native.key_index import block_plan
+    n_rows = table.shape[0]
+    gw = cfg.grad_width
+    SB, NB = kernels.binned_geometry(cfg, n_rows)
+    print(f"binned_merge_acc vs binned_merge_acc_plain, one batch's "
+          f"{idx.numel()} tokens into {n_rows} rows (SB {SB}, NB {NB}):")
+
+    def host_plan(flat):
+        return tuple(torch.from_numpy(a).to(table.device)
+                     for a in block_plan(flat.cpu().numpy(), SB, NB))
+
+    def check_both(name, tok) -> float:
+        want = kernels.binned_merge_acc_plain(*tok, cfg, n_rows)
+        err = check_acc(torch, f"{name}, host plan", kernels.binned_merge_acc(
+            *tok, cfg, n_rows, plan=host_plan(tok[0])), want, gw)
+        check_acc(torch, f"{name}, device grouping",
+                  kernels.binned_merge_acc(*tok, cfg, n_rows), want, gw)
+        return err
+
+    # the main path's stream (every one-hot slot holds an id), then the
+    # same with one token in 64 masked: pads point at row 0 with a zero
+    # payload, so row 0 is a hot row of its block
+    tok = token_payload(torch, cfg, idx, mask, gen)
+    flat = tok[0]
+    err = check_both("main-path tokens", tok)
+    g2 = torch.Generator(device=table.device).manual_seed(SEED + 3)
+    pad_mask = mask & (torch.rand(mask.shape, generator=g2,
+                                  device=idx.device) >= 1 / 64)
+    tok_pad = token_payload(torch, cfg, torch.where(pad_mask, idx, 0).to(
+        torch.int32).contiguous(), pad_mask, gen)
+    n_pad = int((tok_pad[0] == 0).sum())
+    check_both(f"{n_pad} pad tokens on row 0", tok_pad)
+    # out-of-range ids (both sides of the table) mixed into the stream
+    bad = torch.rand(flat.shape, generator=g2, device=flat.device) < 0.05
+    junk = torch.tensor([-1, -77, n_rows, n_rows + 9], dtype=torch.int32,
+                        device=flat.device)
+    pick = torch.randint(0, 4, flat.shape, generator=g2, device=flat.device)
+    check_both("out-of-range ids",
+               (torch.where(bad, junk[pick], flat).contiguous(), *tok[1:]))
+    # an all-pad batch: every token on row 0 with a zero payload
+    z = torch.zeros_like(flat)
+    zp = (z, torch.zeros_like(tok[1]), torch.zeros_like(tok[2]),
+          torch.zeros_like(tok[3]))
+    got0 = kernels.binned_merge_acc(*zp, cfg, n_rows)
+    check(torch.equal(got0, kernels.binned_merge_acc_plain(*zp, cfg,
+                                                           n_rows)),
+          "all-pad batch: accumulator differs")
+    print("  all-pad batch: accumulator exact ok")
+
+    n = flat.numel()
+    plan = host_plan(flat)
+    ms = time_ms(lambda: kernels.binned_merge_acc(*tok, cfg, n_rows,
+                                                  plan=plan))
+    ms_dev = time_ms(lambda: kernels.binned_merge_acc(*tok, cfg, n_rows))
+    plan_pad = host_plan(tok_pad[0])
+    ms_pad = time_ms(lambda: kernels.binned_merge_acc(*tok_pad, cfg, n_rows,
+                                                      plan=plan_pad))
+    plain_ms = time_ms(lambda: kernels.binned_merge_acc_plain(*tok, cfg,
+                                                              n_rows))
+    payload = torch.cat([tok[1], tok[2][:, None], tok[3][:, None],
+                         tok[1].new_ones((n, 1))], dim=1)
+    safe = flat.long()
+    acc0 = torch.zeros((n_rows, gw + 3), device=table.device)
+    lib_ms = time_ms(lambda: acc0.index_add_(0, safe, payload))
+    print(f"  device grouping (argsort + searchsorted + kernel) "
+          f"{ms_dev:.4f} ms; host plan with {n_pad} pad tokens on row 0 "
+          f"(one block holds them all) {ms_pad:.4f} ms")
+    # least work: each token's id, order entry and gw + 2 payload floats
+    # read once, the windows read once, the accumulator written once; one
+    # add per accumulator element per token
+    n_bytes = n * (4 + 4 + (gw + 2) * 4) + NB * 8 + n_rows * (gw + 3) * 4
+    row = kernel_row("binned_merge_acc", err, ms, plain_ms, n_bytes,
+                     n * (gw + 3), lib_ms,
+                     f"{n} tokens, host plan; library = one index_add_ "
+                     f"into the accumulator")
+    return row, tok_pad
+
+
+def check_merge_update(torch, kernels, cfg, table, tok, gen) -> dict:
+    from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
+    n_rows, W = table.shape
+    gw = cfg.grad_width
+    acc = kernels.binned_merge_acc_plain(*tok, cfg, n_rows)
+    touched = acc[:, gw + 2] > 0
+    u = int(touched.sum())
+    check(bool(touched[0]) and bool((acc[0, :gw + 2] == 0).all()),
+          "expected row 0 touched by masked tokens with a zero payload")
+    print(f"merge_update vs merge_update_plain over {n_rows} rows, {u} "
+          f"touched:")
+    got = kernels.merge_update(table.clone(), acc, cfg)
+    want = kernels.merge_update_plain(table.clone(), acc, cfg)
+    err = assert_close("adagrad", got, want, MERGE_TOL)
+    check(torch.equal(got[~touched], table[~touched]),
+          "merge_update changed an untouched row")
+    check(bool((got[0] == 0).all()), "row 0 lost its zeros")
+    print(f"  {n_rows - u} untouched rows bit-identical, row 0 still zero "
+          f"ok")
+    sub = 1 << 16
+    flat = tok[0]
+    sub_tok = (torch.where(flat < sub, flat, sub).to(torch.int32),
+               *tok[1:])
+    for opt in ("sgd", "adam", "ftrl"):
+        c = EmbeddingConfig(dim=cfg.dim, optimizer=opt, learning_rate=0.05)
+        t = slice_table(torch, c, sub, table.device, gen)
+        a = kernels.binned_merge_acc_plain(*sub_tok, c, sub)
+        g = kernels.merge_update(t.clone(), a, c)
+        assert_close(opt, g, kernels.merge_update_plain(t.clone(), a, c),
+                     MERGE_TOL)
+        check(bool((g[0] == 0).all()), f"{opt}: row 0 lost its zeros")
+        keep = a[:, gw + 2] <= 0
+        check(torch.equal(g[keep], t[keep]),
+              f"{opt}: merge_update changed an untouched row")
+    print("  sgd, adam, ftrl: row 0 still zero, untouched rows "
+          "bit-identical ok")
+
+    scratch = table.clone()
+    ms = time_ms(lambda: kernels.merge_update(scratch, acc, cfg))
+    plain_ms = time_ms(lambda: kernels.merge_update_plain(scratch, acc,
+                                                          cfg))
+    # least work: every row's touch count read once; each touched row's
+    # other acc columns read once and its table row read and written
+    # once; ~20 flops per touched row element
+    n_bytes = n_rows * 4 + u * (gw + 2) * 4 + u * W * 4 * 2
+    return kernel_row("merge_update", err, ms, plain_ms, n_bytes, u * W * 20,
+                      None, f"{u} touched of {n_rows} rows")
+
+
+def kernel_phase(torch, kernels, dev, gen) -> list[dict]:
+    from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
+    rows = []
+    for lay in (MULTI, ONEHOT):
+        cfg = EmbeddingConfig(dim=lay.dim, optimizer="adagrad",
+                              learning_rate=0.05)
+        print(f"== kernels at {lay.name} shapes: B {B}, {S} slots x "
+              f"{lay.max_len}, dim {lay.dim} (W {cfg.row_width}), "
+              f"{lay.n_keys + 1} rows")
+        table, idx, mask = slice_inputs(torch, lay, cfg, dev, gen)
+        if lay is MULTI:
+            rows += [check_gather_pool(torch, kernels, lay, cfg, table, idx),
+                     check_scatter_accumulate(torch, kernels, cfg, table,
+                                              idx, mask, gen)]
+        else:
+            row, tok_pad = check_binned_merge_acc(torch, kernels, cfg, table,
+                                                  idx, mask, gen)
+            rows += [row, check_merge_update(torch, kernels, cfg, table,
+                                             tok_pad, gen)]
+        del table, idx, mask
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 5: the main paths
 # ---------------------------------------------------------------------------
 
-def make_records(schema, n, keys, rng):
-    """Criteo-shaped multi-hot examples: 26 slots of 1..4 ids drawn from
-    the key set, a 25%-positive label and 13 dense floats."""
+def make_records(schema, n, keys, rng, max_len):
+    """Criteo-shaped examples: 26 slots of 1..max_len ids drawn from the
+    key set, a 25%-positive label and 13 dense floats."""
     from paddlebox_tpu_torch.data.slot_record import SlotRecordBatch
-    lens = [rng.integers(1, L + 1, n) for _ in range(S)]
+    lens = [rng.integers(1, max_len + 1, n) for _ in range(S)]
     vals = [rng.choice(keys, int(l.sum())).astype(np.int64) for l in lens]
     offs = [np.concatenate([[0], np.cumsum(l)]).astype(np.int64)
             for l in lens]
@@ -350,33 +594,35 @@ def check_text_parse(schema, records) -> None:
     print(f"text parse: {n} MultiSlot lines pack to identical bytes ok")
 
 
-def make_trainer(torch, n_batch, device):
+def make_trainer(torch, lay, n_batch, device):
     from paddlebox_tpu_torch.data import DataFeedSchema
     from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
                                                HostEmbeddingStore)
     from paddlebox_tpu_torch.models import DeepFMModel
     from paddlebox_tpu_torch.train import Trainer, TrainerConfig
-    cfg = EmbeddingConfig(dim=DIM, optimizer="adagrad", learning_rate=0.05)
+    cfg = EmbeddingConfig(dim=lay.dim, optimizer="adagrad",
+                          learning_rate=0.05)
     store = HostEmbeddingStore(cfg)
     schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
-                                batch_size=n_batch, max_len=L)
-    tr = Trainer(DeepFMModel(S, DIM, DENSE, hidden=HIDDEN), store, schema,
-                 TrainerConfig(global_batch_size=n_batch,
-                               auc_buckets=1 << 16),
+                                batch_size=n_batch, max_len=lay.max_len)
+    tr = Trainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN), store,
+                 schema, TrainerConfig(global_batch_size=n_batch,
+                                       auc_buckets=1 << 16),
                  seed=SEED, device=device)
     return store, schema, tr
 
 
-def main_path(torch, kernels) -> dict[str, int]:
+def main_path(torch, kernels, lay) -> dict[str, int]:
     from paddlebox_tpu_torch.data import SlotDataset
     from paddlebox_tpu_torch.fleet import BoxPS
+    print(f"== main path, {lay.name}")
     rng = np.random.default_rng(SEED)
-    keys = np.unique(rng.integers(1, 1 << 50, N_KEYS + 4096,
-                                  dtype=np.uint64))[:N_KEYS]
+    keys = np.unique(rng.integers(1, 1 << 50, lay.n_keys + 4096,
+                                  dtype=np.uint64))[:lay.n_keys]
     rng.shuffle(keys)
-    store, schema, tr = make_trainer(torch, B, None)
+    store, schema, tr = make_trainer(torch, lay, B, None)
     t0 = time.perf_counter()
-    records = make_records(schema, STEPS * B, keys, rng)
+    records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
     check_text_parse(schema, records)
     ds = SlotDataset(schema)
     ds.records = records
@@ -386,25 +632,28 @@ def main_path(torch, kernels) -> dict[str, int]:
     box = BoxPS(store)
     box.set_date(20261016)
     box.begin_pass()
-    kernels.gather_pool.launches = 0
-    kernels.scatter_accumulate.launches = 0
+    reset_counts(kernels)
     out = tr.train_pass(ds)
-    launches = {"gather_pool": kernels.gather_pool.launches,
-                "scatter_accumulate": kernels.scatter_accumulate.launches}
+    launches = launch_counts(kernels)
     box.end_pass()
     steps = out["steps"]
+    engine = tr.resolved_push_engine(tr.last_ws)
     print(f"main path: steps {steps} | loss first {out['loss_first']:.6f} "
           f"last {out['loss_last']:.6f} mean {out['loss_mean']:.6f} | auc "
           f"{out['auc']:.6f} | {steps * B / out['step_seconds']:.1f} "
           f"examples/s | step {out['step_seconds'] / steps * 1e3:.3f} ms "
           f"(step loop) | pass {out['seconds']:.2f} s | pull "
-          f"{tr.pull_engine} | push {tr.resolved_push_engine(tr.last_ws)} | "
-          f"working set {tr.last_ws.num_keys} keys")
+          f"{tr.pull_engine} | push {engine} | working set "
+          f"{tr.last_ws.num_keys} keys")
     print(f"launches in the main path: {launches}")
-    check(steps == STEPS, f"expected {STEPS} steps, ran {steps}")
+    check(steps == lay.steps, f"expected {lay.steps} steps, ran {steps}")
     check(np.isfinite(out["loss_mean"]), "non-finite loss")
+    check(engine == lay.engine, f"push engine {engine}, expected "
+          f"{lay.engine}")
     for name, n in launches.items():
-        check(n == steps, f"{name} launched {n} times in {steps} steps")
+        want = steps if name in lay.kernels else 0
+        check(n == want, f"{name} launched {n} times in {steps} steps, "
+              f"expected {want}")
     ws_keys = tr.last_ws.sorted_keys
     rows = store.peek_rows(ws_keys)
     check(float(rows[:, 0].astype(np.float64).sum()) == n_tokens,
@@ -414,18 +663,19 @@ def main_path(torch, kernels) -> dict[str, int]:
     print(f"write-back: show counters sum to {n_tokens}, "
           f"{changed * 100:.2f}% of rows changed ok")
     breakdown(torch, tr, ds, out["step_seconds"] / steps * 1e3)
-    return launches
+    if lay is ONEHOT:
+        engine_ab(torch, tr, ds)
+    return {k: launches[k] for k in lay.kernels}
 
 
 def breakdown(torch, tr, ds, loop_ms: float) -> None:
     """Where a main-path step's time goes: the host pack of one batch
-    (translate + dedup plan + pin, the pack thread's work), the device
+    (translate + push plan + pin, the pack thread's work), the device
     step alone on pre-staged batches, the profiler's split of the device
     time by kernel, and the step loop of a second pass with the pack
     inline instead of on its thread. Runs after the main path's launch
     counts are read, on its last working set."""
     from torch.profiler import ProfilerActivity, profile
-    from paddlebox_tpu_torch.native.key_index import dedup_plan
     ws = tr.last_ws
     n = 4
     clock = time.perf_counter
@@ -435,16 +685,16 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
     t1 = clock()
     idxs = [ws.translate(pb.ids, pb.mask) for pb in pbs]
     t2 = clock()
-    for i in idxs:
-        dedup_plan(i.reshape(-1), ws.padded_rows, ws.padded_rows, 1)
+    plans = [tr.host_plan(ws, i) for i in idxs]
     t3 = clock()
     hosts = [tr._pack_host(ws, pb) for pb in pbs]
     t4 = clock()
     host_ms = (t4 - t3) / n * 1e3
     print(f"breakdown, host ms per batch: records.pack "
           f"{(t1 - t0) / n * 1e3:.3f} | translate {(t2 - t1) / n * 1e3:.3f} "
-          f"| dedup plan {(t3 - t2) / n * 1e3:.3f} | the pack thread's "
-          f"_pack_host (translate + plan + pin) {host_ms:.3f}")
+          f"| push plan ({type(plans[0]).__name__}) "
+          f"{(t3 - t2) / n * 1e3:.3f} | the pack thread's _pack_host "
+          f"(translate + plan + pin) {host_ms:.3f}")
     staged = [tr.stage(h) for h in hosts]
     tr.train_step(ws.table, *staged[0])
     torch.cuda.synchronize()
@@ -459,15 +709,32 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
             tr.train_step(ws.table, *s)
         torch.cuda.synchronize()
     # device-side events only: the CPU op rows repeat their kernels' time
-    rows = [(getattr(e, "self_device_time_total", 0) / len(staged) / 1e3,
-             e.key) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    dev_events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and getattr(e, "self_device_time_total", 0) > 0]
+    rows = sorted(((e.self_device_time_total / len(staged) / 1e3, e.key)
+                   for e in dev_events), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    n_dev = sum(e.count for e in dev_events) / len(staged)
+    # host syncs in one step: each one stalls the host until the device
+    # drains, so the dispatch of the rest of the step cannot overlap it
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            tr.train_step(ws.table, *staged[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     print(f"breakdown: device step {dev_ms:.3f} ms (pre-staged, host "
-          f"clock) | profiled device busy {busy_ms:.3f} ms/step | device "
-          f"idle share of the main path's step loop "
+          f"clock) | profiled device busy {busy_ms:.3f} ms/step in "
+          f"{n_dev:.0f} device ops | host syncs per step {len(syncs)} | "
+          f"device idle share of the main path's step loop "
           f"{1 - busy_ms / loop_ms:.3f}")
+    for w in syncs[:3]:
+        print(f"  sync: {str(w.message).splitlines()[0][:120]} "
+              f"({w.filename}:{w.lineno})")
     for ms, name in rows[:12]:
         print(f"  {ms:8.4f} ms/step  {name[:100]}")
     # the same pass with the pack done inline on the step's thread: does
@@ -482,28 +749,80 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
           f"{out['step_seconds'] / out['steps'] * 1e3:.3f} ms/step")
 
 
-def reference_check(torch) -> None:
+def engine_ab(torch, tr, ds) -> None:
+    """The one-hot device step under each push engine, on pre-staged
+    batches that carry that engine's own plan (binned_kernel: block plan;
+    scatter_accumulate: dedup plan, then premerge; xla_scatter: no plan,
+    index_add_ + merge_update), in turns A B C C B A: device ms per step
+    (time_ms: the steps queued behind a sleep, so host dispatch is
+    hidden) and host-clock ms per step (dispatch included, as the step
+    loop pays it)."""
+    from paddlebox_tpu_torch.config import flags
+    ws = tr.last_ws
+    it = ds.batches(B)
+    pbs = [next(it) for _ in range(6)]
+    engines = ("binned_kernel", "scatter_accumulate", "xla_scatter")
+    saved = flags.push_engine
+    staged = {}
+    try:
+        for eng in engines:
+            flags.push_engine = eng
+            check(tr.resolved_push_engine(ws) == eng,
+                  f"forcing {eng} resolved {tr.resolved_push_engine(ws)}")
+            staged[eng] = [tr.stage(tr._pack_host(ws, pb)) for pb in pbs]
+        dev = {e: [] for e in engines}
+        host = {e: [] for e in engines}
+        for eng in (*engines, *reversed(engines)):
+            flags.push_engine = eng
+
+            # one step per timed call: a step is about 250 launches, so
+            # the whole of it queues behind the sleep (several steps
+            # overflow CUDA's queue of pending launches, and then the
+            # host's dispatch paces the device again)
+            dev[eng].append(np.mean([
+                time_ms(functools.partial(tr.train_step, ws.table, *s),
+                        iters=1, warmup=1) for s in staged[eng]]))
+            t0 = time.perf_counter()
+            for s in staged[eng]:
+                tr.train_step(ws.table, *s)
+            torch.cuda.synchronize()
+            host[eng].append((time.perf_counter() - t0) / len(pbs) * 1e3)
+    finally:
+        flags.push_engine = saved
+    for what, times in (("device", dev), ("host clock", host)):
+        print(f"engine A/B, one-hot step on pre-staged batches, {what} "
+              f"ms/step (turns A B C C B A): " + " | ".join(
+                  f"{e} {t[0]:.3f} {t[1]:.3f} (mean {np.mean(t):.3f})"
+                  for e, t in times.items()))
+
+
+def reference_check(torch, lay) -> None:
     """A small pass on the card (kernels) and on the CPU (plain
     versions, the index_add push) from the same params and data."""
     from paddlebox_tpu_torch.data import SlotDataset
     nb, steps = 256, 4
     rng = np.random.default_rng(SEED + 1)
     keys = rng.choice(1 << 40, 4000, replace=False).astype(np.uint64)
-    outs, stores = [], []
+    outs, stores, engines = [], [], []
     for device in ("cuda", "cpu"):
-        store, schema, tr = make_trainer(torch, nb, device)
+        store, schema, tr = make_trainer(torch, lay, nb, device)
         ds = SlotDataset(schema)
         ds.records = make_records(schema, nb * steps, keys,
-                                  np.random.default_rng(SEED + 2))
+                                  np.random.default_rng(SEED + 2),
+                                  lay.max_len)
         outs.append(tr.train_pass(ds))
         stores.append(store)
+        engines.append(tr.resolved_push_engine(tr.last_ws))
     gpu, cpu = outs
+    check(engines == [lay.engine, "xla_scatter"],
+          f"{lay.name}: engines {engines}")
     np.testing.assert_allclose(gpu["loss_mean"], cpu["loss_mean"],
                                **LOSS_TOL)
     check(abs(gpu["auc"] - cpu["auc"]) < 1e-3, "AUC differs card vs CPU")
     np.testing.assert_allclose(stores[0].peek_rows(keys),
                                stores[1].peek_rows(keys), **TABLE_TOL)
-    print(f"reference: card vs CPU on {nb * steps} examples: loss "
+    print(f"reference, {lay.name}: card ({engines[0]}) vs CPU "
+          f"({engines[1]}) on {nb * steps} examples: loss "
           f"{gpu['loss_mean']:.6f} vs {cpu['loss_mean']:.6f}, auc "
           f"{gpu['auc']:.6f} vs {cpu['auc']:.6f}, rows within rtol 1e-3 ok")
 
@@ -513,21 +832,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
     from paddlebox_tpu_torch.ops import kernels
 
     header(torch)
     build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cfg = EmbeddingConfig(dim=DIM, optimizer="adagrad", learning_rate=0.05)
-    table, idx, mask = slice_inputs(torch, cfg, dev, gen)
-    rows = [check_gather_pool(torch, kernels, cfg, table, idx),
-            check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
-                                     gen)]
-    del table, idx, mask
-    launches = main_path(torch, kernels)
-    reference_check(torch)
+    rows = kernel_phase(torch, kernels, dev, gen)
+    launches = {}
+    for lay in (MULTI, ONEHOT):
+        launches.update(main_path(torch, kernels, lay))
+        torch.cuda.empty_cache()
+    for lay in (MULTI, ONEHOT):
+        reference_check(torch, lay)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -31,6 +31,10 @@ class Flags:
     # push merge-engine override: "auto" or one of ops.kernels.PUSH_ENGINES
     # (legacy "kernel"/"scatter"/"fused" spellings normalize)
     push_engine: str = "auto"
+    # enable knob of the binned push engine: "auto" sends narrow raw
+    # token streams on the card to binned_kernel only while this is set
+    # (a forced flags.push_engine="binned_kernel" ignores it)
+    binned_push: bool = True
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):
@@ -46,6 +50,8 @@ class Flags:
                 raw = os.environ[env_key]
                 if field.type in ("int", int):
                     f.set(field.name, int(raw))
+                elif field.type in ("bool", bool):
+                    f.set(field.name, raw.lower() in ("1", "true", "yes"))
                 else:
                     f.set(field.name, raw)
         return f

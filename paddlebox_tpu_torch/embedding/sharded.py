@@ -9,6 +9,8 @@ device; batches carry int32 indices (0 = the all-zero null/padding row).
   sum pool in one kernel (ops.kernels.gather_pool), and
   ``pooled_grad_tokens`` — its backward, the pooled cotangent expanded
   per token;
+- ``BlockPlan`` / ``DedupPlan`` — the two host plans a batch may carry
+  to the push;
 - ``plan_premerge`` — segment-sum per-token push payloads onto one lane
   per unique row, over the host dedup plan;
 - ``push`` — merge duplicates and apply the in-table optimizer through
@@ -19,14 +21,45 @@ The routed multi-shard path is not ported yet (ROADMAP, multi-GPU).
 
 from __future__ import annotations
 
+from typing import Any, Callable, NamedTuple
+
 import torch
 
 from paddlebox_tpu_torch.embedding import gating
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.embedding.optim import apply_updates
 from paddlebox_tpu_torch.ops import kernels
 
 NULL_INDEX = 0  # reserved all-zero row; padding tokens point here
+
+
+class BlockPlan(NamedTuple):
+    """The binned push's host plan (``native.key_index.block_plan``):
+    token positions grouped by the kernel's table super-blocks, and each
+    block's window [rstart, end) into ``order``."""
+    order: Any
+    rstart: Any
+    end: Any
+
+
+class DedupPlan(NamedTuple):
+    """The host dedup plan (``native.key_index.dedup_plan``): tokens
+    sorted by row, the ascending unique rows padded with ascending
+    out-of-range ids, and each unique row's segment end. ``rstart`` /
+    ``end`` are per-super-block windows over the unique lanes when the
+    binned engine consumes them, else None."""
+    order: Any
+    uniq: Any
+    segend: Any
+    rstart: Any = None
+    end: Any = None
+
+
+def map_plan(plan, fn: Callable):
+    """``fn`` over a plan's arrays (None fields and a None plan pass
+    through): numpy → torch, pinning, staging to the device."""
+    if plan is None:
+        return None
+    return type(plan)(*(None if a is None else fn(a) for a in plan))
 
 
 def lookup(table: torch.Tensor, idx: torch.Tensor,
@@ -83,9 +116,7 @@ def plan_premerge(idx: torch.Tensor, grads: torch.Tensor,
     """Device half of the host dedup plan: segment-sum per-token payloads
     onto one lane per unique row.
 
-    plan = (order, uniq, segend) from ``native.key_index.dedup_plan``:
-    tokens sorted by row, the ascending unique rows (padded with
-    ascending out-of-range ids) and each unique row's segment end. The
+    plan : a DedupPlan (its first three fields are read). The
     sum is a prefix sum over the sorted payload differenced at the
     segment ends; it restarts every _CS_BLOCK tokens (block-local cumsum
     plus per-block bases), so a segment's rounding error scales with its
@@ -94,7 +125,7 @@ def plan_premerge(idx: torch.Tensor, grads: torch.Tensor,
 
     Returns (uniq, merged_grads, merged_shows, merged_clks); the merged
     tensors are column views of one (n, grad_width + 2) payload."""
-    order, uniq, segend = plan
+    order, uniq, segend = plan[:3]
     pay = torch.cat([grads, shows[:, None], clks[:, None]], dim=1)
     s_pay = pay.index_select(0, order.long())
     n, Wp = s_pay.shape
@@ -134,7 +165,7 @@ def plan_premerge(idx: torch.Tensor, grads: torch.Tensor,
 
 def push(table: torch.Tensor, idx: torch.Tensor, grads: torch.Tensor,
          shows: torch.Tensor, clks: torch.Tensor, cfg: EmbeddingConfig,
-         plan=None) -> str:
+         plan: BlockPlan | DedupPlan | None = None) -> str:
     """Merge-and-update: apply summed grads + show/clk increments to the
     table IN PLACE; returns the engine that ran.
 
@@ -142,36 +173,35 @@ def push(table: torch.Tensor, idx: torch.Tensor, grads: torch.Tensor,
             zero grads/increments; ids >= n_rows are dropped)
     grads : (n, grad_width) per-token d_w, d_embedx
     shows, clks : (n,) per-token counter increments
-    plan  : the host dedup plan (order, uniq, segend) or None. With a
-            plan the tokens premerge onto unique lanes first, and the
-            resolver may pick the fused ``scatter_accumulate`` kernel.
+    plan  : None, a BlockPlan (the binned engine's token grouping), or a
+            DedupPlan: the tokens premerge onto unique lanes first, the
+            resolver may pick the fused ``scatter_accumulate`` kernel,
+            and the plan's lane windows (if any) feed the binned engine.
 
     Untouched rows keep their exact bits (stateful optimizers would
     otherwise decay state on every row); the null row only ever receives
     zero grads and increments, a fixed point of every optimizer."""
-    premerged = plan is not None
+    premerged = isinstance(plan, DedupPlan)
+    windows = plan if isinstance(plan, BlockPlan) else None
     if premerged:
         idx, grads, shows, clks = plan_premerge(idx, grads, shows, clks,
                                                 plan)
+        if plan.rstart is not None:
+            # the lanes are sorted by row: the windows index them directly
+            windows = (None, plan.rstart, plan.end)
     n_rows, W = table.shape
     engine = kernels.resolve_push_engine(
         cfg, n_rows, premerged=premerged, device_type=table.device.type,
         table_width=W)
     if engine == "scatter_accumulate":
         kernels.scatter_accumulate(table, idx, grads, shows, clks, cfg)
-        return engine
-    # xla_scatter: one index_add_ of the token payload into a per-row
-    # accumulator (out-of-range ids land in a spare last row, dropped),
-    # then the optimizer over the table masked to touched rows
-    gw = cfg.grad_width
-    n = idx.shape[0]
-    payload = torch.cat([grads, shows[:, None], clks[:, None],
-                         grads.new_ones((n, 1))], dim=1)
-    safe = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows).long()
-    acc = table.new_zeros((n_rows + 1, gw + 3)).index_add_(0, safe, payload)
-    acc = acc[:n_rows]
-    touched = acc[:, gw + 2] > 0
-    new_rows = apply_updates(table, acc[:, :gw], acc[:, gw], acc[:, gw + 1],
-                             cfg)
-    table.copy_(torch.where(touched[:, None], new_rows, table))
+    elif engine == "binned_kernel":
+        kernels.binned_push(table, idx, grads, shows, clks, cfg,
+                            plan=windows)
+    else:
+        # xla_scatter: one index_add_ of the token payload into a per-row
+        # accumulator, then the optimizer over the rows it touched
+        acc = kernels.binned_merge_acc_plain(idx, grads, shows, clks, cfg,
+                                             n_rows)
+        kernels.merge_update(table, acc, cfg)
     return engine

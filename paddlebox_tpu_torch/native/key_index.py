@@ -1,4 +1,5 @@
-"""KeyIndex and dedup_plan — the port of ``native/key_index.py``.
+"""KeyIndex, block_plan and dedup_plan — the port of
+``native/key_index.py``.
 
 The native backend is the port's own copy of ``key_index.cc`` (same
 directory), built with g++ at first use into ``_build/``. When no
@@ -41,6 +42,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ki_lookup_or_insert.argtypes = [c.c_void_p, u64p, c.c_int64, i64p]
     lib.ki_rebuild.restype = None
     lib.ki_rebuild.argtypes = [c.c_void_p, u64p, c.c_int64]
+    lib.pbtpu_block_plan.restype = None
+    lib.pbtpu_block_plan.argtypes = [i32p, c.c_int64, c.c_int32, c.c_int64,
+                                     i32p, i32p, i32p]
     lib.pbtpu_dedup_plan.restype = c.c_int64
     lib.pbtpu_dedup_plan.argtypes = [i32p, c.c_int64, c.c_int64, c.c_int32,
                                      c.c_int64, i32p, i32p, i32p, i32p,
@@ -68,6 +72,41 @@ def get_lib() -> ctypes.CDLL | None:
                 lib = None
         _lib_cache.append(lib)
         return lib
+
+
+def block_plan(idx: np.ndarray, super_block: int, n_blocks: int
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Group token row-ids by table super-block (the host half of the
+    binned push).
+
+    Returns (order (n,), rstart (n_blocks,), end (n_blocks,)) int32:
+    block b's tokens are ``order[first_b:end[b]]``, and ``rstart[b]`` is
+    ``first_b`` rounded down to a multiple of 8, so a window may begin
+    with up to 7 tokens of earlier blocks. Ids outside the blocks clip
+    into the first or last block (the kernel's row-range check drops
+    them). A stable counting sort, so within a block tokens keep their
+    batch order."""
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    n = len(idx)
+    if n_blocks < 1 or super_block < 1:
+        raise ValueError("block_plan needs n_blocks >= 1, super_block >= 1")
+    lib = get_lib()
+    if lib is not None:
+        order = np.empty(n, np.int32)
+        rstart = np.empty(n_blocks, np.int32)
+        end = np.empty(n_blocks, np.int32)
+        lib.pbtpu_block_plan(idx, n, super_block, n_blocks, order, rstart,
+                             end)
+        return order, rstart, end
+    # the native sort divides truncating toward zero: negative ids land
+    # in block 0 there and here
+    bk = np.clip(idx // super_block, 0, n_blocks - 1)
+    order = np.argsort(bk, kind="stable").astype(np.int32)
+    counts = np.bincount(bk, minlength=n_blocks)
+    ends = np.cumsum(counts)
+    starts = ends - counts
+    return (order, ((starts // 8) * 8).astype(np.int32),
+            ends.astype(np.int32))
 
 
 def dedup_plan(idx: np.ndarray, n_rows: int, super_block: int,

@@ -1,8 +1,7 @@
-"""The training step's two Hopper kernels, their plain versions, and the
-push-engine resolver — the port of ``ops/pallas_kernels.py``'s
-``gather_pool`` and ``scatter_accumulate`` (the JAX package's other two
-Pallas kernels, ``binned_merge_acc`` and ``merge_update``, are ROADMAP
-slice 2).
+"""The training step's four Hopper kernels, their plain versions, and
+the push-engine resolver — the port of ``ops/pallas_kernels.py``'s
+``gather_pool``, ``scatter_accumulate``, ``binned_merge_acc`` and
+``merge_update``.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``, compiled with
 nvcc into its own shared library with a plain C interface at first use
@@ -20,11 +19,14 @@ means the same thing in both packages):
 
 - ``scatter_accumulate`` — the kernel: premerged unique lanes gather
   exactly their rows, update, and write back once;
+- ``binned_kernel`` — ``binned_push``: the ``binned_merge_acc`` kernel
+  builds the per-row accumulator from the token stream (grouped by table
+  super-block on the host plan, or on the device without one), then the
+  ``merge_update`` kernel applies the optimizer to the touched rows;
 - ``xla_scatter`` — ``index_add_`` of the token payload into a full
-  (n_rows, grad_width + 3) accumulator, then the masked ``apply_updates``
-  over the table (the JAX package's non-Pallas engine, kept under its
-  name);
-- ``binned_kernel`` — not ported yet; forcing it raises.
+  (n_rows, grad_width + 3) accumulator (``binned_merge_acc_plain``),
+  then ``merge_update`` (the JAX package's non-Pallas engine, kept under
+  its name).
 """
 
 from __future__ import annotations
@@ -44,13 +46,19 @@ from paddlebox_tpu_torch.native import build as build_lib
 
 CSRC_DIR = os.path.join(build_lib.PKG_DIR, "csrc")
 KERNEL_SOURCES = {"gather_pool": "gather_pool.cu",
-                  "scatter_accumulate": "scatter_accumulate.cu"}
+                  "scatter_accumulate": "scatter_accumulate.cu",
+                  "binned_merge_acc": "binned_merge_acc.cu",
+                  "merge_update": "merge_update.cu"}
 KERNEL_HEADERS = ("apply_updates.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-# row-width cap of scatter_accumulate (16 columns per warp lane)
+# row-width cap of scatter_accumulate and merge_update (16 columns per
+# warp lane, csrc/apply_updates.cuh)
 SA_MAX_WIDTH = 512
+# shared memory a binned_merge_acc block may hold its (SB, P) accumulator
+# in: 2048 rows at the dim-8 headline's P = 12
+BINNED_SMEM_BYTES = 96 * 1024
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -79,10 +87,17 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.pbt_gather_pool
         fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, p, i32, f32, f32,
                        f32, i32, i32, p, p]
-    else:
+    elif name == "scatter_accumulate":
         fn = lib.pbt_scatter_accumulate
         fn.argtypes = [p, i64, i32, p, p, p, i64, p, i64, p, i64, i64, i32,
                        c.POINTER(RowLayout), p]
+    elif name == "binned_merge_acc":
+        fn = lib.pbt_binned_merge_acc
+        fn.argtypes = [p, p, i64, p, i64, p, i64, p, p, p, i64, i32, i32, p,
+                       p]
+    else:
+        fn = lib.pbt_merge_update
+        fn.argtypes = [p, i64, i32, p, i32, i32, c.POINTER(RowLayout), p]
     fn.restype = c.c_int
     err = getattr(lib, f"pbt_{name}_error")
     err.argtypes = [c.c_int]
@@ -371,6 +386,207 @@ scatter_accumulate.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# binned_merge_acc
+# ---------------------------------------------------------------------------
+
+def binned_geometry(cfg: EmbeddingConfig, n_rows: int):
+    """(SB, NB) of the binned_merge_acc kernel for an ``n_rows`` table,
+    or None where it has none.
+
+    SB, the table rows one thread block accumulates in shared memory, is
+    the largest power of two with SB * (grad_width + 3) * 4 bytes <=
+    BINNED_SMEM_BYTES, and no more than the table needs; NB = ceil(n_rows
+    / SB). The last block is ragged where SB does not divide n_rows, so a
+    working set needs no row alignment. (The JAX package's geometry,
+    ``_bp_geometry``, is the TPU's: divisible blocks sized for its matrix
+    unit.)"""
+    n_rows = int(n_rows)
+    fit = BINNED_SMEM_BYTES // (4 * (cfg.grad_width + 3))
+    if n_rows < 1 or fit < 1:
+        return None
+    sb = min(1 << (fit.bit_length() - 1), 1 << (n_rows - 1).bit_length())
+    return sb, -(-n_rows // sb)
+
+
+def wide_rows(cfg: EmbeddingConfig) -> bool:
+    """The JAX package's wide push rows: a payload of more than 64 lanes
+    once padded to a multiple of 8 (one lane group in its binned kernel,
+    ``pallas_kernels.lane_groups(...) == 1``). Auto premerges them and
+    keeps them off the binned engine."""
+    return -(-(cfg.grad_width + 3) // 8) * 8 > 64
+
+
+def device_block_plan(idx: torch.Tensor, super_block: int, n_blocks: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The token grouping binned_merge_acc makes on the device when no
+    host plan comes with the batch (``_bp_pack``'s argsort +
+    searchsorted): (order, rstart, end) int32 on idx's device. Negative
+    ids sort before block 0's window and ids past the last block after
+    its window, so no window holds them; ids in the ragged tail of the
+    last block fall in its window and the kernel's row-range check drops
+    them."""
+    s, order = torch.sort(idx.long())
+    edges = torch.arange(n_blocks + 1, dtype=torch.int64,
+                         device=idx.device) * super_block
+    bounds = torch.searchsorted(s, edges).to(torch.int32)
+    return (order.to(torch.int32), bounds[:-1].contiguous(),
+            bounds[1:].contiguous())
+
+
+def binned_merge_acc_plain(idx: torch.Tensor, grads: torch.Tensor,
+                           shows: torch.Tensor, clks: torch.Tensor,
+                           cfg: EmbeddingConfig, n_rows: int
+                           ) -> torch.Tensor:
+    """Plain PyTorch statement of the binned_merge_acc kernel: one
+    ``index_add_`` of the token payload [grads, show, clk, 1] into an
+    (n_rows + 1, grad_width + 3) accumulator whose spare last row takes
+    the out-of-range ids, sliced off. This is also the xla_scatter
+    engine's accumulator."""
+    n = idx.shape[0]
+    payload = torch.cat([grads, shows[:, None], clks[:, None],
+                         grads.new_ones((n, 1))], dim=1)
+    safe = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows).long()
+    acc = grads.new_zeros((n_rows + 1, cfg.grad_width + 3))
+    return acc.index_add_(0, safe, payload)[:n_rows]
+
+
+def binned_merge_acc(idx: torch.Tensor, grads: torch.Tensor,
+                     shows: torch.Tensor, clks: torch.Tensor,
+                     cfg: EmbeddingConfig, n_rows: int,
+                     plan=None) -> torch.Tensor:
+    """The binned push's merge half: the (n_rows, grad_width + 3) per-row
+    accumulator [sum of grads, sum of shows, sum of clks, token count]
+    from a token stream with duplicates; ids outside [0, n_rows) are
+    dropped.
+
+    idx : (n,) int32; grads (n, grad_width), shows / clks (n,) f32
+    plan : the grouping of tokens by binned_geometry's super-blocks —
+        (order, rstart, end) from ``native.key_index.block_plan``, or
+        (None, rstart, end) windows over lanes already sorted by row (the
+        dedup plan's) — or None to group on the device
+        (device_block_plan). The plain version needs no grouping.
+    Grad columns are f32 sums in an order that varies from run to run;
+    the show, clk and count columns are exact."""
+    geom = binned_geometry(cfg, n_rows)
+    _require(geom is not None,
+             f"binned_merge_acc has no geometry for {n_rows} rows of "
+             f"grad_width {cfg.grad_width}")
+    n = idx.shape[0]
+    gw = cfg.grad_width
+    _require(grads.shape == (n, gw) and shows.shape == (n,)
+             and clks.shape == (n,), "payload shapes do not match idx")
+    if idx.device.type == "cpu":
+        return binned_merge_acc_plain(idx, grads, shows, clks, cfg, n_rows)
+    _require_cuda("binned_merge_acc", idx.device, grads=grads, shows=shows,
+                  clks=clks)
+    _require(idx.dtype == torch.int32 and idx.is_contiguous(),
+             "idx must be contiguous int32")
+    for k, t in (("grads", grads), ("shows", shows), ("clks", clks)):
+        _require(t.dtype == torch.float32, f"{k} must be float32")
+    _require(grads.stride(1) == 1, "grads columns must be contiguous")
+    SB, NB = geom
+    if plan is None:
+        plan = device_block_plan(idx, SB, NB)
+    order, rstart, end = plan
+    parts = [("rstart", rstart, NB), ("end", end, NB)]
+    if order is not None:
+        parts.append(("order", order, n))
+    for k, t, size in parts:
+        _require(t.shape == (size,) and t.dtype == torch.int32
+                 and t.is_contiguous() and t.device == idx.device,
+                 f"plan {k} must be contiguous int32 ({size},) on "
+                 f"{idx.device}")
+    acc = torch.empty((n_rows, gw + 3), dtype=torch.float32,
+                      device=idx.device)
+    lib = _lib("binned_merge_acc")
+    with torch.cuda.device(idx.device):
+        code = lib.pbt_binned_merge_acc(
+            idx.data_ptr(), grads.data_ptr(), grads.stride(0),
+            shows.data_ptr(), shows.stride(0), clks.data_ptr(),
+            clks.stride(0), None if order is None else order.data_ptr(),
+            rstart.data_ptr(), end.data_ptr(), n_rows, SB, gw,
+            acc.data_ptr(), _stream(idx))
+    _check_launch("binned_merge_acc", code)
+    binned_merge_acc.launches += 1
+    return acc
+
+
+binned_merge_acc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# merge_update
+# ---------------------------------------------------------------------------
+
+def merge_update_plain(table: torch.Tensor, acc: torch.Tensor,
+                       cfg: EmbeddingConfig) -> torch.Tensor:
+    """Plain PyTorch statement of the merge_update kernel:
+    ``apply_updates`` over the whole table, kept where the touch count is
+    > 0 (in place); returns ``table``."""
+    gw = cfg.grad_width
+    new_rows = apply_updates(table, acc[:, :gw], acc[:, gw], acc[:, gw + 1],
+                             cfg)
+    touched = acc[:, gw + 2] > 0
+    return table.copy_(torch.where(touched[:, None], new_rows, table))
+
+
+def merge_update(table: torch.Tensor, acc: torch.Tensor,
+                 cfg: EmbeddingConfig) -> torch.Tensor:
+    """The masked optimizer pass: apply the accumulated push to every row
+    whose touch count ``acc[:, grad_width + 2]`` is > 0, in place.
+
+    table : (n_rows, W) f32, W >= cfg.row_width (pad columns pass
+            through); on the card W <= 512
+    acc   : (n_rows, grad_width + 3) f32 [summed grads, show, clk, count]
+    Returns ``table``; rows with no touch keep their exact bits. (The
+    JAX kernel returns a new table.)"""
+    _require(table.ndim == 2 and table.dtype == torch.float32,
+             "table must be a 2-D float32 tensor")
+    n_rows, W = table.shape
+    _require(W >= cfg.row_width, f"table width {W} < row_width")
+    _require(acc.shape == (n_rows, cfg.grad_width + 3),
+             f"acc must be ({n_rows}, {cfg.grad_width + 3}), got "
+             f"{tuple(acc.shape)}")
+    if table.device.type == "cpu":
+        return merge_update_plain(table, acc, cfg)
+    _require_cuda("merge_update", table.device, acc=acc)
+    _require(W <= SA_MAX_WIDTH,
+             f"merge_update needs width <= {SA_MAX_WIDTH}, got {W}")
+    _require(table.is_contiguous(), "table must be contiguous")
+    _require(acc.dtype == torch.float32 and acc.is_contiguous(),
+             "acc must be contiguous float32")
+    if n_rows == 0:
+        return table
+    lib = _lib("merge_update")
+    layout = row_layout(cfg)
+    with torch.cuda.device(table.device):
+        code = lib.pbt_merge_update(
+            table.data_ptr(), n_rows, W, acc.data_ptr(), acc.shape[1],
+            OPTIMIZER_CODES[cfg.optimizer], ctypes.byref(layout),
+            _stream(table))
+    _check_launch("merge_update", code)
+    merge_update.launches += 1
+    return table
+
+
+merge_update.launches = 0
+
+
+def binned_push(table: torch.Tensor, idx: torch.Tensor,
+                grads: torch.Tensor, shows: torch.Tensor,
+                clks: torch.Tensor, cfg: EmbeddingConfig,
+                plan=None) -> torch.Tensor:
+    """The binned_kernel push engine, in place: binned_merge_acc, then
+    merge_update. Same contract as the JAX package's ``binned_push``
+    (duplicates merged before the optimizer, out-of-range ids dropped,
+    untouched rows bit-identical) up to f32 summation order; ``plan`` as
+    for binned_merge_acc. Returns ``table``."""
+    acc = binned_merge_acc(idx, grads, shows, clks, cfg, table.shape[0],
+                           plan=plan)
+    return merge_update(table, acc, cfg)
+
+
+# ---------------------------------------------------------------------------
 # push-engine registry + resolver
 # ---------------------------------------------------------------------------
 
@@ -386,19 +602,13 @@ def normalize_push_engine(eng: str) -> str:
 
 
 def push_engine_flag() -> str:
-    """The validated ``flags.push_engine``; a forced ``binned_kernel``
-    raises until that kernel is ported."""
+    """The validated ``flags.push_engine``."""
     eng = normalize_push_engine(flags.push_engine)
     if eng != "auto" and eng not in PUSH_ENGINES:
         raise ValueError(
             f"push_engine={flags.push_engine!r} (want 'auto', one of "
             f"{PUSH_ENGINES}, or the legacy 'kernel'/'scatter'/'fused' "
             f"aliases)")
-    if eng == "binned_kernel":
-        raise ValueError(
-            "push_engine='binned_kernel': the binned merge kernel is not "
-            "ported to the GPU yet (ROADMAP slice 2); use 'auto', "
-            "'scatter_accumulate' or 'xla_scatter'")
     return eng
 
 
@@ -410,18 +620,32 @@ def resolve_push_engine(cfg: EmbeddingConfig, n_rows: int, *,
 
     premerged : the lanes reaching the engine are one-lane-per-unique-row
         (the dedup pre-merge's output); the fused engine requires it.
-    Auto: premerged f32 lanes on the card take ``scatter_accumulate``;
-    everything else, the CPU included (as the JAX package off-TPU), takes
-    ``xla_scatter``. A forced ``scatter_accumulate`` engages wherever its
-    lane contract holds (on the CPU through its plain version)."""
+    Auto on the card: premerged f32 lanes take ``scatter_accumulate``;
+    narrow raw token streams (not wide_rows) take ``binned_kernel`` while
+    ``flags.binned_push`` is set; the rest take ``xla_scatter``. Off the
+    card auto is ``xla_scatter``, as the JAX package's is off-TPU. A
+    forced engine engages wherever its contract holds, on the CPU
+    through the plain versions: ``scatter_accumulate`` needs premerged
+    lanes, ``binned_kernel`` a binned_geometry (and ignores
+    ``flags.binned_push``: an enable knob must not void an explicit
+    force). Both kernels that update rows in place cap the width at
+    SA_MAX_WIDTH."""
     eng = push_engine_flag()
     width = int(table_width) if table_width is not None else cfg.row_width
-    sa_ok = (premerged and cfg.storage == "f32"
-             and scatter_accumulate_supported(n_rows, width))
+    f32 = cfg.storage == "f32"
+    sa_ok = premerged and f32 and scatter_accumulate_supported(n_rows, width)
+    binned_ok = (f32 and width <= SA_MAX_WIDTH
+                 and binned_geometry(cfg, n_rows) is not None)
     if eng == "xla_scatter":
         return "xla_scatter"
     if eng == "scatter_accumulate":
         return "scatter_accumulate" if sa_ok else "xla_scatter"
-    if sa_ok and device_type == "cuda":
+    if eng == "binned_kernel":
+        return "binned_kernel" if binned_ok else "xla_scatter"
+    if device_type != "cuda":
+        return "xla_scatter"
+    if sa_ok:
         return "scatter_accumulate"
+    if flags.binned_push and binned_ok and not wide_rows(cfg):
+        return "binned_kernel"
     return "xla_scatter"

@@ -39,7 +39,7 @@ from paddlebox_tpu_torch.embedding import sharded
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import PassWorkingSet
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
-from paddlebox_tpu_torch.native.key_index import dedup_plan
+from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
 from paddlebox_tpu_torch.ops.seqpool_cvm import PooledSlots
 from paddlebox_tpu_torch.train import optimizers
@@ -84,11 +84,14 @@ class Trainer:
         self.dense_opt = optimizers.make(self.cfg.dense_optimizer,
                                          self.cfg.dense_lr, self.params)
         self.pull_engine = self._select_pull_engine()
-        # the host dedup plan: always on the card (the fused push engine
-        # consumes premerged lanes), and wherever the fused engine is
-        # forced (the CPU-parity knob, as in the JAX package)
-        fused_forced = kernels.push_engine_flag() == "scatter_accumulate"
-        self._use_plan = self.device.type == "cuda" or fused_forced
+        # host push plans (block or dedup plan, built on the pack thread):
+        # on the card while the binned engine is enabled, and wherever a
+        # plan-consuming engine is forced (the CPU-parity knob), as in the
+        # JAX package with the card in place of the TPU
+        forced = kernels.push_engine_flag()
+        self._use_plan = ((self.device.type == "cuda" and flags.binned_push)
+                          or forced in ("scatter_accumulate",
+                                        "binned_kernel"))
         self._seg = torch.as_tensor(self.layout.segment_ids,
                                     dtype=torch.int64, device=self.device)
         self.global_step = 0
@@ -131,14 +134,20 @@ class Trainer:
 
     def _dedup_premerge(self) -> bool:
         """Whether the host plan carries the dedup pre-merge
-        (flags.push_dedup_premerge). "auto" premerges every batch that
-        gets a plan — on the card, and wherever the fused engine is
-        forced. (On the card this is an interim choice until the binned
-        engine is measured there: ROADMAP slice 2.)"""
+        (flags.push_dedup_premerge). "auto" follows the JAX rule:
+        premerge multi-hot batches (duplicate-heavy) and wide rows
+        (kernels.wide_rows), and always under a forced fused engine,
+        which consumes premerged lanes only; one-hot narrow batches push
+        their raw tokens."""
         dd = flags.push_dedup_premerge
         if dd not in ("auto", "on", "off"):
             raise ValueError(f"push_dedup_premerge={dd!r}")
-        return dd != "off"
+        if dd != "auto":
+            return dd == "on"
+        if kernels.push_engine_flag() == "scatter_accumulate":
+            return True
+        multi_hot = self.layout.total_len > self.layout.num_slots
+        return multi_hot or kernels.wide_rows(self.store.cfg)
 
     def push_premerged(self) -> bool:
         return self._use_plan and self._dedup_premerge()
@@ -162,29 +171,46 @@ class Trainer:
         dense = np.concatenate([floats[:, :lc], floats[:, lc + lw:]], axis=1)
         return labels, dense
 
+    def host_plan(self, ws: PassWorkingSet, idx: np.ndarray
+                  ) -> sharded.BlockPlan | sharded.DedupPlan | None:
+        """The push plan of one batch's translated ids, as numpy arrays: a
+        DedupPlan when the batch premerges (with lane windows at the
+        binned geometry when the binned engine consumes them), a
+        BlockPlan when the binned engine takes the raw tokens, else
+        None."""
+        if not self._use_plan:
+            return None
+        flat = idx.reshape(-1)
+        n_rows = ws.padded_rows
+        geom = None
+        if self.resolved_push_engine(ws) == "binned_kernel":
+            geom = kernels.binned_geometry(self.store.cfg, n_rows)
+        if self.push_premerged():
+            # the counting sort needs a block granularity even without
+            # windows: one whole-table block
+            o, u, s, r, e = dedup_plan(flat, n_rows, *(geom or (n_rows, 1)))
+            return (sharded.DedupPlan(o, u, s, r, e) if geom
+                    else sharded.DedupPlan(o, u, s))
+        if geom is None:
+            return None
+        return sharded.BlockPlan(*block_plan(flat, *geom))
+
     def pack_arrays(self, ws: PassWorkingSet, idx: np.ndarray,
                     mask: np.ndarray, dense: np.ndarray,
                     labels: np.ndarray) -> tuple:
         """Host tensors for one step: (idx, mask, dense, labels, plan);
-        plan is the dedup plan (order, uniq, segend) or None. Pinned when
-        the step runs on the card, so the copy can overlap compute."""
-        plan = None
-        if self.push_premerged():
-            o, u, s, _, _ = dedup_plan(idx.reshape(-1), ws.padded_rows,
-                                       ws.padded_rows, 1)
-            plan = (o, u, s)
+        plan is host_plan's. Pinned when the step runs on the card, so
+        the copy can overlap compute."""
         arrays = (np.ascontiguousarray(idx, np.int32),
                   np.ascontiguousarray(mask, bool),
                   np.ascontiguousarray(dense, np.float32),
                   np.ascontiguousarray(labels, np.float32))
         host = [torch.from_numpy(a) for a in arrays]
-        plan_t = (None if plan is None
-                  else tuple(torch.from_numpy(a) for a in plan))
+        plan = sharded.map_plan(self.host_plan(ws, idx), torch.from_numpy)
         if self.device.type == "cuda":
             host = [t.pin_memory() for t in host]
-            if plan_t is not None:
-                plan_t = tuple(t.pin_memory() for t in plan_t)
-        return (*host, plan_t)
+            plan = sharded.map_plan(plan, torch.Tensor.pin_memory)
+        return (*host, plan)
 
     def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch) -> tuple:
         idx = ws.translate(pb.ids, pb.mask)
@@ -199,9 +225,7 @@ class Trainer:
             return t.to(dev, non_blocking=True)
 
         *arrays, plan = host
-        staged = [put(t) for t in arrays]
-        staged.append(None if plan is None else tuple(put(t) for t in plan))
-        return tuple(staged)
+        return (*(put(t) for t in arrays), sharded.map_plan(plan, put))
 
     def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int):
         """Yield each batch's staged tensors, with the pack (translate +

@@ -169,20 +169,37 @@ def test_scatter_accumulate_pad_never_clobbers_row0():
 def test_push_engine_resolver(monkeypatch):
     from paddlebox_tpu_torch.config import flags
     cfg = EmbeddingConfig(dim=32)
+    wide = EmbeddingConfig(dim=64)
     r = kernels.resolve_push_engine
     monkeypatch.setattr(flags, "push_engine", "auto")
     assert r(cfg, 100, premerged=True, device_type="cuda") == \
         "scatter_accumulate"
+    # narrow raw token streams on the card: the binned engine, while
+    # flags.binned_push enables it; wide rows keep the scatter
+    assert r(cfg, 100, premerged=False, device_type="cuda") == \
+        "binned_kernel"
+    assert r(wide, 100, premerged=False, device_type="cuda") == \
+        "xla_scatter"
+    monkeypatch.setattr(flags, "binned_push", False)
     assert r(cfg, 100, premerged=False, device_type="cuda") == "xla_scatter"
+    monkeypatch.setattr(flags, "binned_push", True)
+    assert r(cfg, 100, premerged=False, device_type="cpu") == "xla_scatter"
     assert r(cfg, 100, premerged=True, device_type="cpu") == "xla_scatter"
     assert r(cfg, 100, premerged=True, device_type="cuda",
              table_width=600) == "xla_scatter"
     monkeypatch.setattr(flags, "push_engine", "fused")
     assert r(cfg, 100, premerged=True, device_type="cpu") == \
         "scatter_accumulate"
-    monkeypatch.setattr(flags, "push_engine", "binned_kernel")
-    with pytest.raises(ValueError, match="slice 2"):
-        r(cfg, 100, premerged=True, device_type="cuda")
+    # a forced binned engine engages wherever its geometry exists (on the
+    # CPU through the plain versions), premerged lanes and wide rows too,
+    # whatever flags.binned_push says
+    monkeypatch.setattr(flags, "push_engine", "kernel")
+    monkeypatch.setattr(flags, "binned_push", False)
+    for c, premerged in ((cfg, False), (cfg, True), (wide, False)):
+        assert r(c, 100, premerged=premerged, device_type="cpu") == \
+            "binned_kernel"
+    assert r(cfg, 100, premerged=False, device_type="cuda",
+             table_width=600) == "xla_scatter"
     monkeypatch.setattr(flags, "push_engine", "bogus")
     with pytest.raises(ValueError):
         r(cfg, 100, premerged=True, device_type="cuda")

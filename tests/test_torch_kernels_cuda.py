@@ -6,8 +6,11 @@ dependencies are installed, without the JAX harness in tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: gather_pool rtol 1e-6 / atol 1e-6, scatter_accumulate
-rtol 1e-5 / atol 1e-6 (the reference kernel tests'); rows no lane names
-keep their exact bits.
+rtol 1e-5 / atol 1e-6, merge_update rtol 1e-6 / atol 1e-6 (the reference
+kernel tests'); binned_merge_acc's grad columns atol 2e-5 / rtol 1e-4
+(test_binned_push.py's: shared-memory atomics sum in a varying order)
+and its show, clk and count columns exactly; rows no lane names keep
+their exact bits.
 """
 
 import os
@@ -19,7 +22,7 @@ import torch
 
 from paddlebox_tpu_torch.embedding import sharded
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.native.key_index import dedup_plan
+from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -145,3 +148,137 @@ def test_wrappers_raise_on_bad_cuda_inputs(card):
             torch.zeros(1, dtype=torch.int32, device=card),
             torch.zeros((1, cfg.grad_width), device=card),
             torch.zeros(1, device=card), torch.zeros(1, device=card), cfg)
+
+
+def _raw_tokens(cfg, n_rows, n_tok, card, seed, skew=False, bad=False):
+    """A raw token stream on the card; masked tokens (id 0) carry a zero
+    payload, as the trainer's do."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_rows, n_tok)
+    if skew:
+        idx[:n_tok // 2] = rng.integers(0, 20, n_tok // 2)
+    if bad:
+        m = rng.random(n_tok) < 0.1
+        idx[m] = rng.choice([-1, -9, n_rows, n_rows + 3], int(m.sum()))
+    idx = idx.astype(np.int32)
+    grads = rng.normal(scale=0.3, size=(n_tok, cfg.grad_width)).astype(
+        np.float32)
+    shows = (idx != 0).astype(np.float32)
+    clks = (rng.random(n_tok) < 0.3).astype(np.float32) * shows
+    grads[idx == 0] = 0.0
+    return idx, [torch.from_numpy(a).to(card)
+                 for a in (idx, grads, shows, clks)]
+
+
+def _assert_acc(got, want, gw):
+    torch.testing.assert_close(got[:, :gw], want[:, :gw], atol=2e-5,
+                               rtol=1e-4)
+    assert torch.equal(got[:, gw:], want[:, gw:])
+
+
+@pytest.mark.parametrize("plan", ["device", "host", "dedup_lanes"])
+@pytest.mark.parametrize("dim,case", [(8, "uniform"), (8, "skew"),
+                                      (8, "bad"), (32, "bad")])
+def test_binned_merge_acc_kernel_matches_plain(card, plan, dim, case):
+    cfg = EmbeddingConfig(dim=dim, optimizer="adagrad")
+    n_rows = 5003                                # a ragged last block
+    idx, args = _raw_tokens(cfg, n_rows, 20000, card, seed=dim,
+                            skew=case == "skew", bad=case == "bad")
+    SB, NB = kernels.binned_geometry(cfg, n_rows)
+    p = None
+    if plan == "host":
+        p = tuple(torch.from_numpy(a).to(card)
+                  for a in block_plan(idx, SB, NB))
+    elif plan == "dedup_lanes":
+        o, u, s, r, e = dedup_plan(idx, n_rows, SB, NB)
+        d = sharded.DedupPlan(*(torch.from_numpy(a).to(card)
+                                for a in (o, u, s, r, e)))
+        args = list(sharded.plan_premerge(*args, d))
+        p = (None, d.rstart, d.end)
+    want = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
+    n0 = kernels.binned_merge_acc.launches
+    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p)
+    torch.cuda.synchronize()
+    assert kernels.binned_merge_acc.launches == n0 + 1
+    _assert_acc(got, want, cfg.grad_width)
+
+
+def test_binned_merge_acc_kernel_all_pad_batch(card):
+    cfg = EmbeddingConfig(dim=8)
+    n = 4096
+    idx = torch.zeros(n, dtype=torch.int32, device=card)
+    z = torch.zeros((n, cfg.grad_width), device=card)
+    zs = torch.zeros(n, device=card)
+    got = kernels.binned_merge_acc(idx, z, zs, zs, cfg, 3000)
+    torch.cuda.synchronize()
+    want = torch.zeros((3000, cfg.grad_width + 3), device=card)
+    want[0, -1] = n
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad", "adam", "ftrl"])
+@pytest.mark.parametrize("w_num,gated", [(1, False), (2, True)])
+def test_merge_update_kernel_matches_plain(card, opt, w_num, gated):
+    if opt == "ftrl" and w_num > 1:
+        w_num = 1                      # ftrl has no w block
+    kw = dict(dim=16, optimizer=opt, embed_w_num=w_num)
+    if gated:
+        kw.update(expand_dim=8, mf_create_threshold=4.0,
+                  expand_create_threshold=7.0)
+    cfg = EmbeddingConfig(**kw)
+    n_rows = 3000
+    rng = np.random.default_rng(len(opt) + w_num)
+    table = rng.normal(scale=0.5, size=(n_rows, cfg.row_width)).astype(
+        np.float32)
+    table[:, 0] = rng.integers(0, 8, size=n_rows)
+    table[:, cfg.opt_cols] = np.abs(table[:, cfg.opt_cols])
+    table[0] = 0.0
+    idx, args = _raw_tokens(cfg, n_rows, 2000, card, seed=w_num)
+    acc = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
+    t0 = torch.from_numpy(table).to(card)
+    want = kernels.merge_update_plain(t0.clone(), acc, cfg)
+    n0 = kernels.merge_update.launches
+    got = kernels.merge_update(t0.clone(), acc, cfg)
+    torch.cuda.synchronize()
+    assert kernels.merge_update.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(n_rows),
+                                              idx)).to(card)
+    assert torch.equal(got[untouched], t0[untouched])
+    assert bool((got[0] == 0).all())     # touched, zero payload
+
+
+def test_push_engines_launch_their_kernels(card, monkeypatch):
+    """On the card the binned engine runs both kernels once and the
+    xla_scatter engine's update runs merge_update."""
+    from paddlebox_tpu_torch.config import flags
+    cfg = EmbeddingConfig(dim=8)
+    n_rows = 2000
+    t = torch.zeros((n_rows, cfg.row_width), device=card)
+    _, args = _raw_tokens(cfg, n_rows, 3000, card, seed=4)
+    for engine, acc_n, mu_n in (("binned_kernel", 1, 1),
+                                ("xla_scatter", 0, 1)):
+        monkeypatch.setattr(flags, "push_engine", engine)
+        a0 = kernels.binned_merge_acc.launches
+        m0 = kernels.merge_update.launches
+        assert sharded.push(t, *args, cfg) == engine
+        assert kernels.binned_merge_acc.launches == a0 + acc_n
+        assert kernels.merge_update.launches == m0 + mu_n
+    torch.cuda.synchronize()
+
+
+def test_binned_wrappers_raise_on_bad_cuda_inputs(card):
+    cfg = EmbeddingConfig(dim=4)
+    idx = torch.zeros(3, dtype=torch.int64, device=card)
+    g = torch.zeros((3, cfg.grad_width), device=card)
+    s = torch.zeros(3, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.binned_merge_acc(idx, g, s, s, cfg, 10)
+    with pytest.raises(ValueError, match="acc"):
+        kernels.merge_update(torch.zeros((10, cfg.row_width), device=card),
+                             torch.zeros((9, cfg.grad_width + 3),
+                                         device=card), cfg)
+    with pytest.raises(ValueError, match="width"):
+        kernels.merge_update(torch.zeros((10, 600), device=card),
+                             torch.zeros((10, cfg.grad_width + 3),
+                                         device=card), cfg)

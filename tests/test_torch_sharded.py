@@ -112,7 +112,8 @@ def test_plan_premerge_matches_reference(n_tok, dup_mod):
         jnp.asarray(idx), jnp.asarray(grads), jnp.asarray(shows),
         jnp.asarray(clks), tuple(map(jnp.asarray, (o, z, z, u, s))))
     tu, tg, ts, tc = sharded.plan_premerge(
-        _t(idx), _t(grads), _t(shows), _t(clks), (_t(po), _t(pu), _t(ps)))
+        _t(idx), _t(grads), _t(shows), _t(clks),
+        sharded.DedupPlan(_t(po), _t(pu), _t(ps)))
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
@@ -144,7 +145,7 @@ def test_push_matches_reference(engines, engine, opt):
         o, u, s, r, e = jax_dedup_plan(idx, n_rows, n_rows, 1)
         z = np.zeros(0, np.int32)
         jplan = tuple(map(jnp.asarray, (o, z, z, u, s)))
-        tplan = (_t(o), _t(u), _t(s))
+        tplan = sharded.DedupPlan(_t(o), _t(u), _t(s))
     want = np.asarray(jsh.push(jnp.asarray(table), jnp.asarray(idx),
                                jnp.asarray(grads), jnp.asarray(shows),
                                jnp.asarray(clks), jcfg, plan=jplan))
@@ -180,7 +181,7 @@ def test_padded_table_columns_pass_through(monkeypatch):
         plan = None
         if engine == "scatter_accumulate":
             o, u, s, _, _ = dedup_plan(idx, 40, 40, 1)
-            plan = (_t(o), _t(u), _t(s))
+            plan = sharded.DedupPlan(_t(o), _t(u), _t(s))
         assert sharded.push(ws.table, _t(idx), _t(grads), _t(ones),
                             _t(zeros), cfg, plan=plan) == engine
     assert (ws.table[:, cfg.row_width:] == 0).all()

@@ -3,7 +3,7 @@ Trainer's step AND the pure-NumPy golden step (tests/golden_deepfm.py),
 following test_golden_parity._run_pair: same keys, same batches, initial
 params carried from the JAX Trainer (weights.py) and the same
 deterministic table init. 60 steps at max_len 1 and 4, dim 4 and 32
-(and once more through the forced fused push engine), held at
+(and through the forced fused and binned push engines), held at
 golden_deepfm's tolerances (loss rtol 2e-4 / atol 2e-5, table rtol 1e-3
 / atol 2e-5, mlp rtol 2e-3 / atol 2e-5). A 2x sparse learning
 rate injected into the golden must break the loss tolerance. One more
@@ -87,7 +87,10 @@ def _run_pair(emb_dim, max_len, golden_lr_mult=1.0):
     returns (port, jax, golden) loss trajectories plus final states.
     With flags.push_engine forced to scatter_accumulate in both packages
     the steps run the card's push algorithm (host dedup plan → premerge →
-    fused row update) on the CPU."""
+    fused row update) on the CPU; forced to binned_kernel, the port's
+    steps run the binned engine's plain path (host block plan, or
+    premerged lanes for multi-hot batches) while the JAX step resolves
+    xla_scatter off-TPU."""
     jstore, jtr, mesh = _jax(emb_dim, max_len)
     jparams = jax.tree.map(np.asarray, jtr.params)
     store, tr = _port(emb_dim, max_len, jparams)
@@ -124,7 +127,8 @@ def _run_pair(emb_dim, max_len, golden_lr_mult=1.0):
         losses["gold"].append(gold.step(idx, mask, dense, labels))
     return ({k: np.array(v) for k, v in losses.items()}, ws.table.numpy(),
             np.asarray(table), weights.deepfm_params(tr.model),
-            jax.tree.map(np.asarray, jtr.unpack_dense(dstate)[0]), gold)
+            jax.tree.map(np.asarray, jtr.unpack_dense(dstate)[0]), gold,
+            tr.resolved_push_engine(ws))
 
 
 def _assert_params(got, want):
@@ -148,11 +152,15 @@ def push_engine(request):
 
 @pytest.mark.parametrize("emb_dim,max_len,push_engine",
                          [(4, 1, "auto"), (32, 1, "auto"), (4, 4, "auto"),
-                          (32, 4, "auto"), (32, 4, "scatter_accumulate")],
+                          (32, 4, "auto"), (32, 4, "scatter_accumulate"),
+                          (8, 1, "binned_kernel"), (32, 1, "binned_kernel"),
+                          (32, 4, "binned_kernel")],
                          indirect=["push_engine"])
 def test_trajectory_parity(max_len, emb_dim, push_engine):
-    losses, table, jtable, params, jparams, gold = _run_pair(emb_dim,
-                                                             max_len)
+    losses, table, jtable, params, jparams, gold, engine = _run_pair(
+        emb_dim, max_len)
+    if push_engine != "auto":
+        assert engine == push_engine
     for ref in ("jax", "gold"):
         np.testing.assert_allclose(losses["port"], losses[ref], **LOSS_TOL)
     np.testing.assert_allclose(table, jtable, **TABLE_TOL)
