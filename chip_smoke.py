@@ -22,7 +22,11 @@ Phases, each of which exits non-zero on failure:
    staying zero, untouched rows bitwise, exact count columns);
 4. timing — each kernel, its plain version and (where one exists) one
    PyTorch library call computing the same function, with CUDA events,
-   beside the least time the card could take (bound_ms);
+   beside the least time the card could take (bound_ms); the launch
+   choices swept and each checked: scatter_accumulate at every lane group
+   that holds the row, binned_merge_acc at every CTAs-per-super-block
+   count on three streams (uniform, a hot row, per-slot Zipf keys) with
+   each one's ratio to the uniform time;
 5. each layout's main path — HostEmbeddingStore, an in-memory SlotDataset
    of 16 x 8192 examples, BoxPS.begin_pass -> Trainer.train_pass ->
    BoxPS.end_pass with every kernel's launch count reset just before and
@@ -43,6 +47,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,6 +66,8 @@ MERGE_TOL = dict(rtol=1e-6, atol=1e-6)    # test_pallas_kernels.py
 ACC_TOL = dict(rtol=1e-4, atol=2e-5)      # test_binned_push.py
 LOSS_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/golden_deepfm.py
 TABLE_TOL = dict(rtol=1e-3, atol=2e-5)
+ZIPF_A = 1.1                              # per-slot key skew of the
+                                          # binned_merge_acc skew probe
 
 CSRC = "paddlebox_tpu_torch/csrc/"
 TPU = "paddlebox_tpu/ops/pallas_kernels.py:"
@@ -217,9 +224,18 @@ def build() -> None:
     print(f"build: kernels {t1 - t0:.1f} s ({', '.join(sorted(paths))}), "
           f"key index {t2 - t1:.1f} s")
     for name, log in sorted(kernels.build_logs.items()):
+        entry = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the kernel and its template arguments (<OPT, G, CPL>)
+                m = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[a-z]\d+E)+E)?)",
+                              line)
+                entry = m.group(1) if m else "?"
+                if m and m.group(2):
+                    entry += "<" + ",".join(re.findall(
+                        r"L[a-z](\d+)E", m.group(2))) + ">"
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +387,23 @@ def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
     W = table.shape[1]
     scratch = table.clone()
     ms = time_ms(lambda: kernels.scatter_accumulate(scratch, *lanes, cfg))
+    # every lane-group instantiation that holds the row, checked, timed
+    sweep = []
+    for gc in kernels.SA_LANE_GROUPS:
+        if gc[0] * gc[1] < cfg.row_width:
+            continue
+        got_g = kernels.scatter_accumulate(table.clone(), *lanes, cfg,
+                                           lane_group=gc)
+        try:
+            torch.testing.assert_close(got_g, want, **SCATTER_TOL)
+        except AssertionError as e:
+            raise SmokeFailure(f"scatter_accumulate, lane group {gc}: "
+                               f"{e}") from e
+        t_g = time_ms(functools.partial(kernels.scatter_accumulate, scratch,
+                                        *lanes, cfg, lane_group=gc))
+        sweep.append(f"G {gc[0]} x {gc[1]} cols {t_g:.4f} ms")
+    print(f"  lane groups at W {cfg.row_width}, checked ok (default "
+          f"{kernels.sa_lane_group(cfg.row_width)}): " + " | ".join(sweep))
     plain_ms = time_ms(lambda: kernels.scatter_accumulate_plain(
         scratch, *lanes, cfg))
     n = uniq.numel()
@@ -426,6 +459,19 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
         torch.int32).contiguous(), pad_mask, gen)
     n_pad = int((tok_pad[0] == 0).sum())
     check_both(f"{n_pad} pad tokens on row 0", tok_pad)
+    # Criteo-like hot keys: each slot's ids a Zipf(ZIPF_A) draw (numpy,
+    # from SEED) over its own 1/S of the rows, ranks scattered over them
+    rng = np.random.default_rng(SEED)
+    K = (n_rows - 1) // S
+    ranks = np.minimum(rng.zipf(ZIPF_A, (B, S)), K) - 1
+    perm = np.argsort(rng.random((S, K)), axis=1)
+    zrows = 1 + np.arange(S) * K + perm[np.arange(S), ranks]
+    zidx = torch.from_numpy(zrows.reshape(-1).astype(np.int32)).to(
+        idx.device)
+    tok_zipf = (zidx, *tok[1:])
+    z_hot = int(np.bincount(zrows.reshape(-1)).max())
+    check_both(f"Zipf({ZIPF_A}) ids per slot, hottest row {z_hot} tokens",
+               tok_zipf)
     # out-of-range ids (both sides of the table) mixed into the stream
     bad = torch.rand(flat.shape, generator=g2, device=flat.device) < 0.05
     junk = torch.tensor([-1, -77, n_rows, n_rows + 9], dtype=torch.int32,
@@ -451,6 +497,9 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
     plan_pad = host_plan(tok_pad[0])
     ms_pad = time_ms(lambda: kernels.binned_merge_acc(*tok_pad, cfg, n_rows,
                                                       plan=plan_pad))
+    plan_zipf = host_plan(zidx)
+    ms_zipf = time_ms(lambda: kernels.binned_merge_acc(
+        *tok_zipf, cfg, n_rows, plan=plan_zipf))
     plain_ms = time_ms(lambda: kernels.binned_merge_acc_plain(*tok, cfg,
                                                               n_rows))
     payload = torch.cat([tok[1], tok[2][:, None], tok[3][:, None],
@@ -459,8 +508,43 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
     acc0 = torch.zeros((n_rows, gw + 3), device=table.device)
     lib_ms = time_ms(lambda: acc0.index_add_(0, safe, payload))
     print(f"  device grouping (argsort + searchsorted + kernel) "
-          f"{ms_dev:.4f} ms; host plan with {n_pad} pad tokens on row 0 "
-          f"(one block holds them all) {ms_pad:.4f} ms")
+          f"{ms_dev:.4f} ms")
+    # every CTAs-per-super-block size the kernel takes, on each stream:
+    # checked against the plain version, then timed
+    streams = (("uniform", tok, plan), ("hot row", tok_pad, plan_pad),
+               ("Zipf", tok_zipf, plan_zipf))
+    for k in kernels.BINNED_CLUSTER_SIZES:
+        times = []
+        for name, t, p in streams:
+            want = kernels.binned_merge_acc_plain(*t, cfg, n_rows)
+            got = kernels.binned_merge_acc(*t, cfg, n_rows, plan=p, n_cta=k)
+            try:
+                torch.testing.assert_close(got[:, :gw], want[:, :gw],
+                                           **ACC_TOL)
+            except AssertionError as e:
+                raise SmokeFailure(f"binned_merge_acc, {k} CTAs, {name}: "
+                                   f"{e}") from e
+            check(torch.equal(got[:, gw:], want[:, gw:]),
+                  f"binned_merge_acc, {k} CTAs, {name}: show, clk or count "
+                  f"column not exact")
+            times.append(time_ms(functools.partial(
+                kernels.binned_merge_acc, *t, cfg, n_rows, plan=p,
+                n_cta=k)))
+        # empty windows: the zeroing and the accumulator write alone
+        empty = (plan[0], plan[2], plan[2])
+        fixed = time_ms(functools.partial(
+            kernels.binned_merge_acc, *tok, cfg, n_rows, plan=empty,
+            n_cta=k))
+        print(f"  {k} CTA(s) per super-block, host plan, checked ok: "
+              f"uniform {times[0]:.4f} ms | hot row {times[1]:.4f} ms "
+              f"({times[1] / times[0]:.2f}x) | Zipf {times[2]:.4f} ms "
+              f"({times[2] / times[0]:.2f}x) | empty windows (zero + "
+              f"write only) {fixed:.4f} ms")
+    print(f"  streams, host plan: uniform (main path) {ms:.4f} ms | hot row "
+          f"({n_pad} pad tokens on row 0, one window) {ms_pad:.4f} ms = "
+          f"{ms_pad / ms:.2f}x uniform | Zipf({ZIPF_A}) per slot (hottest "
+          f"row {z_hot} tokens) {ms_zipf:.4f} ms = {ms_zipf / ms:.2f}x "
+          f"uniform")
     # least work: each token's id, order entry and gw + 2 payload floats
     # read once, the windows read once, the accumulator written once; one
     # add per accumulator element per token
@@ -735,7 +819,7 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
     for w in syncs[:3]:
         print(f"  sync: {str(w.message).splitlines()[0][:120]} "
               f"({w.filename}:{w.lineno})")
-    for ms, name in rows[:12]:
+    for ms, name in rows[:16]:
         print(f"  {ms:8.4f} ms/step  {name[:100]}")
     # the same pass with the pack done inline on the step's thread: does
     # the pack thread overlap the host work with the device, or contend?

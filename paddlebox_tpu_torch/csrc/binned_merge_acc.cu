@@ -1,5 +1,5 @@
-// Per-row push accumulator from a raw token stream, one super-block of
-// table rows per thread block.
+// Per-row push accumulator from a raw token stream: one super-block of
+// table rows per thread block (or per thread-block cluster).
 //
 // Replaces the TPU kernel paddlebox_tpu/ops/pallas_kernels.py::
 // _binned_acc_kernel (wrapper binned_merge_acc; the token grouping of
@@ -19,8 +19,8 @@
 //         block b's tokens are all among order[rstart[b] .. end[b]).
 //         rstart may be rounded down (the host plans round to a multiple
 //         of 8), so a window can begin with tokens of earlier blocks.
-//   SB    rows per super-block; NB = ceil(n_rows / SB), the last block
-//         may be ragged.
+//   SB    rows per super-block, a power of two; NB = ceil(n_rows / SB),
+//         the last block may be ragged.
 // The row-range check drops the tokens of other blocks at the head of a
 // window and the out-of-range ids that the plans clip into the first or
 // last block; nothing is counted twice.
@@ -28,94 +28,280 @@
 // Bound on an H100: memory. The function must read each token's id, its
 // order entry and its gw + 2 payload floats once and write the
 // (n_rows, P) accumulator once; its n * P adds are nothing beside that.
-// Design: a block zeroes an (SB, P) accumulator in shared memory (SB * P
-// * 4 <= 96 KB, chosen by ops/kernels.py::binned_geometry), walks its
-// token window as (token, column) pairs so neighbouring threads read
-// neighbouring payload columns, adds each into shared memory with
-// atomicAdd (no global atomics and no separate zeroing pass over device
-// memory), and then stores its rows of acc with coalesced writes, so the
-// accumulator crosses device memory exactly once. Shared-memory atomics
-// sum in an order that changes from run to run: the grad columns agree
-// with the plain version to rounding, while the show, clk and count
-// columns are sums of small integers and come out exact.
+// Design:
+// - Threads run over tokens, not (token, column) items. A warp takes 32
+//   tokens per batch, one per lane, and two batches at a time: each lane
+//   loads its tokens' order and id entries once (coalesced), and a
+//   token's row and owner are a mask and a shift of 32-bit values (no
+//   division in the loop).
+// - Duplicate rows merge in the warp before any atomic: when
+//   __match_any_sync finds a row twice in a batch, a bitonic shuffle sort
+//   puts the batch in row order. Then the warp turns: each half of 16
+//   lanes walks 16 of the tokens with its lanes over the payload's
+//   columns, so a token's payload is one coalesced load per array, all 16
+//   tokens' loads are in flight before the first add, and a run of one
+//   row sums in registers and costs one shared-memory atomic per column:
+//   a hot row costs at most two atomics per warp per column.
+// - A super-block's rows live in shared memory, zeroed there, so no pass
+//   zeroes acc in device memory; after the barrier each CTA writes its
+//   rows of acc once, with coalesced 16-byte stores.
+// - n_cta CTAs may share a super-block (a thread-block cluster of 2, 4
+//   or 8): CTA k owns R = SB / n_cta of its rows, walks one even chunk of
+//   the block's token window, and adds into the owning CTA's rows through
+//   distributed shared memory (cluster.map_shared_rank). That splits a
+//   window a hot row makes long over n_cta SMs. Measured on an H100 the
+//   split costs more than it saves (PERF.md: the cluster barriers,
+//   the remote adds and the smaller CTAs), so the wrapper launches one
+//   CTA per super-block unless asked (ops/kernels.py::BINNED_CLUSTER).
+// Shared-memory atomics add in an order that changes from run to run:
+// the grad columns agree with the plain version to rounding, while the
+// show, clk and count columns are sums of small integers and come out
+// exact.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxCluster = 8;    // CTAs per super-block (portable max)
+constexpr int kBlockThreads = 512;  // threads per super-block, all CTAs
+constexpr int kBatches = 2;       // 32-token batches per warp in flight
+constexpr int kHalf = 16;         // lanes over columns per token
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void binned_merge_acc_kernel(
-    const int32_t* __restrict__ idx, const float* __restrict__ grads,
-    int64_t g_stride, const float* __restrict__ shows, int64_t s_stride,
-    const float* __restrict__ clks, int64_t c_stride,
-    const int32_t* __restrict__ order, const int32_t* __restrict__ rstart,
-    const int32_t* __restrict__ end, int64_t n_rows, int32_t SB, int32_t gw,
-    float* __restrict__ acc) {
-  extern __shared__ float sacc[];
-  const int P = gw + 3;
-  const int64_t b = blockIdx.x;
-  const int64_t row0 = b * SB;
-  const int64_t rows = n_rows - row0 < SB ? n_rows - row0 : SB;
-  const int64_t n_sh = rows * P;
-  for (int64_t i = threadIdx.x; i < n_sh; i += blockDim.x) sacc[i] = 0.f;
-  __syncthreads();
-
-  const int64_t t0 = rstart[b];
-  const int64_t work = (static_cast<int64_t>(end[b]) - t0) * P;
-  for (int64_t i = threadIdx.x; i < work; i += blockDim.x) {
-    const int64_t p = t0 + i / P;
-    const int j = static_cast<int>(i % P);
-    const int64_t tok = order != nullptr ? order[p] : p;
-    const int64_t local = static_cast<int64_t>(idx[tok]) - row0;
-    if (local < 0 || local >= rows) continue;
-    float v;
-    if (j < gw) {
-      v = grads[tok * g_stride + j];
-    } else if (j == gw) {
-      v = shows[tok * s_stride];
-    } else if (j == gw + 1) {
-      v = clks[tok * c_stride];
-    } else {
-      v = 1.f;
+// Sort the warp's (key, tok) pairs by key, ascending (bitonic network).
+__device__ __forceinline__ void warp_sort(int& key, int& tok, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int pk = __shfl_xor_sync(kFull, key, j);
+      const int pt = __shfl_xor_sync(kFull, tok, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      if (keep_min ? pk < key : pk > key) {
+        key = pk;
+        tok = pt;
+      }
     }
-    atomicAdd(&sacc[local * P + j], v);
   }
-  __syncthreads();
+}
 
-  float* out = acc + row0 * P;
-  for (int64_t i = threadIdx.x; i < n_sh; i += blockDim.x) out[i] = sacc[i];
+// Walk one sorted-or-distinct batch of 32 tokens (key, tok per lane):
+// half h takes tokens h*16 .. h*16+15 with its lanes over the payload's
+// columns; a run of one row sums in registers and costs one atomic.
+template <typename Add>
+__device__ __forceinline__ void walk_batch(
+    int key, int tok, int lane, int P, int gw,
+    const float* __restrict__ grads, int g_stride,
+    const float* __restrict__ shows, int s_stride,
+    const float* __restrict__ clks, int c_stride, const Add& add) {
+  const int src0 = (lane / kHalf) * kHalf;
+  for (int c0 = 0; c0 < P; c0 += kHalf) {
+    const int j = c0 + lane % kHalf;      // the lane's payload column
+    const bool on = j < P;
+    float x[kHalf];
+    int kk[kHalf];
+#pragma unroll
+    for (int s = 0; s < kHalf; ++s) {
+      kk[s] = __shfl_sync(kFull, key, src0 + s);
+      const int64_t t = __shfl_sync(kFull, tok, src0 + s);
+      float v = 0.f;
+      if (kk[s] >= 0 && on) {
+        if (j < gw) {
+          v = grads[t * g_stride + j];
+        } else if (j == gw) {
+          v = shows[t * s_stride];
+        } else if (j == gw + 1) {
+          v = clks[t * c_stride];
+        } else {
+          v = 1.f;                        // the token count
+        }
+      }
+      x[s] = v;
+    }
+    int cur = kk[0];
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kHalf; ++s) {
+      if (kk[s] != cur) {
+        if (cur >= 0 && on) add(cur, j, sum);
+        cur = kk[s];
+        sum = 0.f;
+      }
+      sum += x[s];
+    }
+    if (cur >= 0 && on) add(cur, j, sum);
+  }
+}
+
+template <bool CLUSTERED>
+__global__ void __launch_bounds__(kBlockThreads) binned_merge_acc_kernel(
+    const int32_t* __restrict__ idx, const float* __restrict__ grads,
+    int g_stride, const float* __restrict__ shows, int s_stride,
+    const float* __restrict__ clks, int c_stride,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ rstart,
+    const int32_t* __restrict__ end, int n_rows, int SB, int rshift,
+    int gw, int n_cta, float* __restrict__ acc) {
+  extern __shared__ float4 sacc4[];               // (R, P), this CTA's rows
+  float* sacc = reinterpret_cast<float*>(sacc4);
+  // n_cta CTAs per super-block, launched as one cluster when CLUSTERED
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = CLUSTERED ? static_cast<int>(cluster.block_rank()) : 0;
+  const int b = blockIdx.x / n_cta;
+  const int threads = blockDim.x;        // kBlockThreads / n_cta
+  const int P = gw + 3;
+  const int R = 1 << rshift;
+  const int row0 = b * SB;
+  const int rows = min(n_rows - row0, SB);           // rows of the block
+  const int mine = max(0, min(rows - rank * R, R));  // rows this CTA owns
+  const int n_sh = mine * P;
+  // the rows' offset in acc is a multiple of 4 floats when R is
+  const bool vec = (R & 3) == 0;
+  const int n_sh4 = vec ? n_sh / 4 : 0;
+  for (int i = threadIdx.x; i < n_sh4; i += threads) {
+    sacc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += threads) {
+    sacc[i] = 0.f;
+  }
+  // every CTA's rows are zero (and every CTA runs) before any remote add
+  if (CLUSTERED) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  // this CTA's chunk of the block's window (ops/kernels.py::
+  // binned_cta_windows states the same split)
+  const int t0 = rstart[b];
+  const int t1 = end[b];
+  const int per = (t1 - t0 + n_cta - 1) / n_cta;
+  const int lo = t0 + rank * per;
+  const int hi = min(t1, lo + per);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // add v at column j of block row r, in the owning CTA's memory
+  auto add = [=](int r, int j, float v) {
+    const int o = (r & (R - 1)) * P + j;
+    if (CLUSTERED) {
+      atomicAdd(cluster.map_shared_rank(
+                    sacc, static_cast<unsigned>(r) >> rshift) + o, v);
+    } else {
+      atomicAdd(sacc + o, v);
+    }
+  };
+  // the bounds are uniform over the warp, so all its lanes iterate
+  // together (the shuffles name all 32)
+  for (int base = lo + warp * 32 * kBatches; base < hi;
+       base += threads * kBatches) {
+    // one token per lane and batch: its order and id entries, its row in
+    // the block (all batches' loads in flight together)
+    int tok[kBatches];
+    int key[kBatches];
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u) {
+      const int p = base + u * 32 + lane;
+      tok[u] = 0;
+      if (p < hi) tok[u] = order != nullptr ? order[p] : p;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u) {
+      const int p = base + u * 32 + lane;
+      key[u] = INT_MIN | lane;     // distinct negative: nothing to add
+      if (p < hi) {
+        // 64-bit difference: an id far below row0 must not wrap into
+        // the block
+        const int64_t d = static_cast<int64_t>(idx[tok[u]]) - row0;
+        if (d >= 0 && d < rows) key[u] = static_cast<int>(d);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u) {
+      // a row in the batch twice or more: sort, so each row's tokens sit
+      // next to each other in the walk
+      const unsigned peers = __match_any_sync(kFull, key[u]);
+      if (!__all_sync(kFull, __popc(peers) == 1)) {
+        warp_sort(key[u], tok[u], lane);
+      }
+      walk_batch(key[u], tok[u], lane, P, gw, grads, g_stride, shows,
+                 s_stride, clks, c_stride, add);
+    }
+  }
+  // every add has landed before any CTA reads its rows out (and before
+  // any CTA exits while others may still address its memory)
+  if (CLUSTERED) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  const int64_t off = (static_cast<int64_t>(row0) + rank * R) * P;
+  float4* out4 = reinterpret_cast<float4*>(acc + off);
+  // plain (write-back) stores: merge_update reads acc next, from L2
+  for (int i = threadIdx.x; i < n_sh4; i += threads) out4[i] = sacc4[i];
+  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += threads) {
+    acc[off + i] = sacc[i];
+  }
 }
 
 }  // namespace
 
+// n_cta: CTAs per super-block (1, 2, 4 or 8; one cluster when > 1);
+// rows_per_cta: R, the rows each of them owns — a power of two with
+// R * n_cta >= SB (ops/kernels.py::binned_rows_per_cta). acc must be
+// 16-byte aligned (torch's allocations are).
 extern "C" int pbt_binned_merge_acc(
     const int32_t* idx, const float* grads, int64_t g_stride,
     const float* shows, int64_t s_stride, const float* clks,
     int64_t c_stride, const int32_t* order, const int32_t* rstart,
-    const int32_t* end, int64_t n_rows, int32_t SB, int32_t gw, float* acc,
-    void* stream) {
+    const int32_t* end, int64_t n_rows, int32_t SB, int32_t n_cta,
+    int32_t rows_per_cta, int32_t gw, float* acc, void* stream) {
   if (n_rows == 0) return 0;
-  if (n_rows < 0 || SB <= 0 || gw < 0)
+  const int R = rows_per_cta;
+  if (n_rows < 0 || n_rows > INT_MAX || SB <= 0 || gw < 0 || R <= 0 ||
+      (R & (R - 1)) != 0 || n_cta < 1 || n_cta > kMaxCluster ||
+      (n_cta & (n_cta - 1)) != 0 || static_cast<int64_t>(R) * n_cta < SB ||
+      (reinterpret_cast<uintptr_t>(acc) & 15) != 0 || g_stride < 0 ||
+      g_stride > INT_MAX || s_stride < 0 || s_stride > INT_MAX ||
+      c_stride < 0 || c_stride > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_blocks = (n_rows + SB - 1) / SB;
-  const int64_t smem = static_cast<int64_t>(SB) * (gw + 3) * 4;
-  if (n_blocks > INT_MAX || smem > INT_MAX)
+  const int64_t smem = static_cast<int64_t>(R) * (gw + 3) * 4;
+  if (n_blocks * n_cta > INT_MAX || smem > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  int rshift = 0;
+  while ((1 << rshift) < R) ++rshift;
+  auto* kernel = n_cta > 1 ? binned_merge_acc_kernel<true>
+                           : binned_merge_acc_kernel<false>;
   if (smem > 48 * 1024) {
     // above 48 KB a block gets dynamic shared memory only on request
     cudaError_t err = cudaFuncSetAttribute(
-        binned_merge_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  binned_merge_acc_kernel<<<static_cast<unsigned>(n_blocks), kThreads,
-                            static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
-      idx, grads, g_stride, shows, s_stride, clks, c_stride, order, rstart,
-      end, n_rows, SB, gw, acc);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_blocks * n_cta));
+  cfg.blockDim = dim3(kBlockThreads / n_cta);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_cta);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_cta > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, idx, grads, static_cast<int>(g_stride),
+      shows, static_cast<int>(s_stride), clks, static_cast<int>(c_stride),
+      order, rstart, end, static_cast<int>(n_rows), SB,
+      rshift, gw, static_cast<int>(n_cta), acc);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,12 @@
 // Bound on an H100: memory. Every row's touch count is read (one 32-byte
 // sector per row, since rows are gw + 3 floats apart), and each touched
 // row reads its acc row and reads and writes its W*4-byte table row; the
-// optimizer's few flops per column are free. Design: one warp per row, so
-// a touched row is one coalesced read and one coalesced write and its
-// means are warp shuffles; an untouched row costs its warp one broadcast
-// load and nothing else.
+// optimizer's few flops per column are free. Design: one warp per row (a
+// lane group of G = 32 in apply_updates.cuh, 16 columns per lane), so a
+// touched row is one coalesced read and one coalesced write and its means
+// are warp shuffles; an untouched row costs its warp one broadcast load
+// and nothing else. (The first design, kept: its per-row scalars are
+// broadcast loads, SCALAR_LOADS in apply_updates.cuh.)
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -42,8 +44,9 @@ __global__ void merge_update_kernel(float* table, int64_t n_rows, int W,
   const float* a = acc + r * P;
   const int gw = P - 3;
   if (!(a[gw + 2] > 0.f)) return;
-  pbt::apply_updates_row<OPT>(table + r * W, W, a, a[gw], a[gw + 1], layout,
-                              lane);
+  pbt::apply_updates_row<OPT, pbt::kWarp, pbt::kMaxCols / pbt::kWarp,
+                         true>(table + r * W, a, a[gw], a[gw + 1], layout,
+                               lane, true);
 }
 
 }  // namespace

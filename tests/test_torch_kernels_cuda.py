@@ -267,6 +267,26 @@ def test_push_engines_launch_their_kernels(card, monkeypatch):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("lane_group", [(8, 4), (8, 8), (16, 8), (32, 16)])
+def test_scatter_accumulate_forced_lane_group(card, lane_group):
+    """A forced lane group runs where its lanes hold the row and raises
+    where they do not, or where no kernel instantiation exists."""
+    cfg = _width_cfg("adagrad", 37)
+    idx, lanes = _lanes(cfg, 300, 900, card, seed=5)
+    t0 = torch.from_numpy(_sa_table(cfg, 300, np.random.default_rng(5))).to(
+        card)
+    if lane_group not in kernels.SA_LANE_GROUPS:
+        with pytest.raises(ValueError, match="lane group"):
+            kernels.scatter_accumulate(t0.clone(), *lanes, cfg,
+                                       lane_group=lane_group)
+        return
+    want = kernels.scatter_accumulate_plain(t0.clone(), *lanes, cfg)
+    got = kernels.scatter_accumulate(t0.clone(), *lanes, cfg,
+                                     lane_group=lane_group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 def test_binned_wrappers_raise_on_bad_cuda_inputs(card):
     cfg = EmbeddingConfig(dim=4)
     idx = torch.zeros(3, dtype=torch.int64, device=card)
@@ -282,3 +302,206 @@ def test_binned_wrappers_raise_on_bad_cuda_inputs(card):
         kernels.merge_update(torch.zeros((10, 600), device=card),
                              torch.zeros((10, cfg.grad_width + 3),
                                          device=card), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the lane-group layout of scatter_accumulate and the cluster split of
+# binned_merge_acc
+# ---------------------------------------------------------------------------
+
+_N_STATE = {"sgd": 0, "adagrad": 2, "adam": 4, "ftrl": 3}
+# row widths on each side of every lane-group boundary (8 | 16 | 32 lanes,
+# 8 | 16 columns a lane), up to the 512-column cap
+_SA_WIDTHS = [13, 37, 64, 65, 128, 129, 256, 257, 512]
+
+
+def _width_cfg(opt, row_width, **kw):
+    cfg = EmbeddingConfig(dim=row_width - 3 - _N_STATE[opt], optimizer=opt,
+                          learning_rate=0.05, **kw)
+    assert cfg.row_width == row_width
+    return cfg
+
+
+def _sa_table(cfg, n_rows, rng):
+    table = rng.normal(scale=0.5, size=(n_rows, cfg.row_width)).astype(
+        np.float32)
+    table[:, 0] = rng.integers(0, 8, size=n_rows)
+    table[:, cfg.opt_cols] = np.abs(table[:, cfg.opt_cols])
+    table[0] = 0.0
+    return table
+
+
+@pytest.mark.parametrize("opt", sorted(_N_STATE))
+@pytest.mark.parametrize("row_width", _SA_WIDTHS)
+def test_scatter_accumulate_kernel_at_group_boundaries(card, opt,
+                                                       row_width):
+    cfg = _width_cfg(opt, row_width, mf_create_threshold=3.0)
+    n_rows = 700
+    rng = np.random.default_rng(row_width)
+    table = _sa_table(cfg, n_rows, rng)
+    idx, lanes = _lanes(cfg, n_rows, 2500, card, seed=row_width + 1)
+    t0 = torch.from_numpy(table).to(card)
+    want = kernels.scatter_accumulate_plain(t0.clone(), *lanes, cfg)
+    n0 = kernels.scatter_accumulate.launches
+    got = kernels.scatter_accumulate(t0.clone(), *lanes, cfg)
+    torch.cuda.synchronize()
+    assert kernels.scatter_accumulate.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(n_rows),
+                                              idx)).to(card)
+    assert torch.equal(got[untouched], t0[untouched])
+
+
+@pytest.mark.parametrize("row_width", [13, 65, 129, 257])
+@pytest.mark.parametrize("n_lanes", [1, 3, 5, 31, 33, 257])
+def test_scatter_accumulate_kernel_ragged_lane_counts(card, row_width,
+                                                      n_lanes):
+    """Lane counts that leave the last warp (or block) part full."""
+    cfg = _width_cfg("adagrad", row_width)
+    n_rows = 400
+    rng = np.random.default_rng(n_lanes)
+    table = _sa_table(cfg, n_rows, rng)
+    idx = np.sort(rng.choice(np.arange(1, n_rows), n_lanes,
+                             replace=False)).astype(np.int32)
+    args = [torch.from_numpy(a).to(card) for a in (
+        idx, rng.normal(scale=0.3, size=(n_lanes, cfg.grad_width)).astype(
+            np.float32), np.ones(n_lanes, np.float32),
+        rng.integers(0, 2, n_lanes).astype(np.float32))]
+    t0 = torch.from_numpy(table).to(card)
+    want = kernels.scatter_accumulate_plain(t0.clone(), *args, cfg)
+    got = kernels.scatter_accumulate(t0.clone(), *args, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    keep = torch.ones(n_rows, dtype=torch.bool, device=card)
+    keep[args[0].long()] = False
+    assert torch.equal(got[keep], t0[keep])
+
+
+@pytest.mark.parametrize("opt", sorted(_N_STATE))
+@pytest.mark.parametrize("row_width", [13, 37, 129, 512])
+def test_scatter_accumulate_kernel_interleaved_pads(card, opt, row_width):
+    """Pads anywhere in the lane list — out-of-range ids on both sides
+    and in-range lanes whose touched flag is 0, between valid lanes —
+    never read or write; row 0 is a real lane with a zero payload."""
+    cfg = _width_cfg(opt, row_width)
+    n_rows, n = 600, 450
+    rng = np.random.default_rng(row_width + len(opt))
+    table = _sa_table(cfg, n_rows, rng)
+    idx = np.sort(rng.choice(n_rows, n, replace=False)).astype(np.int32)
+    idx[0] = 0
+    bad = rng.random(n) < 0.3
+    bad[0] = False
+    idx[bad] = rng.choice([-1, -50, n_rows, n_rows + 7], int(bad.sum()))
+    touched = (rng.random(n) < 0.8).astype(np.float32)
+    touched[0] = 1.0
+    grads = rng.normal(scale=0.3, size=(n, cfg.grad_width)).astype(
+        np.float32)
+    grads[0] = 0.0
+    shows = np.ones(n, np.float32)
+    shows[0] = 0.0
+    clks = np.zeros(n, np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (idx, grads, shows, clks)]
+    tch = torch.from_numpy(touched).to(card)
+    t0 = torch.from_numpy(table).to(card)
+    want = kernels.scatter_accumulate_plain(t0.clone(), *args, cfg,
+                                            touched=tch)
+    got = kernels.scatter_accumulate(t0.clone(), *args, cfg, touched=tch)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    written = (idx >= 0) & (idx < n_rows) & (touched > 0)
+    keep = np.setdiff1d(np.arange(n_rows), idx[written])
+    keep_t = torch.from_numpy(keep).to(card)
+    assert torch.equal(got[keep_t], t0[keep_t])
+    assert bool((got[0] == 0).all())
+    # an all-pad lane list leaves the table bit-identical
+    allpad = [torch.full((n,), n_rows + 1, dtype=torch.int32, device=card),
+              *args[1:]]
+    got0 = kernels.scatter_accumulate(t0.clone(), *allpad, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got0, t0)
+
+
+def _lattice_grads(rng, n_tok, gw):
+    """Multiples of 2^-10 in [-0.5, 0.5): the sums of a hot row's
+    thousands of tokens are exact in f32 in any order, so the kernel is
+    held to the plain version without summation-order slack."""
+    return (rng.integers(-512, 512, size=(n_tok, gw)) / 1024.0).astype(
+        np.float32)
+
+
+def _zipf_tokens(cfg, n_rows, n_tok, card, seed, a=1.1):
+    """A Zipf-skewed token stream over a random permutation of the rows
+    (Criteo-like hot keys), masked tokens on row 0 with a zero payload."""
+    rng = np.random.default_rng(seed)
+    rank = np.minimum(rng.zipf(a, n_tok), n_rows - 1)
+    perm = rng.permutation(np.arange(1, n_rows))
+    idx = perm[rank - 1].astype(np.int32)
+    idx[rng.random(n_tok) < 0.05] = 0
+    grads = _lattice_grads(rng, n_tok, cfg.grad_width)
+    shows = (idx != 0).astype(np.float32)
+    clks = (rng.random(n_tok) < 0.3).astype(np.float32) * shows
+    grads[idx == 0] = 0.0
+    return idx, [torch.from_numpy(a).to(card)
+                 for a in (idx, grads, shows, clks)]
+
+
+def _binned_plan(kind, idx, args, cfg, n_rows, card):
+    SB, NB = kernels.binned_geometry(cfg, n_rows)
+    if kind == "device":
+        return args, None
+    if kind == "host":
+        return args, tuple(torch.from_numpy(a).to(card)
+                           for a in block_plan(idx, SB, NB))
+    o, u, s, r, e = dedup_plan(idx, n_rows, SB, NB)
+    d = sharded.DedupPlan(*(torch.from_numpy(a).to(card)
+                            for a in (o, u, s, r, e)))
+    return list(sharded.plan_premerge(*args, d)), (None, d.rstart, d.end)
+
+
+@pytest.mark.parametrize("n_cta", kernels.BINNED_CLUSTER_SIZES)
+@pytest.mark.parametrize("plan", ["device", "host", "dedup_lanes"])
+@pytest.mark.parametrize("dim", [8, 32])
+def test_binned_merge_acc_kernel_zipf_stream(card, plan, dim, n_cta):
+    cfg = EmbeddingConfig(dim=dim, optimizer="adagrad")
+    n_rows = 20011
+    idx, args = _zipf_tokens(cfg, n_rows, 60000, card, seed=dim)
+    args, p = _binned_plan(plan, idx, args, cfg, n_rows, card)
+    want = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
+    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p, n_cta=n_cta)
+    torch.cuda.synchronize()
+    _assert_acc(got, want, cfg.grad_width)
+    assert torch.equal(got, want)          # lattice grads: sums are exact
+
+
+@pytest.mark.parametrize("n_cta", kernels.BINNED_CLUSTER_SIZES)
+@pytest.mark.parametrize("plan", ["device", "host"])
+@pytest.mark.parametrize("hot", ["first_row", "cta_edge", "last_row"])
+def test_binned_merge_acc_kernel_hot_row_across_split(card, plan, hot,
+                                                      n_cta):
+    """One row holds far more tokens than a CTA has threads, and its
+    tokens fall in every CTA's chunk of the block's window, so every CTA
+    of the cluster adds into the owner's rows; the rows on both sides of
+    a CTA's row range are hot too."""
+    cfg = EmbeddingConfig(dim=8, optimizer="adagrad")
+    n_rows = 9000
+    SB, NB = kernels.binned_geometry(cfg, n_rows)
+    R = kernels.binned_rows_per_cta(SB, n_cta)
+    row = {"first_row": SB, "cta_edge": SB + min(3, n_cta - 1) * R - 1,
+           "last_row": n_rows - 1}[hot]
+    rng = np.random.default_rng(len(hot))
+    n_tok = 30000
+    idx = rng.integers(0, n_rows, n_tok)
+    idx[rng.random(n_tok) < 0.4] = row
+    idx[rng.random(n_tok) < 0.05] = min(row + 1, n_rows - 1)
+    idx = idx.astype(np.int32)
+    grads = _lattice_grads(rng, n_tok, cfg.grad_width)
+    shows = np.ones(n_tok, np.float32)
+    clks = (rng.random(n_tok) < 0.3).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (idx, grads, shows, clks)]
+    args, p = _binned_plan(plan, idx, args, cfg, n_rows, card)
+    want = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
+    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p, n_cta=n_cta)
+    torch.cuda.synchronize()
+    _assert_acc(got, want, cfg.grad_width)
+    assert torch.equal(got, want)          # lattice grads: sums are exact
+    assert int(got[row, -1]) == int((idx == row).sum())
