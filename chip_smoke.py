@@ -22,11 +22,9 @@ Phases, each of which exits non-zero on failure:
    staying zero, untouched rows bitwise, exact count columns);
 4. timing — each kernel, its plain version and (where one exists) one
    PyTorch library call computing the same function, with CUDA events,
-   beside the least time the card could take (bound_ms); the launch
-   choices swept and each checked: scatter_accumulate at every lane group
-   that holds the row, binned_merge_acc at every CTAs-per-super-block
-   count on three streams (uniform, a hot row, per-slot Zipf keys) with
-   each one's ratio to the uniform time;
+   beside the least time the card could take (bound_ms);
+   binned_merge_acc also on a hot row and on per-slot Zipf keys, with
+   each stream's ratio to the uniform (main-path) time;
 5. each layout's main path — HostEmbeddingStore, an in-memory SlotDataset
    of 16 x 8192 examples, BoxPS.begin_pass -> Trainer.train_pass ->
    BoxPS.end_pass with every kernel's launch count reset just before and
@@ -387,23 +385,8 @@ def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
     W = table.shape[1]
     scratch = table.clone()
     ms = time_ms(lambda: kernels.scatter_accumulate(scratch, *lanes, cfg))
-    # every lane-group instantiation that holds the row, checked, timed
-    sweep = []
-    for gc in kernels.SA_LANE_GROUPS:
-        if gc[0] * gc[1] < cfg.row_width:
-            continue
-        got_g = kernels.scatter_accumulate(table.clone(), *lanes, cfg,
-                                           lane_group=gc)
-        try:
-            torch.testing.assert_close(got_g, want, **SCATTER_TOL)
-        except AssertionError as e:
-            raise SmokeFailure(f"scatter_accumulate, lane group {gc}: "
-                               f"{e}") from e
-        t_g = time_ms(functools.partial(kernels.scatter_accumulate, scratch,
-                                        *lanes, cfg, lane_group=gc))
-        sweep.append(f"G {gc[0]} x {gc[1]} cols {t_g:.4f} ms")
-    print(f"  lane groups at W {cfg.row_width}, checked ok (default "
-          f"{kernels.sa_lane_group(cfg.row_width)}): " + " | ".join(sweep))
+    print(f"  lane group at W {cfg.row_width}: (lanes, columns a lane) "
+          f"{kernels.sa_lane_group(cfg.row_width)}")
     plain_ms = time_ms(lambda: kernels.scatter_accumulate_plain(
         scratch, *lanes, cfg))
     n = uniq.numel()
@@ -509,37 +492,6 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
     lib_ms = time_ms(lambda: acc0.index_add_(0, safe, payload))
     print(f"  device grouping (argsort + searchsorted + kernel) "
           f"{ms_dev:.4f} ms")
-    # every CTAs-per-super-block size the kernel takes, on each stream:
-    # checked against the plain version, then timed
-    streams = (("uniform", tok, plan), ("hot row", tok_pad, plan_pad),
-               ("Zipf", tok_zipf, plan_zipf))
-    for k in kernels.BINNED_CLUSTER_SIZES:
-        times = []
-        for name, t, p in streams:
-            want = kernels.binned_merge_acc_plain(*t, cfg, n_rows)
-            got = kernels.binned_merge_acc(*t, cfg, n_rows, plan=p, n_cta=k)
-            try:
-                torch.testing.assert_close(got[:, :gw], want[:, :gw],
-                                           **ACC_TOL)
-            except AssertionError as e:
-                raise SmokeFailure(f"binned_merge_acc, {k} CTAs, {name}: "
-                                   f"{e}") from e
-            check(torch.equal(got[:, gw:], want[:, gw:]),
-                  f"binned_merge_acc, {k} CTAs, {name}: show, clk or count "
-                  f"column not exact")
-            times.append(time_ms(functools.partial(
-                kernels.binned_merge_acc, *t, cfg, n_rows, plan=p,
-                n_cta=k)))
-        # empty windows: the zeroing and the accumulator write alone
-        empty = (plan[0], plan[2], plan[2])
-        fixed = time_ms(functools.partial(
-            kernels.binned_merge_acc, *tok, cfg, n_rows, plan=empty,
-            n_cta=k))
-        print(f"  {k} CTA(s) per super-block, host plan, checked ok: "
-              f"uniform {times[0]:.4f} ms | hot row {times[1]:.4f} ms "
-              f"({times[1] / times[0]:.2f}x) | Zipf {times[2]:.4f} ms "
-              f"({times[2] / times[0]:.2f}x) | empty windows (zero + "
-              f"write only) {fixed:.4f} ms")
     print(f"  streams, host plan: uniform (main path) {ms:.4f} ms | hot row "
           f"({n_pad} pad tokens on row 0, one window) {ms_pad:.4f} ms = "
           f"{ms_pad / ms:.2f}x uniform | Zipf({ZIPF_A}) per slot (hottest "

@@ -1,5 +1,5 @@
 // Per-row push accumulator from a raw token stream: one super-block of
-// table rows per thread block (or per thread-block cluster).
+// table rows per thread block.
 //
 // Replaces the TPU kernel paddlebox_tpu/ops/pallas_kernels.py::
 // _binned_acc_kernel (wrapper binned_merge_acc; the token grouping of
@@ -19,8 +19,8 @@
 //         block b's tokens are all among order[rstart[b] .. end[b]).
 //         rstart may be rounded down (the host plans round to a multiple
 //         of 8), so a window can begin with tokens of earlier blocks.
-//   SB    rows per super-block, a power of two; NB = ceil(n_rows / SB),
-//         the last block may be ragged.
+//   SB    rows per super-block; NB = ceil(n_rows / SB), the last block
+//         may be ragged.
 // The row-range check drops the tokens of other blocks at the head of a
 // window and the out-of-range ids that the plans clip into the first or
 // last block; nothing is counted twice.
@@ -32,8 +32,8 @@
 // - Threads run over tokens, not (token, column) items. A warp takes 32
 //   tokens per batch, one per lane, and two batches at a time: each lane
 //   loads its tokens' order and id entries once (coalesced), and a
-//   token's row and owner are a mask and a shift of 32-bit values (no
-//   division in the loop).
+//   token's row in the block is one subtraction (no division in the
+//   loop).
 // - Duplicate rows merge in the warp before any atomic: when
 //   __match_any_sync finds a row twice in a batch, a bitonic shuffle sort
 //   puts the batch in row order. Then the warp turns: each half of 16
@@ -43,32 +43,25 @@
 //   row sums in registers and costs one shared-memory atomic per column:
 //   a hot row costs at most two atomics per warp per column.
 // - A super-block's rows live in shared memory, zeroed there, so no pass
-//   zeroes acc in device memory; after the barrier each CTA writes its
+//   zeroes acc in device memory; after the barrier the block writes its
 //   rows of acc once, with coalesced 16-byte stores.
-// - n_cta CTAs may share a super-block (a thread-block cluster of 2, 4
-//   or 8): CTA k owns R = SB / n_cta of its rows, walks one even chunk of
-//   the block's token window, and adds into the owning CTA's rows through
-//   distributed shared memory (cluster.map_shared_rank). That splits a
-//   window a hot row makes long over n_cta SMs. Measured on an H100 the
-//   split costs more than it saves (PERF.md: the cluster barriers,
-//   the remote adds and the smaller CTAs), so the wrapper launches one
-//   CTA per super-block unless asked (ops/kernels.py::BINNED_CLUSTER).
+// - A window a hot row makes long stays on one block. Splitting it over a
+//   thread-block cluster (each CTA owning part of the rows, remote adds
+//   through distributed shared memory) evened the streams out on an H100
+//   but was slower in absolute time on every stream, the hot row's
+//   included (PERF.md), so the kernel keeps one block per window.
 // Shared-memory atomics add in an order that changes from run to run:
 // the grad columns agree with the plain version to rounding, while the
 // show, clk and count columns are sums of small integers and come out
 // exact.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kMaxCluster = 8;    // CTAs per super-block (portable max)
-constexpr int kBlockThreads = 512;  // threads per super-block, all CTAs
+constexpr int kBlockThreads = 512;  // threads per super-block
 constexpr int kBatches = 2;       // 32-token batches per warp in flight
 constexpr int kHalf = 16;         // lanes over columns per token
 constexpr unsigned kFull = 0xffffffffu;
@@ -138,66 +131,41 @@ __device__ __forceinline__ void walk_batch(
   }
 }
 
-template <bool CLUSTERED>
 __global__ void __launch_bounds__(kBlockThreads) binned_merge_acc_kernel(
     const int32_t* __restrict__ idx, const float* __restrict__ grads,
     int g_stride, const float* __restrict__ shows, int s_stride,
     const float* __restrict__ clks, int c_stride,
     const int32_t* __restrict__ order, const int32_t* __restrict__ rstart,
-    const int32_t* __restrict__ end, int n_rows, int SB, int rshift,
-    int gw, int n_cta, float* __restrict__ acc) {
-  extern __shared__ float4 sacc4[];               // (R, P), this CTA's rows
+    const int32_t* __restrict__ end, int n_rows, int SB, int gw,
+    float* __restrict__ acc) {
+  extern __shared__ float4 sacc4[];               // (rows, P)
   float* sacc = reinterpret_cast<float*>(sacc4);
-  // n_cta CTAs per super-block, launched as one cluster when CLUSTERED
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = CLUSTERED ? static_cast<int>(cluster.block_rank()) : 0;
-  const int b = blockIdx.x / n_cta;
-  const int threads = blockDim.x;        // kBlockThreads / n_cta
+  const int b = blockIdx.x;
   const int P = gw + 3;
-  const int R = 1 << rshift;
   const int row0 = b * SB;
-  const int rows = min(n_rows - row0, SB);           // rows of the block
-  const int mine = max(0, min(rows - rank * R, R));  // rows this CTA owns
-  const int n_sh = mine * P;
-  // the rows' offset in acc is a multiple of 4 floats when R is
-  const bool vec = (R & 3) == 0;
+  const int rows = min(n_rows - row0, SB);         // rows of the block
+  const int n_sh = rows * P;
+  // the block's offset in acc is a multiple of 4 floats when SB is
+  const bool vec = (SB & 3) == 0;
   const int n_sh4 = vec ? n_sh / 4 : 0;
-  for (int i = threadIdx.x; i < n_sh4; i += threads) {
+  for (int i = threadIdx.x; i < n_sh4; i += kBlockThreads) {
     sacc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += threads) {
+  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += kBlockThreads) {
     sacc[i] = 0.f;
   }
-  // every CTA's rows are zero (and every CTA runs) before any remote add
-  if (CLUSTERED) {
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
-  // this CTA's chunk of the block's window (ops/kernels.py::
-  // binned_cta_windows states the same split)
-  const int t0 = rstart[b];
-  const int t1 = end[b];
-  const int per = (t1 - t0 + n_cta - 1) / n_cta;
-  const int lo = t0 + rank * per;
-  const int hi = min(t1, lo + per);
+  const int lo = rstart[b];
+  const int hi = end[b];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // add v at column j of block row r, in the owning CTA's memory
-  auto add = [=](int r, int j, float v) {
-    const int o = (r & (R - 1)) * P + j;
-    if (CLUSTERED) {
-      atomicAdd(cluster.map_shared_rank(
-                    sacc, static_cast<unsigned>(r) >> rshift) + o, v);
-    } else {
-      atomicAdd(sacc + o, v);
-    }
-  };
+  // add v at column j of block row r
+  auto add = [=](int r, int j, float v) { atomicAdd(sacc + r * P + j, v); };
   // the bounds are uniform over the warp, so all its lanes iterate
   // together (the shuffles name all 32)
   for (int base = lo + warp * 32 * kBatches; base < hi;
-       base += threads * kBatches) {
+       base += kBlockThreads * kBatches) {
     // one token per lane and batch: its order and id entries, its row in
     // the block (all batches' loads in flight together)
     int tok[kBatches];
@@ -231,77 +199,49 @@ __global__ void __launch_bounds__(kBlockThreads) binned_merge_acc_kernel(
                  s_stride, clks, c_stride, add);
     }
   }
-  // every add has landed before any CTA reads its rows out (and before
-  // any CTA exits while others may still address its memory)
-  if (CLUSTERED) {
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
-  const int64_t off = (static_cast<int64_t>(row0) + rank * R) * P;
+  const int64_t off = static_cast<int64_t>(row0) * P;
   float4* out4 = reinterpret_cast<float4*>(acc + off);
   // plain (write-back) stores: merge_update reads acc next, from L2
-  for (int i = threadIdx.x; i < n_sh4; i += threads) out4[i] = sacc4[i];
-  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += threads) {
+  for (int i = threadIdx.x; i < n_sh4; i += kBlockThreads) out4[i] = sacc4[i];
+  for (int i = n_sh4 * 4 + threadIdx.x; i < n_sh; i += kBlockThreads) {
     acc[off + i] = sacc[i];
   }
 }
 
 }  // namespace
 
-// n_cta: CTAs per super-block (1, 2, 4 or 8; one cluster when > 1);
-// rows_per_cta: R, the rows each of them owns — a power of two with
-// R * n_cta >= SB (ops/kernels.py::binned_rows_per_cta). acc must be
-// 16-byte aligned (torch's allocations are).
+// acc must be 16-byte aligned (torch's allocations are).
 extern "C" int pbt_binned_merge_acc(
     const int32_t* idx, const float* grads, int64_t g_stride,
     const float* shows, int64_t s_stride, const float* clks,
     int64_t c_stride, const int32_t* order, const int32_t* rstart,
-    const int32_t* end, int64_t n_rows, int32_t SB, int32_t n_cta,
-    int32_t rows_per_cta, int32_t gw, float* acc, void* stream) {
+    const int32_t* end, int64_t n_rows, int32_t SB, int32_t gw, float* acc,
+    void* stream) {
   if (n_rows == 0) return 0;
-  const int R = rows_per_cta;
-  if (n_rows < 0 || n_rows > INT_MAX || SB <= 0 || gw < 0 || R <= 0 ||
-      (R & (R - 1)) != 0 || n_cta < 1 || n_cta > kMaxCluster ||
-      (n_cta & (n_cta - 1)) != 0 || static_cast<int64_t>(R) * n_cta < SB ||
+  if (n_rows < 0 || n_rows > INT_MAX || SB <= 0 || gw < 0 ||
       (reinterpret_cast<uintptr_t>(acc) & 15) != 0 || g_stride < 0 ||
       g_stride > INT_MAX || s_stride < 0 || s_stride > INT_MAX ||
       c_stride < 0 || c_stride > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_blocks = (n_rows + SB - 1) / SB;
-  const int64_t smem = static_cast<int64_t>(R) * (gw + 3) * 4;
-  if (n_blocks * n_cta > INT_MAX || smem > INT_MAX)
+  const int64_t smem = static_cast<int64_t>(SB) * (gw + 3) * 4;
+  if (n_blocks > INT_MAX || smem > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  int rshift = 0;
-  while ((1 << rshift) < R) ++rshift;
-  auto* kernel = n_cta > 1 ? binned_merge_acc_kernel<true>
-                           : binned_merge_acc_kernel<false>;
   if (smem > 48 * 1024) {
     // above 48 KB a block gets dynamic shared memory only on request
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        binned_merge_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n_blocks * n_cta));
-  cfg.blockDim = dim3(kBlockThreads / n_cta);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(n_cta);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = n_cta > 1 ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, idx, grads, static_cast<int>(g_stride),
-      shows, static_cast<int>(s_stride), clks, static_cast<int>(c_stride),
-      order, rstart, end, static_cast<int>(n_rows), SB,
-      rshift, gw, static_cast<int>(n_cta), acc);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  binned_merge_acc_kernel<<<static_cast<unsigned>(n_blocks), kBlockThreads,
+                            static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(
+      idx, grads, static_cast<int>(g_stride), shows,
+      static_cast<int>(s_stride), clks, static_cast<int>(c_stride), order,
+      rstart, end, static_cast<int>(n_rows), SB, gw, acc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,9 +27,9 @@
 // 16 up to 128, 32 beyond), so each lane holds CPL = ceil(W / G) <= 16
 // columns in registers and a warp updates 32 / G rows at once: more rows
 // in flight per SM, and a pad costs a fraction of a warp. (At W = 37 on
-// an H100, 8 lanes beat 16 and 32: chip_smoke.py times each, PERF.md.) Neighbouring
-// groups take neighbouring lanes, which the dedup plan sorts by row, so
-// a warp's loads land on nearby rows. The per-row scalars are shuffles
+// an H100, 8 lanes beat 16 and 32: PERF.md.) Neighbouring groups take
+// neighbouring lanes, which the dedup plan sorts by row, so a warp's
+// loads land on nearby rows. The per-row scalars are shuffles
 // from the lanes that loaded them and the means are log2(G)-step
 // butterflies inside the group, so a row is one read, a few shuffles and
 // one write.

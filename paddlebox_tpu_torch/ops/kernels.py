@@ -56,16 +56,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # row-width cap of scatter_accumulate and merge_update (16 columns per
 # lane of a 32-lane group, csrc/apply_updates.cuh)
 SA_MAX_WIDTH = 512
-# shared memory a binned_merge_acc cluster may hold its (SB, P)
-# accumulator in: 2048 rows at the dim-8 headline's P = 12
+# shared memory a binned_merge_acc block may hold its (SB, P) accumulator
+# in: 2048 rows at the dim-8 headline's P = 12
 BINNED_SMEM_BYTES = 96 * 1024
-# CTAs per binned_merge_acc super-block (csrc/binned_merge_acc.cu), one
-# of BINNED_CLUSTER_SIZES; more than one launch as a thread-block cluster,
-# each CTA owning SB / n_cta of the rows and walking one even chunk of the
-# block's token window. One by default: on the H100 the cluster split was
-# slower on every stream measured, a hot row's included (PERF.md)
-BINNED_CLUSTER = 1
-BINNED_CLUSTER_SIZES = (1, 2, 4, 8)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -100,8 +93,8 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
                        i32, i32, c.POINTER(RowLayout), p]
     elif name == "binned_merge_acc":
         fn = lib.pbt_binned_merge_acc
-        fn.argtypes = [p, p, i64, p, i64, p, i64, p, p, p, i64, i32, i32, i32,
-                       i32, p, p]
+        fn.argtypes = [p, p, i64, p, i64, p, i64, p, p, p, i64, i32, i32, p,
+                       p]
     else:
         fn = lib.pbt_merge_update
         fn.argtypes = [p, i64, i32, p, i32, i32, c.POINTER(RowLayout), p]
@@ -314,16 +307,13 @@ def scatter_accumulate_supported(n_rows: int, table_width: int) -> bool:
     return n_rows > 0 and 0 < table_width <= SA_MAX_WIDTH
 
 
-# the (G, CPL) instantiations of csrc/scatter_accumulate.cu
-SA_LANE_GROUPS = ((8, 8), (16, 8), (32, 8), (32, 16))
-
-
 def sa_lane_group(row_width: int) -> tuple[int, int]:
     """(G, CPL): the lanes scatter_accumulate gives one row and the
     columns each of them holds in registers, for a row of ``row_width``
     logical columns — 8 lanes up to 64 columns, 16 up to 128, 32 beyond,
-    with 8 columns a lane up to 256 and 16 up to SA_MAX_WIDTH. A warp
-    then updates 32 / G rows at once, and G * CPL >= row_width."""
+    with 8 columns a lane up to 256 and 16 up to SA_MAX_WIDTH (the
+    kernel's four instantiations). A warp then updates 32 / G rows at
+    once, and G * CPL >= row_width."""
     w = int(row_width)
     if not 0 < w <= SA_MAX_WIDTH:
         raise ValueError(f"row width {w} outside 1..{SA_MAX_WIDTH}")
@@ -354,9 +344,7 @@ def scatter_accumulate_plain(table: torch.Tensor, idx: torch.Tensor,
 def scatter_accumulate(table: torch.Tensor, idx: torch.Tensor,
                        grads: torch.Tensor, shows: torch.Tensor,
                        clks: torch.Tensor, cfg: EmbeddingConfig,
-                       touched: torch.Tensor | None = None,
-                       lane_group: tuple[int, int] | None = None
-                       ) -> torch.Tensor:
+                       touched: torch.Tensor | None = None) -> torch.Tensor:
     """Row-wise fused merge-apply over premerged unique lanes, in place.
 
     table : (n_rows, W) f32, W >= cfg.row_width (pad columns pass through)
@@ -366,8 +354,6 @@ def scatter_accumulate(table: torch.Tensor, idx: torch.Tensor,
             (n,)
     touched : optional per-lane flag; a lane with touched <= 0 never
             writes (default: every in-range lane)
-    lane_group : (G, CPL) on the card, one of SA_LANE_GROUPS with G * CPL
-            >= row_width (default: sa_lane_group(row_width))
     Returns ``table``, updated in place (rows no valid lane names keep
     their exact bits)."""
     _require(table.ndim == 2 and table.dtype == torch.float32,
@@ -401,11 +387,7 @@ def scatter_accumulate(table: torch.Tensor, idx: torch.Tensor,
         return table
     lib = _lib("scatter_accumulate")
     layout = row_layout(cfg)
-    group, cols = lane_group or sa_lane_group(cfg.row_width)
-    _require((group, cols) in SA_LANE_GROUPS
-             and group * cols >= cfg.row_width,
-             f"lane group {(group, cols)} cannot hold {cfg.row_width} "
-             f"columns (groups: {SA_LANE_GROUPS})")
+    group, cols = sa_lane_group(cfg.row_width)
     with torch.cuda.device(table.device):
         code = lib.pbt_scatter_accumulate(
             table.data_ptr(), n_rows, W, idx.data_ptr(),
@@ -430,9 +412,8 @@ def binned_geometry(cfg: EmbeddingConfig, n_rows: int):
     """(SB, NB) of the binned_merge_acc kernel for an ``n_rows`` table,
     or None where it has none.
 
-    SB, the table rows one thread-block cluster accumulates in its
-    shared memory (binned_rows_per_cta of them in each CTA), is the
-    largest power of two with SB * (grad_width + 3) * 4 bytes <=
+    SB, the table rows one thread block accumulates in shared memory, is
+    the largest power of two with SB * (grad_width + 3) * 4 bytes <=
     BINNED_SMEM_BYTES, and no more than the table needs; NB = ceil(n_rows
     / SB). The last block is ragged where SB does not divide n_rows, so a
     working set needs no row alignment. (The JAX package's geometry,
@@ -444,39 +425,6 @@ def binned_geometry(cfg: EmbeddingConfig, n_rows: int):
         return None
     sb = min(1 << (fit.bit_length() - 1), 1 << (n_rows - 1).bit_length())
     return sb, -(-n_rows // sb)
-
-
-def binned_rows_per_cta(super_block: int,
-                        n_cta: int = BINNED_CLUSTER) -> int:
-    """R, the rows of a super-block each of its ``n_cta`` binned_merge_acc
-    CTAs holds in shared memory: SB / n_cta, at least 1 (a super-block of
-    fewer rows than the cluster has CTAs leaves the last CTAs without
-    rows). SB is a power of two, so R is one too and the kernel finds a
-    row's owner with a shift."""
-    sb = int(super_block)
-    if sb < 1 or sb & (sb - 1):
-        raise ValueError(f"super-block {sb} is not a power of two")
-    if n_cta not in BINNED_CLUSTER_SIZES:
-        raise ValueError(f"{n_cta} CTAs per super-block, want one of "
-                         f"{BINNED_CLUSTER_SIZES}")
-    return max(1, sb // n_cta)
-
-
-def binned_cta_windows(rstart: torch.Tensor, end: torch.Tensor,
-                       n_cta: int = BINNED_CLUSTER
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The binned_merge_acc kernel's split of each block's token window
-    over its ``n_cta`` CTAs: (lo, hi), each (NB, n_cta) int64 — CTA k of
-    block b walks window positions [lo[b, k], hi[b, k]), even chunks of
-    ceil(len / n_cta) positions, the last ones shorter or empty. The
-    chunks tile [rstart, end) without overlap, so every position of a
-    window is walked exactly once whatever its length
-    (csrc/binned_merge_acc.cu computes the same per CTA)."""
-    k = int(n_cta)
-    t0, t1 = rstart.long()[:, None], end.long()[:, None]
-    per = (t1 - t0 + k - 1) // k
-    lo = t0 + torch.arange(k, device=rstart.device)[None, :] * per
-    return lo, torch.minimum(t1, lo + per)
 
 
 def wide_rows(cfg: EmbeddingConfig) -> bool:
@@ -524,8 +472,7 @@ def binned_merge_acc_plain(idx: torch.Tensor, grads: torch.Tensor,
 def binned_merge_acc(idx: torch.Tensor, grads: torch.Tensor,
                      shows: torch.Tensor, clks: torch.Tensor,
                      cfg: EmbeddingConfig, n_rows: int,
-                     plan=None, n_cta: int = BINNED_CLUSTER
-                     ) -> torch.Tensor:
+                     plan=None) -> torch.Tensor:
     """The binned push's merge half: the (n_rows, grad_width + 3) per-row
     accumulator [sum of grads, sum of shows, sum of clks, token count]
     from a token stream with duplicates; ids outside [0, n_rows) are
@@ -537,7 +484,6 @@ def binned_merge_acc(idx: torch.Tensor, grads: torch.Tensor,
         (None, rstart, end) windows over lanes already sorted by row (the
         dedup plan's) — or None to group on the device
         (device_block_plan). The plain version needs no grouping.
-    n_cta : CTAs per super-block on the card (BINNED_CLUSTER_SIZES).
     Grad columns are f32 sums in an order that varies from run to run;
     the show, clk and count columns are exact."""
     geom = binned_geometry(cfg, n_rows)
@@ -558,7 +504,6 @@ def binned_merge_acc(idx: torch.Tensor, grads: torch.Tensor,
         _require(t.dtype == torch.float32, f"{k} must be float32")
     _require(grads.stride(1) == 1, "grads columns must be contiguous")
     SB, NB = geom
-    rows_per_cta = binned_rows_per_cta(SB, n_cta)
     if plan is None:
         plan = device_block_plan(idx, SB, NB)
     order, rstart, end = plan
@@ -578,8 +523,8 @@ def binned_merge_acc(idx: torch.Tensor, grads: torch.Tensor,
             idx.data_ptr(), grads.data_ptr(), grads.stride(0),
             shows.data_ptr(), shows.stride(0), clks.data_ptr(),
             clks.stride(0), None if order is None else order.data_ptr(),
-            rstart.data_ptr(), end.data_ptr(), n_rows, SB, n_cta,
-            rows_per_cta, gw, acc.data_ptr(), _stream(idx))
+            rstart.data_ptr(), end.data_ptr(), n_rows, SB, gw,
+            acc.data_ptr(), _stream(idx))
     _check_launch("binned_merge_acc", code)
     binned_merge_acc.launches += 1
     return acc

@@ -267,26 +267,6 @@ def test_push_engines_launch_their_kernels(card, monkeypatch):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("lane_group", [(8, 4), (8, 8), (16, 8), (32, 16)])
-def test_scatter_accumulate_forced_lane_group(card, lane_group):
-    """A forced lane group runs where its lanes hold the row and raises
-    where they do not, or where no kernel instantiation exists."""
-    cfg = _width_cfg("adagrad", 37)
-    idx, lanes = _lanes(cfg, 300, 900, card, seed=5)
-    t0 = torch.from_numpy(_sa_table(cfg, 300, np.random.default_rng(5))).to(
-        card)
-    if lane_group not in kernels.SA_LANE_GROUPS:
-        with pytest.raises(ValueError, match="lane group"):
-            kernels.scatter_accumulate(t0.clone(), *lanes, cfg,
-                                       lane_group=lane_group)
-        return
-    want = kernels.scatter_accumulate_plain(t0.clone(), *lanes, cfg)
-    got = kernels.scatter_accumulate(t0.clone(), *lanes, cfg,
-                                     lane_group=lane_group)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-
-
 def test_binned_wrappers_raise_on_bad_cuda_inputs(card):
     cfg = EmbeddingConfig(dim=4)
     idx = torch.zeros(3, dtype=torch.int64, device=card)
@@ -305,7 +285,7 @@ def test_binned_wrappers_raise_on_bad_cuda_inputs(card):
 
 
 # ---------------------------------------------------------------------------
-# the lane-group layout of scatter_accumulate and the cluster split of
+# the lane-group layout of scatter_accumulate and skewed streams through
 # binned_merge_acc
 # ---------------------------------------------------------------------------
 
@@ -458,35 +438,30 @@ def _binned_plan(kind, idx, args, cfg, n_rows, card):
     return list(sharded.plan_premerge(*args, d)), (None, d.rstart, d.end)
 
 
-@pytest.mark.parametrize("n_cta", kernels.BINNED_CLUSTER_SIZES)
 @pytest.mark.parametrize("plan", ["device", "host", "dedup_lanes"])
 @pytest.mark.parametrize("dim", [8, 32])
-def test_binned_merge_acc_kernel_zipf_stream(card, plan, dim, n_cta):
+def test_binned_merge_acc_kernel_zipf_stream(card, plan, dim):
     cfg = EmbeddingConfig(dim=dim, optimizer="adagrad")
     n_rows = 20011
     idx, args = _zipf_tokens(cfg, n_rows, 60000, card, seed=dim)
     args, p = _binned_plan(plan, idx, args, cfg, n_rows, card)
     want = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
-    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p, n_cta=n_cta)
+    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p)
     torch.cuda.synchronize()
     _assert_acc(got, want, cfg.grad_width)
     assert torch.equal(got, want)          # lattice grads: sums are exact
 
 
-@pytest.mark.parametrize("n_cta", kernels.BINNED_CLUSTER_SIZES)
 @pytest.mark.parametrize("plan", ["device", "host"])
-@pytest.mark.parametrize("hot", ["first_row", "cta_edge", "last_row"])
-def test_binned_merge_acc_kernel_hot_row_across_split(card, plan, hot,
-                                                      n_cta):
-    """One row holds far more tokens than a CTA has threads, and its
-    tokens fall in every CTA's chunk of the block's window, so every CTA
-    of the cluster adds into the owner's rows; the rows on both sides of
-    a CTA's row range are hot too."""
+@pytest.mark.parametrize("hot", ["first_row", "block_edge", "last_row"])
+def test_binned_merge_acc_kernel_hot_row(card, plan, hot):
+    """One row holds far more tokens than a block has threads, so every
+    warp of its block meets it in every batch; the row after it is hot
+    too, and at the block edge that one opens the next block's window."""
     cfg = EmbeddingConfig(dim=8, optimizer="adagrad")
     n_rows = 9000
     SB, NB = kernels.binned_geometry(cfg, n_rows)
-    R = kernels.binned_rows_per_cta(SB, n_cta)
-    row = {"first_row": SB, "cta_edge": SB + min(3, n_cta - 1) * R - 1,
+    row = {"first_row": SB, "block_edge": 2 * SB - 1,
            "last_row": n_rows - 1}[hot]
     rng = np.random.default_rng(len(hot))
     n_tok = 30000
@@ -500,7 +475,7 @@ def test_binned_merge_acc_kernel_hot_row_across_split(card, plan, hot,
     args = [torch.from_numpy(a).to(card) for a in (idx, grads, shows, clks)]
     args, p = _binned_plan(plan, idx, args, cfg, n_rows, card)
     want = kernels.binned_merge_acc_plain(*args, cfg, n_rows)
-    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p, n_cta=n_cta)
+    got = kernels.binned_merge_acc(*args, cfg, n_rows, plan=p)
     torch.cuda.synchronize()
     _assert_acc(got, want, cfg.grad_width)
     assert torch.equal(got, want)          # lattice grads: sums are exact
