@@ -22,9 +22,11 @@ Phases, each of which exits non-zero on failure:
    staying zero, untouched rows bitwise, exact count columns);
 4. timing — each kernel, its plain version and (where one exists) one
    PyTorch library call computing the same function, with CUDA events,
-   beside the least time the card could take (bound_ms);
-   binned_merge_acc also on a hot row and on per-slot Zipf keys, with
-   each stream's ratio to the uniform (main-path) time;
+   beside the least time the card could take (bound_ms, its bytes
+   counted in whole 32-byte sectors); binned_merge_acc also on a hot row
+   and on per-slot Zipf keys, with each stream's ratio to the uniform
+   (main-path) time; merge_update also at about 1% and 100% touched
+   rows;
 5. each layout's main path — HostEmbeddingStore, an in-memory SlotDataset
    of 16 x 8192 examples, BoxPS.begin_pass -> Trainer.train_pass ->
    BoxPS.end_pass with every kernel's launch count reset just before and
@@ -58,6 +60,8 @@ B, S, DENSE = 8192, 26, 13                # bench.py's Criteo DeepFM
 HIDDEN = (400, 400, 400)
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12
+SECTOR = 32                               # bytes the memory system moves
+                                          # at the least (one L2 sector)
 GATHER_TOL = dict(rtol=1e-6, atol=1e-6)   # test_gather_pool.py
 SCATTER_TOL = dict(rtol=1e-5, atol=1e-6)  # test_scatter_accumulate.py
 MERGE_TOL = dict(rtol=1e-6, atol=1e-6)    # test_pallas_kernels.py
@@ -162,6 +166,34 @@ def time_ms(fn, iters=20, warmup=3) -> float:
                   f"waits for the device)")
             return ms
         iters = max(1, iters // 4)
+
+
+def sector_ids(torch, starts, length: int):
+    """The 32-byte sectors that byte ranges [s, s + length) cover, for
+    each s in ``starts`` (an int64 tensor of byte offsets)."""
+    first = starts // SECTOR
+    last = (starts + length - 1) // SECTOR
+    span = int((last - first).max()) + 1 if starts.numel() else 1
+    ids = first[:, None] + torch.arange(span, device=starts.device)
+    return ids[ids <= last[:, None]]
+
+
+def sector_bytes(torch, *parts) -> int:
+    """Bytes in the distinct sectors that (starts, length) parts of one
+    array cover: what the memory system must move to touch them once."""
+    ids = torch.cat([sector_ids(torch, st, n) for st, n in parts])
+    return int(torch.unique(ids).numel()) * SECTOR
+
+
+def dense_bytes(n_bytes: int) -> int:
+    """A contiguous array's bytes in whole sectors."""
+    return -(-int(n_bytes) // SECTOR) * SECTOR
+
+
+def row_starts(torch, rows, stride_floats: int, col: int = 0):
+    """Byte offsets of column ``col`` of the given rows of an f32 array
+    whose rows are ``stride_floats`` apart."""
+    return (rows.long() * stride_floats + col) * 4
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -303,7 +335,11 @@ def check_gather_pool(torch, kernels, lay, cfg, table, idx) -> dict:
     print("  all-pad batch pools to exact zeros ok")
 
     P = cfg.pull_width
-    distinct = int(torch.unique(idx).numel())
+    print(f"  lane group at P {P}: (lanes, columns a lane) "
+          f"{kernels.gp_lane_group(P)}")
+    rows = torch.unique(idx.long().clamp(0, table.shape[0] - 1))
+    rows = rows[rows != 0]       # row 0 is zeros by contract: never read
+    distinct = int(rows.numel())
     ms = time_ms(lambda: kernels.gather_pool(table, idx, cfg, S, L))
     plain_ms = time_ms(lambda: kernels.gather_pool_plain(table, idx, cfg, S,
                                                          L))
@@ -313,11 +349,15 @@ def check_gather_pool(torch, kernels, lay, cfg, table, idx) -> dict:
                   kernels.gather_pool_plain(table, idx, cfg, S, L)) < 1e-4,
           "embedding_bag yardstick disagrees")
     lib_ms = time_ms(lambda: F.embedding_bag(bags, table, mode="sum"))
-    # least work: each distinct referenced row's P columns read once, the
-    # ids read once, the pooled output written once; one add per element
-    n_bytes = distinct * P * 4 + idx.numel() * 4 + B * S * P * 4
+    # least work, in whole sectors: each distinct referenced row's P
+    # columns read once, the ids read once, the pooled output written
+    # once; one add per element
+    n_bytes = (sector_bytes(torch, (row_starts(torch, rows, table.shape[1]),
+                                    P * 4))
+               + dense_bytes(idx.numel() * 4) + dense_bytes(B * S * P * 4))
     return kernel_row("gather_pool", err, ms, plain_ms, n_bytes,
-                      idx.numel() * P, lib_ms, f"{distinct} distinct rows")
+                      idx.numel() * P, lib_ms,
+                      f"{distinct} distinct non-pad rows")
 
 
 def premerged_lanes(torch, table, idx, mask, cfg, gen):
@@ -390,9 +430,21 @@ def check_scatter_accumulate(torch, kernels, cfg, table, idx, mask,
     plain_ms = time_ms(lambda: kernels.scatter_accumulate_plain(
         scratch, *lanes, cfg))
     n = uniq.numel()
-    # least work: each valid lane's row read and written once, its payload
-    # read once, every lane's id read once; ~20 flops per row element
-    n_bytes = u * W * 4 * 2 + u * (cfg.grad_width + 2) * 4 + n * 4
+    # least work, in whole sectors: each valid lane's row read and written
+    # once, its payload read once, every lane's id read once; ~20 flops
+    # per row element
+    lane_no = torch.nonzero(valid).reshape(-1)
+    g, sh, ck = lanes[1], lanes[2], lanes[3]
+    n_bytes = (2 * sector_bytes(torch, (row_starts(torch, uniq[valid], W),
+                                        cfg.row_width * 4))
+               + sector_bytes(torch, (row_starts(torch, lane_no,
+                                                 g.stride(0)),
+                                      cfg.grad_width * 4))
+               + sector_bytes(torch, (row_starts(torch, lane_no,
+                                                 sh.stride(0)), 4))
+               + sector_bytes(torch, (row_starts(torch, lane_no,
+                                                 ck.stride(0)), 4))
+               + dense_bytes(n * 4))
     return kernel_row("scatter_accumulate", err, ms, plain_ms, n_bytes,
                       u * W * 20, None, f"{u} valid of {n} lanes")
 
@@ -489,7 +541,9 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
                          tok[1].new_ones((n, 1))], dim=1)
     safe = flat.long()
     acc0 = torch.zeros((n_rows, gw + 3), device=table.device)
-    lib_ms = time_ms(lambda: acc0.index_add_(0, safe, payload))
+    # the kernel writes every accumulator row, so its yardstick pays for
+    # the zero fill too
+    lib_ms = time_ms(lambda: acc0.zero_().index_add_(0, safe, payload))
     print(f"  device grouping (argsort + searchsorted + kernel) "
           f"{ms_dev:.4f} ms")
     print(f"  streams, host plan: uniform (main path) {ms:.4f} ms | hot row "
@@ -497,14 +551,16 @@ def check_binned_merge_acc(torch, kernels, cfg, table, idx, mask,
           f"{ms_pad / ms:.2f}x uniform | Zipf({ZIPF_A}) per slot (hottest "
           f"row {z_hot} tokens) {ms_zipf:.4f} ms = {ms_zipf / ms:.2f}x "
           f"uniform")
-    # least work: each token's id, order entry and gw + 2 payload floats
-    # read once, the windows read once, the accumulator written once; one
-    # add per accumulator element per token
-    n_bytes = n * (4 + 4 + (gw + 2) * 4) + NB * 8 + n_rows * (gw + 3) * 4
+    # least work, in whole sectors: each token's id, order entry and gw + 2
+    # payload floats read once, the windows read once, the accumulator
+    # written once; one add per accumulator element per token
+    n_bytes = (4 * dense_bytes(n * 4)          # ids, order, shows, clks
+               + dense_bytes(n * gw * 4) + 2 * dense_bytes(NB * 4)
+               + dense_bytes(n_rows * (gw + 3) * 4))
     row = kernel_row("binned_merge_acc", err, ms, plain_ms, n_bytes,
                      n * (gw + 3), lib_ms,
-                     f"{n} tokens, host plan; library = one index_add_ "
-                     f"into the accumulator")
+                     f"{n} tokens, host plan; library = the accumulator's "
+                     f"zero fill + one index_add_")
     return row, tok_pad
 
 
@@ -545,16 +601,49 @@ def check_merge_update(torch, kernels, cfg, table, tok, gen) -> dict:
     print("  sgd, adam, ftrl: row 0 still zero, untouched rows "
           "bit-identical ok")
 
+    print(f"  lane group at W {cfg.row_width}: (lanes, columns a lane) "
+          f"{kernels.mu_lane_group(cfg.row_width)}")
+    # the same table at about 1% and at 100% touched rows, beside the
+    # main path's share: held to the plain version, then timed
+    g3 = torch.Generator(device=table.device).manual_seed(SEED + 4)
+    few = acc.clone()
+    few[torch.rand(n_rows, generator=g3, device=table.device) >= 0.01,
+        gw + 2] = 0.0
+    every = acc.clone()
+    every[:, gw + 2] = every[:, gw + 2].clamp(min=1.0)
     scratch = table.clone()
+    for share, a in (("~1%", few), ("100%", every)):
+        assert_close(f"adagrad, {share} touched", kernels.merge_update(
+            table.clone(), a, cfg), kernels.merge_update_plain(
+                table.clone(), a, cfg), MERGE_TOL)
+        t_ms = time_ms(lambda: kernels.merge_update(scratch, a, cfg))
+        b_ms, _ = bound(merge_update_bytes(torch, cfg, W, a), 0)
+        print(f"  {share} touched ({int((a[:, gw + 2] > 0).sum())} rows): "
+              f"kernel {t_ms:.4f} ms | bound {b_ms:.4f} ms")
     ms = time_ms(lambda: kernels.merge_update(scratch, acc, cfg))
     plain_ms = time_ms(lambda: kernels.merge_update_plain(scratch, acc,
                                                           cfg))
-    # least work: every row's touch count read once; each touched row's
-    # other acc columns read once and its table row read and written
-    # once; ~20 flops per touched row element
-    n_bytes = n_rows * 4 + u * (gw + 2) * 4 + u * W * 4 * 2
-    return kernel_row("merge_update", err, ms, plain_ms, n_bytes, u * W * 20,
+    return kernel_row("merge_update", err, ms, plain_ms,
+                      merge_update_bytes(torch, cfg, W, acc), u * W * 20,
                       None, f"{u} touched of {n_rows} rows")
+
+
+def merge_update_bytes(torch, cfg, W, acc) -> int:
+    """merge_update's least bytes, in whole sectors: every row's touch
+    count read once (acc rows are 4 * (gw + 3) bytes apart, so that is
+    one sector a row); each touched row's other acc columns read once and
+    its table row read and written once (~20 flops per touched row
+    element are free beside them)."""
+    gw = cfg.grad_width
+    P = gw + 3
+    n_rows = acc.shape[0]
+    rows = torch.nonzero(acc[:, gw + 2] > 0).reshape(-1)
+    all_rows = torch.arange(n_rows, device=acc.device)
+    acc_bytes = sector_bytes(
+        torch, (row_starts(torch, all_rows, P, gw + 2), 4),
+        (row_starts(torch, rows, P), (gw + 2) * 4))
+    return acc_bytes + 2 * sector_bytes(
+        torch, (row_starts(torch, rows, W), cfg.row_width * 4))
 
 
 def kernel_phase(torch, kernels, dev, gen) -> list[dict]:

@@ -24,11 +24,6 @@
 // whole warp); a group whose row is a pad passes valid = false and then
 // reads and writes nothing.
 //
-// SCALAR_LOADS (merge_update's one-warp-per-row layout) reads the
-// per-row scalars from memory on every lane, ahead of the columns, as
-// the first design did, and then needs a __syncwarp before the in-place
-// stores; scatter_accumulate takes them by shuffle.
-//
 // Floating point: compile with --fmad=false. The reference computes each
 // product and sum as its own rounded f32 operation; a contracted fma
 // would round differently.
@@ -95,7 +90,7 @@ __device__ __forceinline__ float adagrad_scale(float lr, float g0,
 // row: the table row, read and written in place; g: the row's
 // grad_width grads; show_inc / clk_inc: counter increments; lane: the
 // lane's index in its group.
-template <int OPT, int G, int CPL, bool SCALAR_LOADS = false>
+template <int OPT, int G, int CPL>
 __device__ __forceinline__ void apply_updates_row(
     float* row, const float* g, float show_inc, float clk_inc,
     const RowLayout& L, int lane, bool valid) {
@@ -106,57 +101,34 @@ __device__ __forceinline__ void apply_updates_row(
   const int rw = L.row_width;
   const int n_state = rw - ob;
 
-  // ---- loads: the per-row scalars (SCALAR_LOADS), then the lane's
-  // columns of the row and of the grads
-  float show = 0.f, clk = 0.f, w0 = 0.f, g_w0 = 0.f;
-  float st0 = 0.f, st1 = 0.f, st2 = 0.f, st3 = 0.f;
-  if (SCALAR_LOADS && valid) {
-    show = row[0] + show_inc;             // post-increment counters
-    clk = row[1] + clk_inc;
-    st0 = n_state > 0 ? row[ob] : 0.f;
-    st1 = n_state > 1 ? row[ob + 1] : 0.f;
-    st2 = n_state > 2 ? row[ob + 2] : 0.f;
-    st3 = n_state > 3 ? row[ob + 3] : 0.f;
-    w0 = row[2];
-    g_w0 = g[0];
-  }
+  // ---- loads: the lane's columns of the row and of the grads
   float v[CPL];
   float gr[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int c = lane + k * G;
-    // SCALAR_LOADS (one warp per row, room for 512 columns) stops at
-    // the row's width: fully unrolled, the predicated-off columns of a
-    // narrow row cost merge_update a third of its time. A group sized
-    // to its row runs the unrolled loop faster.
-    if (SCALAR_LOADS && k * G >= rw) break;
     v[k] = 0.f;
     gr[k] = 0.f;
     if (valid && c < rw) v[k] = row[c];
     if (valid && c >= 2 && c < ob) gr[k] = g[c - 2];
   }
 
-  if (SCALAR_LOADS) {
-    __syncwarp();   // every lane has read its scalars before any store
-  } else {
-    // the per-row scalars from the lanes that loaded them (the layout is
-    // uniform over the warp, so every guard below is too)
-    show = group_col<G, CPL>(v, 0) + show_inc;  // post-increment counters
-    clk = group_col<G, CPL>(v, 1) + clk_inc;
-    w0 = group_col<G, CPL>(v, 2);
-    g_w0 = group_col<G, CPL>(gr, 2);            // grad column 0
-    st0 = n_state > 0 ? group_col<G, CPL>(v, ob) : 0.f;
-    st1 = n_state > 1 ? group_col<G, CPL>(v, ob + 1) : 0.f;
-    st2 = n_state > 2 ? group_col<G, CPL>(v, ob + 2) : 0.f;
-    st3 = n_state > 3 ? group_col<G, CPL>(v, ob + 3) : 0.f;
-  }
+  // the per-row scalars from the lanes that loaded them (the layout is
+  // uniform over the warp, so every guard below is too)
+  const float show = group_col<G, CPL>(v, 0) + show_inc;  // post-increment
+  const float clk = group_col<G, CPL>(v, 1) + clk_inc;    // counters
+  const float w0 = group_col<G, CPL>(v, 2);
+  const float g_w0 = group_col<G, CPL>(gr, 2);            // grad column 0
+  const float st0 = n_state > 0 ? group_col<G, CPL>(v, ob) : 0.f;
+  const float st1 = n_state > 1 ? group_col<G, CPL>(v, ob + 1) : 0.f;
+  const float st2 = n_state > 2 ? group_col<G, CPL>(v, ob + 2) : 0.f;
+  const float st3 = n_state > 3 ? group_col<G, CPL>(v, ob + 3) : 0.f;
 
   // ---- gating and the lane's partial sums
   float s_gw = 0.f, s_gw2 = 0.f, s_gx = 0.f, s_gx2 = 0.f;
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int c = lane + k * G;
-    if (SCALAR_LOADS && k * G >= rw) break;
     if (c >= 2 && c < ob) {
       float gg = gr[k];
       if (c >= fc) {
@@ -223,7 +195,6 @@ __device__ __forceinline__ void apply_updates_row(
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int c = lane + k * G;
-    if (SCALAR_LOADS && k * G >= rw) break;
     if (c >= rw) continue;                 // padding passes through
     float out;
     if (c == 0) {

@@ -13,17 +13,24 @@
 // grads and its show/clk increments.
 //
 // Bound on an H100: memory. Every row's touch count is read (one 32-byte
-// sector per row, since rows are gw + 3 floats apart), and each touched
-// row reads its acc row and reads and writes its W*4-byte table row; the
-// optimizer's few flops per column are free. Design: one warp per row (a
-// lane group of G = 32 in apply_updates.cuh, 16 columns per lane), so a
-// touched row is one coalesced read and one coalesced write and its means
-// are warp shuffles; an untouched row costs its warp one broadcast load
-// and nothing else. (The first design, kept: its per-row scalars are
-// broadcast loads, SCALAR_LOADS in apply_updates.cuh.)
+// sector per row, since acc rows are gw + 3 floats apart), and each
+// touched row reads the rest of its acc row and reads and writes its
+// table row; the optimizer's few flops per column are free. What holds a
+// kernel back from that bound is latency: a row's update waits on its
+// count, and its stores on its loads, so the card needs many rows in
+// flight.
+//
+// Design: a warp owns a run of 32 consecutive rows. Each lane loads one
+// row's count, so the warp has 32 independent loads in flight, and
+// __ballot_sync names the touched rows. The warp then walks them in
+// rounds of 32 / G rows, one row per group of G lanes sized to the row
+// width (ops/kernels.py::mu_lane_group), through apply_updates_row: each
+// round loads its acc and table rows before any arithmetic, and a group
+// left without a row in the last round passes valid = false, so every
+// shuffle still names the whole warp. An untouched row costs one lane's
+// load and nothing else.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 #include "apply_updates.cuh"
@@ -32,49 +39,89 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int OPT>
+// (no __launch_bounds__: with it ptxas spilled the adagrad 8 x 8
+// instantiation at 80 registers)
+template <int OPT, int G, int CPL>
 __global__ void merge_update_kernel(float* table, int64_t n_rows, int W,
                                     const float* __restrict__ acc, int P,
                                     pbt::RowLayout layout) {
-  const int64_t r = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) / pbt::kWarp;
   const int lane = threadIdx.x % pbt::kWarp;
-  // every exit below is uniform across the warp (one row per warp)
-  if (r >= n_rows) return;
-  const float* a = acc + r * P;
+  // first row of the warp's run; the exit is uniform across the warp
+  const int64_t r0 =
+      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane;
+  if (r0 >= n_rows) return;
   const int gw = P - 3;
-  if (!(a[gw + 2] > 0.f)) return;
-  pbt::apply_updates_row<OPT, pbt::kWarp, pbt::kMaxCols / pbt::kWarp,
-                         true>(table + r * W, a, a[gw], a[gw + 1], layout,
-                               lane, true);
+  const int64_t r = r0 + lane;
+  const bool touched = r < n_rows && acc[r * P + gw + 2] > 0.f;
+  unsigned rest = __ballot_sync(pbt::kFullMask, touched);
+  const int group = lane / G;
+  while (rest) {                       // uniform: rest is the warp's
+    // this group's row: the group-th touched row still to do
+    // (predicated, not a loop of the group's own length: the lanes stay
+    // converged for the shuffles)
+    unsigned m = rest;
+#pragma unroll
+    for (int j = 0; j < pbt::kWarp / G - 1; ++j) {
+      if (j < group) m &= m - 1;
+    }
+    const bool valid = m != 0;
+    const int64_t row = r0 + (valid ? __ffs(m) - 1 : 0);
+    const float* a = acc + row * P;
+    pbt::apply_updates_row<OPT, G, CPL>(
+        table + row * W, a, valid ? a[gw] : 0.f, valid ? a[gw + 1] : 0.f,
+        layout, lane % G, valid);
+#pragma unroll
+    for (int j = 0; j < pbt::kWarp / G; ++j) rest &= rest - 1;
+  }
+}
+
+using KernelFn = void (*)(float*, int64_t, int, const float*, int,
+                          pbt::RowLayout);
+
+template <int G, int CPL>
+KernelFn pick(int optimizer) {
+  switch (optimizer) {
+    case pbt::kSgd: return merge_update_kernel<pbt::kSgd, G, CPL>;
+    case pbt::kAdagrad: return merge_update_kernel<pbt::kAdagrad, G, CPL>;
+    case pbt::kAdam: return merge_update_kernel<pbt::kAdam, G, CPL>;
+    case pbt::kFtrl: return merge_update_kernel<pbt::kFtrl, G, CPL>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
+// group: lanes per row; cols: columns per lane, as
+// ops/kernels.py::mu_lane_group picks them from the row width.
 extern "C" int pbt_merge_update(float* table, int64_t n_rows, int32_t W,
                                 const float* acc, int32_t P,
-                                int32_t optimizer,
-                                const pbt::RowLayout* layout, void* stream) {
+                                int32_t optimizer, int32_t group,
+                                int32_t cols, const pbt::RowLayout* layout,
+                                void* stream) {
   if (n_rows == 0) return 0;
   // P must be grad_width + 3 = embed_w_num + total_dim + 3
   if (W > pbt::kMaxCols || W < layout->row_width || n_rows < 0 ||
-      P != layout->embed_w_num + layout->total_dim + 3)
+      P != layout->embed_w_num + layout->total_dim + 3 ||
+      static_cast<int64_t>(group) * cols < layout->row_width)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows_per_block = kThreads / pbt::kWarp;
-  const int64_t blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PBT_LAUNCH(OPT)                                                     \
-  merge_update_kernel<OPT><<<static_cast<unsigned>(blocks), kThreads, 0,    \
-                             st>>>(table, n_rows, W, acc, P, *layout)
-  switch (optimizer) {
-    case pbt::kSgd: PBT_LAUNCH(pbt::kSgd); break;
-    case pbt::kAdagrad: PBT_LAUNCH(pbt::kAdagrad); break;
-    case pbt::kAdam: PBT_LAUNCH(pbt::kAdam); break;
-    case pbt::kFtrl: PBT_LAUNCH(pbt::kFtrl); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  KernelFn fn = nullptr;
+  if (group == 4 && cols == 4) {
+    fn = pick<4, 4>(optimizer);
+  } else if (group == 8 && cols == 8) {
+    fn = pick<8, 8>(optimizer);
+  } else if (group == 16 && cols == 8) {
+    fn = pick<16, 8>(optimizer);
+  } else if (group == 32 && cols == 8) {
+    fn = pick<32, 8>(optimizer);
+  } else if (group == 32 && cols == 16) {
+    fn = pick<32, 16>(optimizer);
   }
-#undef PBT_LAUNCH
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (n_rows + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  fn<<<static_cast<unsigned>(blocks), kThreads, 0,
+       static_cast<cudaStream_t>(stream)>>>(table, n_rows, W, acc, P,
+                                             *layout);
   return static_cast<int>(cudaGetLastError());
 }
 

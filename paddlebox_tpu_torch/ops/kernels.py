@@ -56,6 +56,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # row-width cap of scatter_accumulate and merge_update (16 columns per
 # lane of a 32-lane group, csrc/apply_updates.cuh)
 SA_MAX_WIDTH = 512
+# columns gather_pool pools in one pass of a 32-lane group (16 a lane);
+# wider rows go in chunks of this many columns
+GP_CHUNK = 512
 # shared memory a binned_merge_acc block may hold its (SB, P) accumulator
 # in: 2048 rows at the dim-8 headline's P = 12
 BINNED_SMEM_BYTES = 96 * 1024
@@ -86,7 +89,7 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
     if name == "gather_pool":
         fn = lib.pbt_gather_pool
         fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, p, i32, f32, f32,
-                       f32, i32, i32, p, p]
+                       f32, i32, i32, i32, i32, p, p]
     elif name == "scatter_accumulate":
         fn = lib.pbt_scatter_accumulate
         fn.argtypes = [p, i64, i32, p, p, p, i64, p, i64, p, i64, i64, i32,
@@ -97,7 +100,8 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
                        p]
     else:
         fn = lib.pbt_merge_update
-        fn.argtypes = [p, i64, i32, p, i32, i32, c.POINTER(RowLayout), p]
+        fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32,
+                       c.POINTER(RowLayout), p]
     fn.restype = c.c_int
     err = getattr(lib, f"pbt_{name}_error")
     err.argtypes = [c.c_int]
@@ -182,6 +186,21 @@ def _slot_thresholds(threshold, num_slots: int,
     return thr.contiguous()
 
 
+def gp_lane_group(pull_width: int) -> tuple[int, int]:
+    """(G, CPL): the lanes gather_pool gives one (example, slot) output
+    row and the columns each of them holds, for ``pull_width`` pooled
+    columns — 8 lanes up to 64 columns (a warp pools four outputs), 16 up
+    to 128, 32 beyond, each lane with CPL = ceil(min(P, GP_CHUNK) / G)
+    columns, so the column loop stops at P. Rows wider than GP_CHUNK go
+    in chunks of G * CPL = GP_CHUNK columns."""
+    p = int(pull_width)
+    if p < 1:
+        raise ValueError(f"pull width {p} < 1")
+    w = min(p, GP_CHUNK)
+    g = 8 if w <= 64 else (16 if w <= 128 else 32)
+    return g, -(-w // g)
+
+
 def gather_pool_plain(table: torch.Tensor, idx: torch.Tensor,
                       cfg: EmbeddingConfig, num_slots: int, slot_len: int,
                       *, need_filter: bool = False, show_coeff: float = 0.2,
@@ -253,17 +272,22 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor,
              "idx must be contiguous int32")
     _require(table.is_contiguous(), "table must be contiguous")
     _require(0 <= cvm_offset < W, "cvm_offset out of range")
-    thr = _slot_thresholds(threshold, S, table.device)
+    # the kernel reads the thresholds only under need_filter: without it,
+    # no (S,) tensor is made (a fill kernel on every pull)
+    thr = (_slot_thresholds(threshold, S, table.device) if need_filter
+           else None)
     out = torch.empty((B, S, P), dtype=torch.float32, device=table.device)
     if B * S == 0 or P == 0:
         return out
     lib = _lib("gather_pool")
+    group, cols = gp_lane_group(P)
     with torch.cuda.device(table.device):
         code = lib.pbt_gather_pool(
             table.data_ptr(), n_rows, W, idx.data_ptr(), B, S, L, P,
-            thr.data_ptr(), int(bool(need_filter)), float(show_coeff),
-            float(clk_coeff), float(embed_threshold), int(quant_ratio),
-            int(cvm_offset), out.data_ptr(), _stream(table))
+            None if thr is None else thr.data_ptr(), int(bool(need_filter)),
+            float(show_coeff), float(clk_coeff), float(embed_threshold),
+            int(quant_ratio), int(cvm_offset), group, cols, out.data_ptr(),
+            _stream(table))
     _check_launch("gather_pool", code)
     gather_pool.launches += 1
     return out
@@ -537,6 +561,18 @@ binned_merge_acc.launches = 0
 # merge_update
 # ---------------------------------------------------------------------------
 
+def mu_lane_group(row_width: int) -> tuple[int, int]:
+    """(G, CPL): the lanes merge_update gives one touched row and the
+    columns each of them holds, for a row of ``row_width`` logical
+    columns — 4 lanes x 4 columns up to 16 columns (a warp updates eight
+    rows a round), else scatter_accumulate's group (sa_lane_group). Refuses
+    widths past SA_MAX_WIDTH."""
+    w = int(row_width)
+    if 0 < w <= 16:
+        return 4, 4
+    return sa_lane_group(w)
+
+
 def merge_update_plain(table: torch.Tensor, acc: torch.Tensor,
                        cfg: EmbeddingConfig) -> torch.Tensor:
     """Plain PyTorch statement of the merge_update kernel:
@@ -578,11 +614,12 @@ def merge_update(table: torch.Tensor, acc: torch.Tensor,
         return table
     lib = _lib("merge_update")
     layout = row_layout(cfg)
+    group, cols = mu_lane_group(cfg.row_width)
     with torch.cuda.device(table.device):
         code = lib.pbt_merge_update(
             table.data_ptr(), n_rows, W, acc.data_ptr(), acc.shape[1],
-            OPTIMIZER_CODES[cfg.optimizer], ctypes.byref(layout),
-            _stream(table))
+            OPTIMIZER_CODES[cfg.optimizer], group, cols,
+            ctypes.byref(layout), _stream(table))
     _check_launch("merge_update", code)
     merge_update.launches += 1
     return table

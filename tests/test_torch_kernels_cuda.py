@@ -480,3 +480,121 @@ def test_binned_merge_acc_kernel_hot_row(card, plan, hot):
     _assert_acc(got, want, cfg.grad_width)
     assert torch.equal(got, want)          # lattice grads: sums are exact
     assert int(got[row, -1]) == int((idx == row).sum())
+
+
+# ---------------------------------------------------------------------------
+# merge_update's run-and-ballot walk and gather_pool's lane groups
+# ---------------------------------------------------------------------------
+
+# row widths on each side of merge_update's lane-group boundaries (4 | 8 |
+# 16 | 32 lanes), up to the 512-column cap
+_MU_WIDTHS = [13, 16, 17, 37, 64, 65, 129, 512]
+# row counts that leave a warp's run of 32 rows ragged (32 * 3 + 5)
+_MU_ROWS = [1, 31, 33, 101]
+_MU_TOUCHED = ["none", "all", "every_other", "last", "row0"]
+
+
+def _mu_cfg(opt, row_width, gated):
+    """A config of ``row_width`` columns; gated: a 2-column w block (1 for
+    ftrl, which has none) and show-gated embedx and expand planes."""
+    w_num = 2 if gated and opt != "ftrl" else 1
+    kw = dict(embed_w_num=w_num)
+    if gated:
+        kw.update(expand_dim=3, mf_create_threshold=4.0,
+                  expand_create_threshold=6.0)
+    dim = row_width - 2 - w_num - _N_STATE[opt] - kw.get("expand_dim", 0)
+    cfg = EmbeddingConfig(dim=dim, optimizer=opt, learning_rate=0.05, **kw)
+    assert cfg.row_width == row_width
+    return cfg
+
+
+def _mu_acc(cfg, n_rows, touched, rng):
+    """An accumulator whose touch counts follow the ``touched`` pattern;
+    row 0's payload is zero (masked tokens), other rows' random."""
+    gw = cfg.grad_width
+    acc = rng.normal(scale=0.3, size=(n_rows, gw + 3)).astype(np.float32)
+    acc[:, gw] = rng.integers(0, 3, n_rows)
+    acc[:, gw + 1] = rng.integers(0, 2, n_rows)
+    count = np.zeros(n_rows, np.float32)
+    if touched == "all":
+        count[:] = 1
+    elif touched == "every_other":
+        count[::2] = 2
+    elif touched == "last":
+        count[-1] = 1
+    elif touched == "row0":
+        count[0] = 1
+    acc[:, gw + 2] = count
+    acc[0, :gw + 2] = 0.0
+    return acc
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("opt", sorted(_N_STATE))
+@pytest.mark.parametrize("row_width", _MU_WIDTHS)
+def test_merge_update_kernel_runs_and_touched_patterns(card, row_width, opt,
+                                                       gated):
+    """Every ragged row count and touched pattern: touched rows as the
+    plain version, untouched rows bit-identical, row 0 zero, pad columns
+    past row_width passed through."""
+    cfg = _mu_cfg(opt, row_width, gated)
+    W = min(row_width + 3, kernels.SA_MAX_WIDTH)
+    for n_rows in _MU_ROWS:
+        for touched in _MU_TOUCHED:
+            rng = np.random.default_rng(row_width + n_rows)
+            table = rng.normal(scale=0.5, size=(n_rows, W)).astype(
+                np.float32)
+            table[:, 0] = rng.integers(0, 8, size=n_rows)
+            table[:, cfg.opt_cols] = np.abs(table[:, cfg.opt_cols])
+            table[0, :cfg.row_width] = 0.0
+            acc = _mu_acc(cfg, n_rows, touched, rng)
+            t0 = torch.from_numpy(table).to(card)
+            a = torch.from_numpy(acc).to(card)
+            want = kernels.merge_update_plain(t0.clone(), a, cfg)
+            n0 = kernels.merge_update.launches
+            got = kernels.merge_update(t0.clone(), a, cfg)
+            torch.cuda.synchronize()
+            assert kernels.merge_update.launches == n0 + 1
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                                       msg=f"{n_rows} rows, {touched}")
+            keep = torch.from_numpy(acc[:, -1] <= 0).to(card)
+            assert torch.equal(got[keep], t0[keep]), (n_rows, touched)
+            assert torch.equal(got[:, cfg.row_width:],
+                               t0[:, cfg.row_width:])
+            assert bool((got[0, :cfg.row_width] == 0).all())
+
+
+# pull widths on each side of gather_pool's lane-group boundaries (8 | 16 |
+# 32 lanes) and of its 512-column chunk, with the multi-hot main path's 35
+_GP_WIDTHS = [3, 35, 64, 65, 128, 129, 512, 513, 600]
+
+
+@pytest.mark.parametrize("name", sorted(_FILTERS))
+@pytest.mark.parametrize("L", [1, 3, 4, 9])
+@pytest.mark.parametrize("P", _GP_WIDTHS)
+def test_gather_pool_kernel_at_group_boundaries(card, P, L, name):
+    """Bit-equal to the plain version (same per-token filters, same
+    l = 0..L-1 order) with pads, negative and out-of-range ids; an
+    all-pad batch pools to exact +0.0."""
+    cfg = EmbeddingConfig(dim=P - 3, optimizer="adagrad")
+    assert cfg.pull_width == P
+    B, S, n = 16, 3, 300
+    rng = np.random.default_rng(P * 10 + L)
+    table = rng.normal(size=(n, cfg.row_width)).astype(np.float32)
+    table[:, 0] = rng.integers(0, 20, size=n)
+    table[:, 1] = rng.integers(0, 5, size=n)
+    table[0] = 0.0
+    idx = np.where(rng.random((B, S * L)) < 0.7,
+                   rng.integers(1, n, (B, S * L)), 0)
+    bad = rng.random((B, S * L)) < 0.1
+    idx[bad] = rng.choice([-1, -9, n, n + 4], int(bad.sum()))
+    t = torch.from_numpy(table).to(card)
+    i = torch.from_numpy(idx.astype(np.int32)).to(card)
+    kw = _FILTERS[name]
+    want = kernels.gather_pool_plain(t, i, cfg, S, L, **kw)
+    got = kernels.gather_pool(t, i, cfg, S, L, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    pads = kernels.gather_pool(t, torch.zeros_like(i), cfg, S, L, **kw)
+    torch.cuda.synchronize()
+    assert bool((pads == 0).all()) and not bool(torch.signbit(pads).any())

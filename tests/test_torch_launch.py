@@ -126,3 +126,131 @@ def test_binned_merge_acc_cpu_matches_numpy(kind, dim):
         *(torch.from_numpy(a) for a in (idx, grads, shows, clks)), cfg,
         n_rows, plan=plan)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# merge_update's lane group and its run-and-ballot walk; gather_pool's
+# lane group and column chunks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lo,hi", [(1, 16), (17, 64), (65, 128), (129, 256),
+                                   (257, 512)])
+def test_mu_lane_group_covers_every_width(lo, hi):
+    """Every width merge_update takes gets a group of a power of two
+    lanes in the shared header's range (4 to 32, dividing the warp) that
+    holds the whole row, from the instantiations csrc/merge_update.cu
+    has."""
+    built = {(4, 4), (8, 8), (16, 8), (32, 8), (32, 16)}
+    for w in range(lo, hi + 1):
+        g, cpl = kernels.mu_lane_group(w)
+        assert (g, cpl) in built, w
+        assert g in (4, 8, 16, 32) and g * cpl >= w, w
+    # the narrowest rows (the one-hot headline's 13) get the 4-lane group
+    assert kernels.mu_lane_group(13) == (4, 4)
+
+
+@pytest.mark.parametrize("w", [0, -3, kernels.SA_MAX_WIDTH + 1, 600])
+def test_mu_lane_group_refuses_widths_past_the_cap(w):
+    with pytest.raises(ValueError):
+        kernels.mu_lane_group(w)
+
+
+def _mu_walk(count: np.ndarray, group: int) -> list[int]:
+    """The rows merge_update's kernel updates, in the order it takes
+    them: each warp owns a run of 32 rows, a lane loads one row's count,
+    the ballot of count > 0 names the touched rows, and each round gives
+    the next 32 / group of them to the groups in turn (a group whose
+    share of the round is empty passes valid = false)."""
+    rows = []
+    for r0 in range(0, len(count), 32):
+        rest = 0
+        for lane in range(32):
+            r = r0 + lane
+            if r < len(count) and count[r] > 0:
+                rest |= 1 << lane
+        while rest:
+            for grp in range(32 // group):
+                m = rest
+                for j in range(32 // group - 1):
+                    if j < grp:
+                        m &= m - 1
+                if m:
+                    rows.append(r0 + (m & -m).bit_length() - 1)
+            for _ in range(32 // group):
+                rest &= rest - 1
+    return rows
+
+
+def _touch_pattern(kind: str, n_rows: int) -> np.ndarray:
+    count = np.zeros(n_rows, np.float32)
+    if kind == "all":
+        count[:] = 1
+    elif kind == "every_other":
+        count[::2] = 3
+    elif kind == "last":
+        count[-1] = 1
+    elif kind == "row0":
+        count[0] = 1
+    return count
+
+
+@pytest.mark.parametrize("width", [13, 37, 100, 300])
+@pytest.mark.parametrize("kind", ["none", "all", "every_other", "last",
+                                  "row0"])
+@pytest.mark.parametrize("n_rows", [1, 31, 33, 32 * 3 + 5, 32 * 40 + 5])
+def test_mu_walk_visits_each_touched_row_once(width, kind, n_rows):
+    """Over ragged runs and every touched pattern, the walk updates each
+    touched row exactly once and no other row."""
+    group, _ = kernels.mu_lane_group(width)
+    count = _touch_pattern(kind, n_rows)
+    rows = _mu_walk(count, group)
+    assert len(rows) == len(set(rows))
+    np.testing.assert_array_equal(np.sort(rows), np.flatnonzero(count > 0))
+
+
+def test_mu_walk_on_random_counts():
+    """Random touch counts (zero, fractional, negative) over several
+    runs: only counts > 0 are updated, each once."""
+    rng = np.random.default_rng(4)
+    count = rng.choice([0.0, 0.0, 1.0, 2.5, -1.0], 32 * 17 + 9).astype(
+        np.float32)
+    for width in (13, 37, 100, 300):
+        rows = _mu_walk(count, kernels.mu_lane_group(width)[0])
+        assert sorted(rows) == list(np.flatnonzero(count > 0))
+
+
+def test_gp_lane_group_covers_every_pull_width():
+    """For P = 1..600: 8 lanes up to 64 columns, 16 up to 128, 32
+    beyond; columns a lane from the instantiations csrc/gather_pool.cu
+    has, with at most one column of a lane past P in a chunk (the column
+    loop stops at P); chunks of GP_CHUNK columns past that."""
+    built = ({(8, c) for c in range(1, 9)} | {(16, c) for c in range(5, 9)}
+             | {(32, c) for c in range(5, 17)})
+    for p in range(1, 601):
+        g, cpl = kernels.gp_lane_group(p)
+        assert (g, cpl) in built, p
+        assert g == (8 if p <= 64 else 16 if p <= 128 else 32), p
+        width = g * cpl
+        assert width >= min(p, kernels.GP_CHUNK) and width - g < p, p
+        if p > kernels.GP_CHUNK:
+            assert width == kernels.GP_CHUNK, p
+
+
+@pytest.mark.parametrize("p", [1, 3, 35, 64, 65, 128, 129, 256, 257, 511,
+                               512, 513, 600, 1100])
+def test_gp_chunks_cover_each_column_once(p):
+    """The kernel's column walk — chunks c0 = 0, G*CPL, ... below P, lane
+    l's columns c0 + l + k*G for k < CPL, kept where < P — covers every
+    pooled column exactly once."""
+    g, cpl = kernels.gp_lane_group(p)
+    cols = [c0 + lane + k * g
+            for c0 in range(0, p, g * cpl)
+            for lane in range(g) for k in range(cpl)
+            if c0 + lane + k * g < p]
+    assert sorted(cols) == list(range(p))
+
+
+@pytest.mark.parametrize("p", [0, -1])
+def test_gp_lane_group_refuses_empty_rows(p):
+    with pytest.raises(ValueError):
+        kernels.gp_lane_group(p)
