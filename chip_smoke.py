@@ -30,11 +30,24 @@ Phases, each of which exits non-zero on failure:
 5. each layout's main path — HostEmbeddingStore, an in-memory SlotDataset
    of 16 x 8192 examples, BoxPS.begin_pass -> Trainer.train_pass ->
    BoxPS.end_pass with every kernel's launch count reset just before and
-   read just after, then a breakdown of one step (host pack, device step,
+   read just after, then Trainer.eval_pass on 4 batches and a padded
+   tail (counts read around it: multi-hot launches gather_pool once a
+   batch), then a breakdown of one step (host pack, device step,
    profiler split); for the one-hot layout also the device step under
    each push engine on pre-staged batches carrying that engine's plan;
 6. a small pass of each layout on the card and on the CPU (plain
-   versions) must agree.
+   versions) must agree;
+7. persistence, on the one-hot layout at full width: three passes of 16
+   steps through BoxPS.end_pass(checkpointer=PassCheckpointer(base_every
+   2)) — a base, a delta, a new chain's base — with every count reset
+   just before and read just after the phase; resume of pass 2 into a
+   fresh store, trainer and BoxPS must be bit-equal to the live state
+   after pass 2 (keys, rows, dense params, adam mu/nu/count, metric
+   state, cursor); pass 3 from the resumed state must agree with the
+   live pass 3 (LOSS_TOL / TABLE_TOL: the kernels' f32 atomics reorder
+   sums); with pass 3's dense.npz truncated, resume must fall back to
+   pass 2 with a warning. Prints the seconds and bytes of each save and
+   of the resume beside the card's name and power limit.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -719,7 +732,7 @@ def check_text_parse(schema, records) -> None:
     print(f"text parse: {n} MultiSlot lines pack to identical bytes ok")
 
 
-def make_trainer(torch, lay, n_batch, device):
+def make_trainer(torch, lay, n_batch, device, seed=SEED):
     from paddlebox_tpu_torch.data import DataFeedSchema
     from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
                                                HostEmbeddingStore)
@@ -733,7 +746,7 @@ def make_trainer(torch, lay, n_batch, device):
     tr = Trainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN), store,
                  schema, TrainerConfig(global_batch_size=n_batch,
                                        auc_buckets=1 << 16),
-                 seed=SEED, device=device)
+                 seed=seed, device=device)
     return store, schema, tr
 
 
@@ -787,10 +800,43 @@ def main_path(torch, kernels, lay) -> dict[str, int]:
     check(changed > 0.99, f"only {changed:.3f} of the rows changed")
     print(f"write-back: show counters sum to {n_tokens}, "
           f"{changed * 100:.2f}% of rows changed ok")
+    eval_check(kernels, lay, tr, schema, keys, rng)
     breakdown(torch, tr, ds, out["step_seconds"] / steps * 1e3)
     if lay is ONEHOT:
         engine_ab(torch, tr, ds)
     return {k: launches[k] for k in lay.kernels}
+
+
+def eval_check(kernels, lay, tr, schema, keys, rng) -> None:
+    """Trainer.eval_pass over 4 full batches and a tail of 1000 examples
+    (padded, masked out of the AUC) with every count reset just before
+    and read just after: the multi-hot eval pulls through gather_pool
+    once a batch, the one-hot eval launches no kernel (a plain gather),
+    and the store neither grows nor gets dirty rows."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    n = 4 * B + 1000
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, n, keys, rng, lay.max_len)
+    store = tr.store
+    n_keys, dirty = len(store), int(store._dirty[:store._n].sum())
+    reset_counts(kernels)
+    out = tr.eval_pass(ds)
+    launches = launch_counts(kernels)
+    steps = out["steps"]
+    print(f"eval_pass, {lay.name} ({smi_line()}): {steps} batches, "
+          f"{out['examples']} examples (a tail of 1000 padded and masked) | "
+          f"auc {out['auc']:.6f} | {n / out['step_seconds']:.1f} examples/s "
+          f"(batch loop) | {n / out['seconds']:.1f} examples/s (whole "
+          f"pass, {out['seconds']:.3f} s) | launches {launches}")
+    check(out["examples"] == n and out["size"] == n,
+          f"eval_pass scored {out['examples']} examples, expected {n}")
+    check(np.isfinite(out["auc"]), "eval_pass: non-finite AUC")
+    check(len(store) == n_keys and int(store._dirty[:store._n].sum())
+          == dirty, "eval_pass grew the store or dirtied rows")
+    for name, k in launches.items():
+        want = steps if (name == "gather_pool" and lay is MULTI) else 0
+        check(k == want, f"eval_pass launched {name} {k} times in {steps} "
+              f"batches, expected {want}")
 
 
 def breakdown(torch, tr, ds, loop_ms: float) -> None:
@@ -952,6 +998,175 @@ def reference_check(torch, lay) -> None:
           f"{gpu['auc']:.6f} vs {cpu['auc']:.6f}, rows within rtol 1e-3 ok")
 
 
+def flat_dense(tr) -> dict:
+    from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
+    return {p: np.array(x) for p, x in flatten_tree(tr.dense_state())}
+
+
+def metric_state(box) -> dict:
+    return {k: v.cpu().numpy().copy()
+            for k, v in box.metrics.get_state("auc").items()}
+
+
+def persistence_phase(torch, kernels) -> None:
+    """The one-hot headline at full width through three checkpointed
+    passes, a resume of pass 2 into a fresh job, pass 3 again from the
+    resumed state, and a resume past a torn newest snapshot. Every
+    count is reset just before the phase and read just after: its four
+    training passes launch binned_merge_acc and merge_update once a
+    step."""
+    import shutil
+    import warnings
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    lay = ONEHOT
+    print(f"== persistence, {lay.name}: {lay.n_keys}-key store, 3 passes x "
+          f"{lay.steps} steps, PassCheckpointer(base_every=2)")
+    rng = np.random.default_rng(SEED + 5)
+    keys = np.unique(rng.integers(1, 1 << 50, lay.n_keys + 4096,
+                                  dtype=np.uint64))[:lay.n_keys]
+
+    def job(seed):
+        store, schema, tr = make_trainer(torch, lay, B, None, seed=seed)
+        box = BoxPS(store)
+        box.init_metric("auc")
+        return store, schema, tr, box
+
+    store, schema, tr, box = job(SEED)
+    datasets = []
+    for p in range(3):
+        ds = SlotDataset(schema, seed=p)
+        ds.records = make_records(schema, lay.steps * B, keys,
+                                  np.random.default_rng(SEED + 10 + p), 1)
+        datasets.append(ds)
+    card = smi_line()
+    reset_counts(kernels)
+    with tempfile.TemporaryDirectory() as d:
+        root = os.path.join(d, "snapshots")
+        ckpt = PassCheckpointer(root, base_every=2)
+        saves = []
+        for p, ds in enumerate(datasets, 1):
+            box.set_date(20261017)
+            box.begin_pass()
+            out = tr.train_pass(ds, metrics=box.metrics)
+            t0 = time.perf_counter()
+            box.end_pass(checkpointer=ckpt, trainer=tr, dataset=ds)
+            end_s = time.perf_counter() - t0
+            sv = dict(ckpt.last_save)
+            saves.append(sv)
+            kind = "save_base" if sv["rotated"] else "save_delta"
+            print(f"  pass {p}: loss mean {out['loss_mean']:.6f} | auc "
+                  f"{out['auc']:.6f} | registry auc "
+                  f"{box.get_metric_msg('auc')['auc']:.6f} | boundary "
+                  f"(pass - step seconds) {out['seconds'] - out['step_seconds']:.3f} s"
+                  f" | end_pass {end_s:.3f} s: {kind} {sv['sparse_member']} "
+                  f"{sv['sparse_bytes']} bytes in {sv['sparse_seconds']:.3f} s,"
+                  f" snapshot {sv['snapshot']} {sv['bytes']} bytes in "
+                  f"{sv['seconds']:.3f} s")
+            if p == 2:
+                k2 = store.keys()
+                live2 = dict(keys=k2, rows=store.get_rows(k2),
+                             dense=flat_dense(tr), metrics=metric_state(box),
+                             step=tr.global_step)
+            if p == 3:
+                live3 = dict(out=out, keys=store.keys())
+                live3["rows"] = store.get_rows(live3["keys"])
+        check([s["rotated"] for s in saves] == [True, False, True],
+              f"saves rotated {[s['rotated'] for s in saves]}, expected "
+              f"base, delta, base")
+        check(sorted(os.listdir(root)) == ["chain-0001", "chain-0002",
+                                           "pass-00001", "pass-00002",
+                                           "pass-00003"],
+              f"snapshot root holds {sorted(os.listdir(root))}")
+
+        # resume pass 2 into a fresh job (pass 3's snapshot never landed)
+        root2 = os.path.join(d, "resumed")
+        shutil.copytree(root, root2)
+        shutil.rmtree(os.path.join(root2, "pass-00003"))
+        store2, _, tr2, box2 = job(SEED + 1)
+        ck2 = PassCheckpointer(root2, base_every=2)
+        cursor = tr2.resume(ck2, box=box2)
+        res = dict(ck2.last_resume)
+        check(cursor is not None and cursor["pass_id"] == 2
+              and box2.pass_id == 2 and cursor["date"] == 20261017
+              and tr2.global_step == live2["step"] == 2 * lay.steps,
+              f"resumed cursor {cursor}")
+        check(np.array_equal(store2.keys(), live2["keys"])
+              and np.array_equal(store2.get_rows(live2["keys"]),
+                                 live2["rows"]),
+              "resumed store keys/rows differ from the live store after "
+              "pass 2")
+        got = flat_dense(tr2)
+        check(sorted(got) == sorted(live2["dense"]) and all(
+            got[k].dtype == v.dtype and np.array_equal(got[k], v)
+            for k, v in live2["dense"].items()),
+              "resumed dense params / adam state differ from the live ones")
+        check(got["opt_state/0/count"].shape == ()
+              and int(got["opt_state/0/count"]) == 2 * lay.steps,
+              "adam count not restored")
+        check(next(tr2.model.parameters()).device.type == "cuda",
+              "restored dense state is not on the card")
+        mt = metric_state(box2)
+        check(all(np.array_equal(mt[k], v)
+                  for k, v in live2["metrics"].items()),
+              "resumed metric state differs from the live one")
+        print(f"  resume of pass 2 into a fresh job: {res['bytes']} bytes "
+              f"in {res['seconds']:.3f} s; store ({len(store2)} keys), "
+              f"dense params, adam mu/nu/count, metric state and cursor "
+              f"bit-equal to the live run ok")
+        box2.begin_pass()
+        out3 = tr2.train_pass(datasets[2], metrics=box2.metrics)
+        box2.end_pass(checkpointer=ck2, trainer=tr2, dataset=datasets[2])
+        live_out = live3["out"]
+        np.testing.assert_allclose(out3["loss_mean"], live_out["loss_mean"],
+                                   **LOSS_TOL)
+        check(abs(out3["auc"] - live_out["auc"]) < 1e-3,
+              "resumed pass 3 AUC differs from the live one")
+        check(np.array_equal(store2.keys(), live3["keys"]),
+              "resumed pass 3 keys differ")
+        np.testing.assert_allclose(store2.get_rows(live3["keys"]),
+                                   live3["rows"], **TABLE_TOL)
+        check(ck2.last_save["rotated"], "resumed pass 3 save was no base")
+        print(f"  pass 3 from the resumed state: loss {out3['loss_mean']:.6f}"
+              f" vs live {live_out['loss_mean']:.6f}, auc {out3['auc']:.6f} "
+              f"vs {live_out['auc']:.6f}, rows within rtol 1e-3 ok")
+
+        # a torn newest snapshot: resume falls back to pass 2
+        dense_f = os.path.join(root, "pass-00003", "dense.npz")
+        with open(dense_f, "r+b") as f:
+            f.truncate(os.path.getsize(dense_f) // 2)
+        store3, _, tr3, box3 = job(SEED + 2)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cursor3 = tr3.resume(PassCheckpointer(root, base_every=2),
+                                 box=box3)
+        named = [str(w.message) for w in caught
+                 if "pass-00003" in str(w.message)]
+        check(cursor3 is not None and cursor3["pass_id"] == 2 and named,
+              f"torn pass 3: resumed {cursor3}, warnings {named}")
+        check(np.array_equal(store3.get_rows(live2["keys"]), live2["rows"]),
+              "fallback resume: rows differ from pass 2's")
+        print(f"  pass 3's dense.npz truncated: resume fell back to pass 2 "
+              f"with a warning ({named[0][:100]}...) ok")
+    launches = launch_counts(kernels)
+    print(f"launches in the persistence phase (4 training passes): "
+          f"{launches}")
+    for name, n in launches.items():
+        want = 4 * lay.steps if name in lay.kernels else 0
+        check(n == want, f"{name} launched {n} times in the persistence "
+              f"phase, expected {want}")
+    base1, delta, base3 = saves
+    print(f"persistence ({card}): save_base {base1['sparse_bytes']} bytes "
+          f"in {base1['sparse_seconds']:.3f} s | save_delta "
+          f"{delta['sparse_bytes']} bytes in {delta['sparse_seconds']:.3f} s"
+          f" | save_base (pass 3) {base3['sparse_bytes']} bytes in "
+          f"{base3['sparse_seconds']:.3f} s | whole snapshot "
+          f"{base1['seconds']:.3f} / {delta['seconds']:.3f} / "
+          f"{base3['seconds']:.3f} s | resume {res['bytes']} bytes in "
+          f"{res['seconds']:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -970,6 +1185,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     for lay in (MULTI, ONEHOT):
         reference_check(torch, lay)
+    persistence_phase(torch, kernels)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

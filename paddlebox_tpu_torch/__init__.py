@@ -7,9 +7,12 @@ and nothing of ``paddlebox_tpu``. Entry points (``Trainer``,
 passes ``device="cpu"``; with no card and no explicit CPU request they
 raise (see :mod:`paddlebox_tpu_torch.device`).
 
-The two hand-written Hopper kernels of the training step
-(``gather_pool`` and ``scatter_accumulate``) live under ``csrc/`` and are
-built with nvcc at first use into ``_build/`` (:mod:`.ops.kernels`).
+The four hand-written Hopper kernels of the training step
+(``gather_pool``, ``scatter_accumulate``, ``binned_merge_acc``,
+``merge_update``) live under ``csrc/`` and are built with nvcc at first
+use into ``_build/`` (:mod:`.ops.kernels`). Persistence (``utils/``,
+``embedding/store.py``, ``fleet/``) writes the JAX package's file
+formats, so checkpoints and models move between the two packages.
 """
 
 __version__ = "0.1.0"

@@ -35,6 +35,12 @@ class Flags:
     # token streams on the card to binned_kernel only while this is set
     # (a forced flags.push_engine="binned_kernel" ignores it)
     binned_push: bool = True
+    # PassCheckpointer retention: snapshots kept (at least 2, so a torn
+    # newest one has a predecessor to fall back to)
+    ckpt_keep_last_n: int = 3
+    # a fresh sparse base chain every N passes (bounds the delta replay at
+    # resume and lets retention reclaim old chains); deltas between
+    ckpt_base_every: int = 8
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):

@@ -32,6 +32,12 @@ class LocalShuffler:
     def shuffle(self, batch: SlotRecordBatch) -> SlotRecordBatch:
         return batch.shuffle(self.rng)
 
+    def state_dict(self) -> dict:
+        return self.rng.bit_generator.state
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rng.bit_generator.state = state
+
 
 class SlotDataset:
     """One pass of training data, held columnar in host memory."""
@@ -63,6 +69,16 @@ class SlotDataset:
     def local_shuffle(self) -> None:
         if self.records is not None and self.records.num:
             self.records = self._shuffler.shuffle(self.records)
+
+    def shuffle_state(self) -> dict:
+        """The shuffle RNG cursor (JAX ``dataset.py:147``): the numpy
+        bit-generator state, JSON-serializable and the same dict in both
+        packages. A pass snapshot records it, so a resumed run draws the
+        permutations the interrupted one would have."""
+        return self._shuffler.state_dict()
+
+    def set_shuffle_state(self, state: dict) -> None:
+        self._shuffler.load_state_dict(state)
 
     def unique_keys(self) -> np.ndarray:
         """The pass's feature-sign working set."""

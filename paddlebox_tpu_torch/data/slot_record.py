@@ -249,6 +249,29 @@ class PackedBatch:
     # PV's examples adjacent
     search_id: np.ndarray | None = None
 
+    def pad_to(self, batch_size: int) -> "PackedBatch":
+        """Pad to ``batch_size`` rows with masked-out examples (a tail
+        batch keeps the step's shape; padded rows carry mask=False
+        everywhere, so pulls resolve to the null row and metrics exclude
+        them; ``num`` keeps the valid count)."""
+        n = len(self.floats)
+        if n >= batch_size:
+            return self
+        pad = batch_size - n
+
+        def _pad(a, fill=0):
+            shape = (pad,) + a.shape[1:]
+            return np.concatenate([a, np.full(shape, fill, dtype=a.dtype)])
+
+        return PackedBatch(
+            schema=self.schema, num=self.num,
+            ids=_pad(self.ids), mask=_pad(self.mask, False),
+            floats=_pad(self.floats), rank=_pad(self.rank),
+            cmatch=_pad(self.cmatch),
+            ins_id=None if self.ins_id is None else _pad(self.ins_id),
+            search_id=(None if self.search_id is None
+                       else _pad(self.search_id)))
+
 
 def batch_iterator(records: SlotRecordBatch, batch_size: int,
                    drop_last: bool = False) -> Iterator[PackedBatch]:

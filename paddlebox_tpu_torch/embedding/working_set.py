@@ -7,6 +7,8 @@ current pass:
   dense indices 1..K in sorted-key order (0 = the all-zero NULL_INDEX row
   that padding tokens point at), fetches their rows from the host store
   and lays them out as one (n_rows, W) float32 tensor on the device.
+  ``test_mode=True`` (eval, JAX ``working_set.py:331-357``) reads with
+  ``peek_rows``, so an eval pass never grows or dirties the store.
 - ``translate(ids, mask)`` maps uint64 feature signs to int32 working-set
   indices on the host (one KeyIndex batch probe), so the device only ever
   sees dense int32 indices; it also records which rows a batch touched.
@@ -63,9 +65,12 @@ class PassWorkingSet:
     @classmethod
     def begin_pass(cls, store: HostEmbeddingStore, keys: np.ndarray,
                    device: str | torch.device | None = None,
-                   min_rows: int = 8) -> "PassWorkingSet":
+                   min_rows: int = 8,
+                   test_mode: bool = False) -> "PassWorkingSet":
         """Build the pass working set on ``device`` (the card unless
-        ``device="cpu"``), inserting unseen keys into the store."""
+        ``device="cpu"``), inserting unseen keys into the store — or, with
+        ``test_mode``, reading them without inserting (unseen keys get
+        their deterministic init row)."""
         dev = resolve_device(device)
         cfg = store.cfg
         if cfg.storage != "f32":
@@ -73,7 +78,8 @@ class PassWorkingSet:
                 f"storage={cfg.storage!r}: quantized device tables are not "
                 f"ported yet (ROADMAP, storage variants)")
         keys = np.unique(np.asarray(keys).astype(np.uint64))
-        rows = store.lookup_or_init(keys)
+        rows = (store.peek_rows(keys) if test_mode
+                else store.lookup_or_init(keys))
         n_rows = max(min_rows, len(keys) + 1)      # +1: the null row
         host = np.zeros((n_rows, device_width(cfg)), dtype=np.float32)
         host[1:1 + len(keys), :cfg.row_width] = rows

@@ -19,7 +19,8 @@ DEFAULT_BUCKETS = 1 << 20
 _KEYS = ("pos", "neg", "abserr", "sqrerr", "pred")
 
 
-def new_state(n_buckets: int, device) -> dict[str, torch.Tensor]:
+def new_state(n_buckets: int = DEFAULT_BUCKETS,
+              device="cpu") -> dict[str, torch.Tensor]:
     return {
         "pos": torch.zeros(n_buckets, dtype=torch.float32, device=device),
         "neg": torch.zeros(n_buckets, dtype=torch.float32, device=device),
@@ -30,18 +31,34 @@ def new_state(n_buckets: int, device) -> dict[str, torch.Tensor]:
 
 
 def auc_update(state: dict[str, torch.Tensor], preds: torch.Tensor,
-               labels: torch.Tensor) -> None:
-    """Accumulate one batch into ``state`` in place (no host sync)."""
+               labels: torch.Tensor, mask: torch.Tensor | None = None,
+               sample_scale: torch.Tensor | None = None) -> None:
+    """Accumulate one batch into ``state`` in place (no host sync).
+
+    ``mask``: bool per example, the mask / cmatch-rank metric filter;
+    ``sample_scale``: a per-example weight (the sample-scale metric)."""
     n_buckets = state["pos"].shape[0]
     p = preds.reshape(-1).to(torch.float32)
     y = labels.reshape(-1).to(torch.float32)
     bucket = torch.clamp((p * n_buckets).to(torch.int32), 0,
                          n_buckets - 1).long()
-    state["pos"].index_add_(0, bucket, y)
-    state["neg"].index_add_(0, bucket, 1.0 - y)
-    state["abserr"] += torch.sum(torch.abs(p - y))
-    state["sqrerr"] += torch.sum((p - y) ** 2)
-    state["pred"] += torch.sum(p)
+    if mask is None and sample_scale is None:
+        state["pos"].index_add_(0, bucket, y)
+        state["neg"].index_add_(0, bucket, 1.0 - y)
+        state["abserr"] += torch.sum(torch.abs(p - y))
+        state["sqrerr"] += torch.sum((p - y) ** 2)
+        state["pred"] += torch.sum(p)
+        return
+    w = torch.ones_like(p)
+    if sample_scale is not None:
+        w = w * sample_scale.reshape(-1).to(torch.float32)
+    if mask is not None:
+        w = w * mask.reshape(-1).to(torch.float32)
+    state["pos"].index_add_(0, bucket, y * w)
+    state["neg"].index_add_(0, bucket, (1.0 - y) * w)
+    state["abserr"] += torch.sum(w * torch.abs(p - y))
+    state["sqrerr"] += torch.sum(w * (p - y) ** 2)
+    state["pred"] += torch.sum(w * p)
 
 
 class AucAccumulator:
@@ -58,8 +75,9 @@ class AucAccumulator:
         self.dev = new_state(n_buckets, self.device)
         self._updates = 0
 
-    def update(self, preds: torch.Tensor, labels: torch.Tensor) -> None:
-        auc_update(self.dev, preds, labels)
+    def update(self, preds: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor | None = None) -> None:
+        auc_update(self.dev, preds, labels, mask=mask)
         self._updates += 1
         if self._updates >= self.drain_every:
             self.drain()

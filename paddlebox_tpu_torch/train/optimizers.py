@@ -8,6 +8,11 @@ adam (optax.adam, eps_root = 0):
     p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
 sgd (optax.sgd):
     p += -lr * g
+
+``state_leaves`` / ``load_state_leaves`` expose each optimizer's state
+in optax's order, which ``weights.py`` lays out as optax's state tree:
+adam ``(ScaleByAdamState(count, mu, nu), EmptyState())``, sgd
+``(EmptyState(), EmptyState())`` (no leaves).
 """
 
 from __future__ import annotations
@@ -40,6 +45,17 @@ class Adam:
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(-self.lr * upd)
 
+    def state_leaves(self) -> dict:
+        """{"count": int, "mu": [tensor], "nu": [tensor]}, the moments
+        aligned with ``params``."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_leaves(self, count, mu, nu) -> None:
+        self.count = int(count)
+        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+            dst.copy_(torch.as_tensor(np.asarray(src, np.float32)))
+
 
 class Sgd:
     def __init__(self, params: Sequence[torch.Tensor], lr: float):
@@ -50,6 +66,12 @@ class Sgd:
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         for p, g in zip(self.params, grads):
             p.add_(-self.lr * g)
+
+    def state_leaves(self) -> None:
+        return None
+
+    def load_state_leaves(self) -> None:
+        pass
 
 
 def make(name: str, lr: float, params: Sequence[torch.Tensor]):

@@ -10,13 +10,26 @@ the sparse grads into the table (in-table optimizer), and apply the
 dense optimizer. A host thread translates and plans batch k+1 while the
 card runs step k.
 
+Around the passes (``trainer.py:1315-2443``): ``train_pass`` feeds a
+``MetricRegistry`` per batch and skips the first ``skip_steps`` batches
+of a resumed pass; ``eval_pass`` scores a dataset in test mode (no push,
+no dense update, the store neither grown nor dirtied, the tail batch
+padded and masked out of the AUC) through the same pull engine as
+training; ``dense_state`` / ``restore_dense`` / ``save_checkpoint`` /
+``resume`` carry the dense params and the optimizer state through a
+``PassCheckpointer`` in the JAX package's file format. Write-back is
+eager (``train_pass`` writes the touched rows back at its end), so
+``flush_sparse`` has nothing to flush.
+
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
 Not ported yet (ROADMAP): multi-shard routing, kstep/async dense sync,
-supersteps, deferred push, dump streams, mid-pass resume, telemetry,
-tiering, eval_pass.
+supersteps, deferred push (push overlap), ``FeedPassManager`` (lazy
+write-back, incremental feed, ``train_pass(preload_keys=...)``), dump
+streams, mid-pass snapshot saving,
+coordinated multi-host resume, telemetry, tiering.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddlebox_tpu_torch import weights
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
@@ -197,25 +211,29 @@ class Trainer:
 
     def pack_arrays(self, ws: PassWorkingSet, idx: np.ndarray,
                     mask: np.ndarray, dense: np.ndarray,
-                    labels: np.ndarray) -> tuple:
+                    labels: np.ndarray, with_plan: bool = True) -> tuple:
         """Host tensors for one step: (idx, mask, dense, labels, plan);
-        plan is host_plan's. Pinned when the step runs on the card, so
-        the copy can overlap compute."""
+        plan is host_plan's (None without ``with_plan``: eval never
+        pushes). Pinned when the step runs on the card, so the copy can
+        overlap compute."""
         arrays = (np.ascontiguousarray(idx, np.int32),
                   np.ascontiguousarray(mask, bool),
                   np.ascontiguousarray(dense, np.float32),
                   np.ascontiguousarray(labels, np.float32))
         host = [torch.from_numpy(a) for a in arrays]
-        plan = sharded.map_plan(self.host_plan(ws, idx), torch.from_numpy)
+        plan = sharded.map_plan(
+            self.host_plan(ws, idx) if with_plan else None,
+            torch.from_numpy)
         if self.device.type == "cuda":
             host = [t.pin_memory() for t in host]
             plan = sharded.map_plan(plan, torch.Tensor.pin_memory)
         return (*host, plan)
 
-    def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch) -> tuple:
+    def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch,
+                   with_plan: bool = True) -> tuple:
         idx = ws.translate(pb.ids, pb.mask)
         labels, dense = self.split_floats(pb.floats)
-        return self.pack_arrays(ws, idx, pb.mask, dense, labels)
+        return self.pack_arrays(ws, idx, pb.mask, dense, labels, with_plan)
 
     def stage(self, host: tuple) -> tuple:
         """Host tensors from pack_arrays → the step's device tensors."""
@@ -227,18 +245,23 @@ class Trainer:
         *arrays, plan = host
         return (*(put(t) for t in arrays), sharded.map_plan(plan, put))
 
-    def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int):
-        """Yield each batch's staged tensors, with the pack (translate +
-        plan + pin) running on a host thread ``flags.prefetch_batches``
-        batches ahead of the step."""
+    def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int,
+                   test_mode: bool = False):
+        """Yield (packed batch, its staged tensors), with the pack
+        (translate + plan + pin) running on a host thread
+        ``flags.prefetch_batches`` batches ahead of the step.
+        ``test_mode`` (eval) packs no push plan and pads the tail batch
+        instead of dropping it (``pb.num`` keeps the valid count)."""
         def source():
-            for pb in dataset.batches(batch_size, drop_last=True):
-                yield self._pack_host(ws, pb)
+            for pb in dataset.batches(batch_size, drop_last=not test_mode):
+                if len(pb.floats) < batch_size:
+                    pb = pb.pad_to(batch_size)
+                yield pb, self._pack_host(ws, pb, with_plan=not test_mode)
 
         depth = flags.prefetch_batches
         if depth <= 0:
-            for host in source():
-                yield self.stage(host)
+            for pb, host in source():
+                yield pb, self.stage(host)
             return
         q: Any = queue.Queue(maxsize=depth)
         done = object()
@@ -263,7 +286,7 @@ class Trainer:
                     break
                 if isinstance(item, _PackError):
                     raise item.exc
-                yield self.stage(item)
+                yield item[0], self.stage(item[1])
         finally:
             # an abandoned consumer: stop the producer after its current
             # batch, and drain so a blocked put() wakes to see the event
@@ -278,6 +301,24 @@ class Trainer:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    def _pull(self, table: torch.Tensor, idx: torch.Tensor,
+              requires_grad: bool = False):
+        """One batch's pull and the model input it makes: for the fused
+        engine the gather_pool kernel's (B, S, P) sums (PooledSlots), else
+        the gathered (B, T, P) rows."""
+        lay = self.layout
+        S = lay.num_slots
+        ecfg = self.store.cfg
+        fused = self.pull_engine == "fused_gather_pool"
+        if fused:
+            pulled = sharded.fused_pull_pool(table, idx, ecfg, S,
+                                             lay.total_len // S)
+        else:
+            pulled = sharded.lookup(table, idx, ecfg)
+        if requires_grad:
+            pulled.requires_grad_()
+        return pulled, (PooledSlots(pulled) if fused else pulled)
+
     def train_step(self, table: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor, dense: torch.Tensor,
                    labels: torch.Tensor, plan=None
@@ -290,13 +331,7 @@ class Trainer:
         ecfg = self.store.cfg
         B = idx.shape[0]
         fused = self.pull_engine == "fused_gather_pool"
-        if fused:
-            pulled = sharded.fused_pull_pool(table, idx, ecfg, S, T // S)
-            pulled.requires_grad_()
-            model_in = PooledSlots(pulled)
-        else:
-            pulled = sharded.lookup(table, idx, ecfg).requires_grad_()
-            model_in = pulled
+        pulled, model_in = self._pull(table, idx, requires_grad=True)
         logits = self.model(model_in, mask, dense, lay.segment_ids, S)
         loss = F.binary_cross_entropy_with_logits(logits, labels)
         *gp, gpulled = torch.autograd.grad(loss, [*self.params, pulled])
@@ -313,25 +348,52 @@ class Trainer:
         self.dense_opt.step(gp)
         return loss.detach(), torch.sigmoid(logits.detach())
 
+    @torch.no_grad()
+    def eval_step(self, table: torch.Tensor, idx: torch.Tensor,
+                  mask: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+        """Predictions of one batch (the JAX eval step, trainer.py:894):
+        the training step's pull and the model's forward; nothing is
+        pushed or updated."""
+        lay = self.layout
+        _, model_in = self._pull(table, idx)
+        logits = self.model(model_in, mask, dense, lay.segment_ids,
+                            lay.num_slots)
+        return torch.sigmoid(logits)
+
     # ------------------------------------------------------------------
     # the pass
     # ------------------------------------------------------------------
-    def train_pass(self, dataset) -> dict[str, float]:
+    def train_pass(self, dataset, metrics=None,
+                   skip_steps: int = 0) -> dict[str, float]:
         """One pass over the dataset: build the working set from the
         dataset's keys, train every full batch, write the touched rows
         back to the store. Returns AUC stats plus loss_first/last/mean,
         steps, step_seconds (the step loop's wall time, device work
-        included) and seconds (the whole pass)."""
+        included) and seconds (the whole pass).
+
+        ``metrics``: a MetricRegistry; every registered metric gets each
+        batch's (preds, labels, cmatch, rank). ``skip_steps``: a resumed
+        pass — the first ``skip_steps`` batches are packed (their rows
+        stay in the working set) but not trained, since the restored
+        state already holds their effect (a snapshot cursor's
+        ``mid_steps``); the stats cover the trained tail."""
         cfg = self.cfg
         t0 = time.perf_counter()
         ws = PassWorkingSet.begin_pass(self.store, dataset.unique_keys(),
                                        device=self.device)
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
+        skip = int(skip_steps)
         t_loop = time.perf_counter()
-        for staged in self._pack_iter(dataset, ws, cfg.global_batch_size):
+        for pb, staged in self._pack_iter(dataset, ws, cfg.global_batch_size):
+            if skip > 0:
+                skip -= 1
+                continue
             loss, preds = self.train_step(ws.table, *staged)
             auc.update(preds, staged[3])
+            if metrics is not None:
+                metrics.add_batch(preds, staged[3], cmatch=pb.cmatch,
+                                  rank=pb.rank)
             losses.append(loss)
             self.global_step += 1
         if self.device.type == "cuda":
@@ -349,3 +411,82 @@ class Trainer:
         out["step_seconds"] = step_seconds
         out["seconds"] = time.perf_counter() - t0
         return out
+
+    def eval_pass(self, dataset) -> dict[str, float]:
+        """Test-mode pass (JAX trainer.py:2389/2421): the working set is
+        read without growing or dirtying the store, nothing is pushed and
+        the dense params stay; the tail batch is padded and masked out of
+        the AUC instead of dropped. Returns the AUC stats plus steps,
+        examples, step_seconds (the batch loop, device work included)
+        and seconds (the whole pass)."""
+        cfg = self.cfg
+        bs = cfg.global_batch_size
+        t0 = time.perf_counter()
+        ws = PassWorkingSet.begin_pass(self.store, dataset.unique_keys(),
+                                       device=self.device, test_mode=True)
+        auc = AucAccumulator(cfg.auc_buckets, device=self.device)
+        rows = torch.arange(bs, device=self.device)
+        steps = examples = 0
+        t_loop = time.perf_counter()
+        for pb, staged in self._pack_iter(dataset, ws, bs, test_mode=True):
+            idx, mask, dense, labels, _ = staged
+            preds = self.eval_step(ws.table, idx, mask, dense)
+            auc.update(preds, labels, mask=rows < pb.num)
+            steps += 1
+            examples += pb.num
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        step_seconds = time.perf_counter() - t_loop
+        out = auc.compute()
+        out["steps"] = steps
+        out["examples"] = examples
+        out["step_seconds"] = step_seconds
+        out["seconds"] = time.perf_counter() - t0
+        return out
+
+    # ------------------------------------------------------------------
+    # dense state and snapshots
+    # ------------------------------------------------------------------
+    def flush_sparse(self) -> int:
+        """Move device-held rows back to the host store before a save (JAX
+        trainer.py:2073). The port writes back eagerly at the end of each
+        ``train_pass``, so there is nothing left to move: returns 0."""
+        return 0
+
+    def eval_params(self) -> dict:
+        """The dense params as a NumPy tree in the JAX layout (for
+        FleetUtil models and serving)."""
+        return weights.deepfm_params(self.model)
+
+    def dense_state(self) -> dict:
+        """{"params", "opt_state"} as NumPy trees in the JAX layout: what
+        a pass snapshot's dense.npz holds."""
+        return weights.dense_state(self.model, self.dense_opt)
+
+    def restore_dense(self, params, opt_state=None) -> None:
+        """Load dense params and, when given, the optimizer state (JAX
+        trainer.py:2088, allreduce mode — the only mode ported) onto the
+        trainer's device."""
+        weights.load_dense_state(self.model, self.dense_opt, params,
+                                 opt_state)
+
+    def save_checkpoint(self, checkpointer, box=None, metrics=None,
+                        pass_id: int | None = None) -> str:
+        """Snapshot the post-pass state (dense + optimizer + sparse
+        base/delta + metrics + cursor) through a PassCheckpointer."""
+        return checkpointer.save(self, box=box, metrics=metrics,
+                                 pass_id=pass_id)
+
+    def resume(self, checkpointer, box=None, metrics=None,
+               collectives=None) -> dict | None:
+        """Restore every plane from the newest snapshot that verifies,
+        falling back past a torn one (PassCheckpointer.resume). Returns
+        the cursor ({pass_id, global_step, date, phase, mid_steps,
+        shuffle_state}) — re-enter the pass loop at ``pass_id + 1``, with
+        ``train_pass(skip_steps=mid_steps)`` for a mid-pass snapshot — or
+        None on a fresh start."""
+        if collectives is not None:
+            raise NotImplementedError(
+                "coordinated multi-host resume (collectives=...) is not "
+                "ported yet (ROADMAP, queue 1: multi-GPU)")
+        return checkpointer.resume(self, box=box, metrics=metrics)

@@ -32,6 +32,9 @@ import paddlebox_tpu_torch.data, paddlebox_tpu_torch.embedding.sharded
 import paddlebox_tpu_torch.fleet, paddlebox_tpu_torch.metrics
 import paddlebox_tpu_torch.models, paddlebox_tpu_torch.ops.kernels
 import paddlebox_tpu_torch.train, paddlebox_tpu_torch.weights
+import paddlebox_tpu_torch.fleet.fleet_util, paddlebox_tpu_torch.metrics.metric
+import paddlebox_tpu_torch.utils.checkpoint, paddlebox_tpu_torch.utils.fs
+import paddlebox_tpu_torch.utils.faultpoint, paddlebox_tpu_torch.utils.pass_ckpt
 bad = [m for m in sys.modules if m.partition(".")[0] in BLOCKED]
 assert not bad, bad
 print("OK")
