@@ -47,7 +47,20 @@ Phases, each of which exits non-zero on failure:
    live pass 3 (LOSS_TOL / TABLE_TOL: the kernels' f32 atomics reorder
    sums); with pass 3's dense.npz truncated, resume must fall back to
    pass 2 with a warning. Prints the seconds and bytes of each save and
-   of the resume beside the card's name and power limit.
+   of the resume beside the card's name and power limit;
+8. the pass boundary (FeedPassManager, which every train_pass and
+   eval_pass above already goes through: resident rows reused, lazy
+   write-back), on the one-hot layout at full width: (a) bench.py's
+   boundary drill, 5 passes over 2^19-key windows with 90% overlap, a
+   table edit, begin_feed_pass of the next window and a pure-eviction
+   shrink at each boundary, incremental and full rebuild, whose stores
+   must be bit-identical; (b) three checkpointed passes of 16 steps over
+   sliding windows through train_pass with preload_keys, without it,
+   and with incremental_feed off plus a store mutation between passes
+   (the full rebuild), whose stores must agree within TABLE_TOL. Prints
+   each boundary's seconds, build/h2d split, fresh/reused/stale/patched
+   rows and bytes, each save's flush, the step loop's examples/s and the
+   one-hot kernels' launches per pass.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -793,7 +806,8 @@ def main_path(torch, kernels, lay) -> dict[str, int]:
         check(n == want, f"{name} launched {n} times in {steps} steps, "
               f"expected {want}")
     ws_keys = tr.last_ws.sorted_keys
-    rows = store.peek_rows(ws_keys)
+    # write-back is lazy: get_rows flushes the card's rows first
+    rows = store.get_rows(ws_keys)
     check(float(rows[:, 0].astype(np.float64).sum()) == n_tokens,
           "written-back show counters do not sum to the pass's ids")
     changed = np.any(rows != store._init_rows(ws_keys), axis=1).mean()
@@ -982,8 +996,9 @@ def reference_check(torch, lay) -> None:
                                   np.random.default_rng(SEED + 2),
                                   lay.max_len)
         outs.append(tr.train_pass(ds))
-        stores.append(store)
         engines.append(tr.resolved_push_engine(tr.last_ws))
+        tr.flush_sparse()         # lazy write-back: rows reach the store
+        stores.append(store)
     gpu, cpu = outs
     check(engines == [lay.engine, "xla_scatter"],
           f"{lay.name}: engines {engines}")
@@ -1056,10 +1071,14 @@ def persistence_phase(torch, kernels) -> None:
             sv = dict(ckpt.last_save)
             saves.append(sv)
             kind = "save_base" if sv["rotated"] else "save_delta"
+            fm = tr.feed_mgr
             print(f"  pass {p}: loss mean {out['loss_mean']:.6f} | auc "
                   f"{out['auc']:.6f} | registry auc "
                   f"{box.get_metric_msg('auc')['auc']:.6f} | boundary "
                   f"(pass - step seconds) {out['seconds'] - out['step_seconds']:.3f} s"
+                  f", manager {fm.last_boundary_seconds:.3f} s (fresh "
+                  f"{fm.last_fresh_rows} reused {fm.last_reused_rows}) | "
+                  f"save flush {sv['flush_seconds']:.3f} s"
                   f" | end_pass {end_s:.3f} s: {kind} {sv['sparse_member']} "
                   f"{sv['sparse_bytes']} bytes in {sv['sparse_seconds']:.3f} s,"
                   f" snapshot {sv['snapshot']} {sv['bytes']} bytes in "
@@ -1167,6 +1186,205 @@ def persistence_phase(torch, kernels) -> None:
           f"{res['seconds']:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the pass boundary (FeedPassManager)
+# ---------------------------------------------------------------------------
+
+def key_window(p: int, n_keys: int, churn: int) -> np.ndarray:
+    """Pass p's sorted key window: n_keys keys sliding by churn a pass."""
+    return np.sort(np.arange(p * churn, p * churn + n_keys, dtype=np.uint64)
+                   * np.uint64(2654435761) + np.uint64(1))
+
+
+def boundary_drill(torch, card: str, device=None, n_keys=ONEHOT.n_keys,
+                   passes=5) -> None:
+    """bench.py's boundary drill on the port: ``passes`` passes over key
+    windows with 90% overlap, a table edit a pass (keys staying into the
+    next window get +1 show, the cold tail's show is zeroed, every w
+    column +0.5), then ``begin_feed_pass`` of the next window and a
+    pure-eviction ``store.shrink(min_show=0.5, decay=1.0)`` at each
+    boundary. Run incremental and with ``flags.incremental_feed=False``
+    (the full rebuild); the two stores must come out bit-identical."""
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
+    cfg = EmbeddingConfig(dim=ONEHOT.dim, optimizer="adagrad",
+                          learning_rate=0.05)
+    churn = n_keys // 10
+    print(f"== boundary drill: {n_keys}-key windows, {passes} passes, 90% "
+          f"overlap, dim {cfg.dim} (W {cfg.row_width}), shrink at every "
+          f"boundary")
+
+    def run(incremental: bool):
+        flags.incremental_feed = incremental
+        store = HostEmbeddingStore(cfg)
+        mgr = FeedPassManager(store, device)
+        dev = mgr.device
+        name = "incremental" if incremental else "full rebuild"
+        total = 0.0
+        for p in range(passes):
+            keys = key_window(p, n_keys, churn)
+            ws = mgr.begin_pass(keys)
+            if p:
+                total += mgr.last_boundary_seconds
+                sp = mgr.last_boundary_split
+                print(f"  {name}, pass {p + 1} ({card}): boundary "
+                      f"{mgr.last_boundary_seconds:.4f} s | build "
+                      f"{sp['build']:.4f} s h2d {sp['h2d']:.4f} s | fresh "
+                      f"{mgr.last_fresh_rows} reused {mgr.last_reused_rows}"
+                      f" stale {mgr.last_stale_rows} patched "
+                      f"{mgr.last_patched_rows} | h2d {mgr.last_h2d_bytes} "
+                      f"bytes, d2h at retirement {mgr.last_d2h_bytes} bytes"
+                      f", flushed before the last shrink {flushed} bytes")
+            nxt = key_window(p + 1, n_keys, churn)
+            idx = torch.from_numpy(ws.translate(keys).astype(np.int64)).to(
+                dev)
+            staying = torch.from_numpy(np.isin(keys, nxt,
+                                               assume_unique=True)).to(dev)
+            t = ws.table
+            t[idx[staying], 0] += 1.0
+            t[idx[~staying], 0] = 0.0
+            t[idx, 2] += 0.5
+            mgr.end_pass(ws)
+            if incremental and p + 1 < passes:
+                mgr.begin_feed_pass(nxt)
+            d0 = mgr.last_d2h_bytes
+            store.shrink(min_show=0.5, decay=1.0)
+            flushed = mgr.last_d2h_bytes - d0
+        mgr.close()
+        return store, total
+
+    saved = flags.incremental_feed
+    try:
+        inc, inc_s = run(True)
+        full, full_s = run(False)
+    finally:
+        flags.incremental_feed = saved
+    check(np.array_equal(inc.keys(), full.keys()),
+          "boundary drill: the stores' keys differ")
+    check(np.array_equal(inc._rows[:len(inc)], full._rows[:len(full)]),
+          "boundary drill: incremental and full-rebuild rows differ")
+    print(f"boundary drill ({card}): passes 2-{passes} boundary "
+          f"{inc_s:.4f} s incremental vs {full_s:.4f} s full rebuild; "
+          f"stores bit-identical ({len(inc)} keys, rows and key order) ok")
+
+
+def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
+                     n_batch=B, n_keys=None, expect_launches=True) -> None:
+    """Three checkpointed passes of lay.steps steps through train_pass
+    over sliding key windows (90% overlap, each draw uniform in its
+    window), in three variants: (i) incremental with preload_keys= the
+    next pass's keys, (ii) incremental without preload, (iii)
+    flags.incremental_feed=False with a store mutation (a shrink that
+    evicts nothing) between passes, the full rebuild. Counts are reset
+    before each pass and read after it. The stores must agree within
+    TABLE_TOL after a flush, and the losses within LOSS_TOL."""
+    import tempfile as _tf
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    n_keys = n_keys or lay.n_keys
+    churn = n_keys // 10
+    print(f"== boundary, trainer: {lay.name}, {n_keys}-key windows sliding "
+          f"by {churn}, 3 passes x {lay.steps} steps x {n_batch}, "
+          f"PassCheckpointer(base_every=2)")
+    variants = (("preload", True), ("incremental", True),
+                ("full rebuild", False))
+    results = {}
+    saved = flags.incremental_feed
+    try:
+        for name, incremental in variants:
+            flags.incremental_feed = incremental
+            store, schema, tr = make_trainer(torch, lay, n_batch, device)
+            box = BoxPS(store)
+            box.init_metric("auc")
+            dss = []
+            for p in range(3):
+                ds = SlotDataset(schema, seed=p)
+                ds.records = make_records(
+                    schema, lay.steps * n_batch, key_window(p, n_keys, churn),
+                    np.random.default_rng(SEED + 20 + p), lay.max_len)
+                dss.append(ds)
+            losses = []
+            with _tf.TemporaryDirectory() as d:
+                ckpt = PassCheckpointer(os.path.join(d, "snap"),
+                                        base_every=2)
+                for p, ds in enumerate(dss):
+                    nxt = (dss[p + 1].unique_keys()
+                           if name == "preload" and p < 2 else None)
+                    t0 = time.perf_counter()
+                    ds.unique_keys()     # timed alone: train_pass calls it
+                    uk_s = time.perf_counter() - t0
+                    box.set_date(20261017)
+                    box.begin_pass()
+                    reset_counts(kernels)
+                    out = tr.train_pass(ds, metrics=box.metrics,
+                                        preload_keys=nxt)
+                    launches = launch_counts(kernels)
+                    box.end_pass(checkpointer=ckpt, trainer=tr, dataset=ds)
+                    sv = ckpt.last_save
+                    fm = tr.feed_mgr
+                    steps = out["steps"]
+                    losses.append(out["loss_mean"])
+                    print(f"  {name}, pass {p + 1} ({card}): pass "
+                          f"{out['seconds']:.3f} s | step loop "
+                          f"{out['step_seconds']:.3f} s, "
+                          f"{steps * n_batch / out['step_seconds']:.1f} "
+                          f"examples/s | boundary (pass - step) "
+                          f"{out['seconds'] - out['step_seconds']:.3f} s, "
+                          f"of it unique_keys {uk_s:.3f} s and the "
+                          f"manager {fm.last_boundary_seconds:.4f} s (build "
+                          f"{fm.last_boundary_split['build']:.4f} h2d "
+                          f"{fm.last_boundary_split['h2d']:.4f}) | fresh "
+                          f"{fm.last_fresh_rows} reused "
+                          f"{fm.last_reused_rows} patched "
+                          f"{fm.last_patched_rows} | save: flush "
+                          f"{sv['flush_seconds']:.3f} s {sv['flush_bytes']} "
+                          f"bytes, {'base' if sv['rotated'] else 'delta'} "
+                          f"{sv['sparse_seconds']:.3f} s | launches "
+                          f"binned_merge_acc {launches['binned_merge_acc']}"
+                          f" merge_update {launches['merge_update']}")
+                    check(steps == lay.steps, f"{name}: {steps} steps")
+                    check(np.isfinite(out["loss_mean"]),
+                          f"{name}: non-finite loss")
+                    if expect_launches:
+                        for k in lay.kernels:
+                            check(launches[k] == steps,
+                                  f"{name}, pass {p + 1}: {k} launched "
+                                  f"{launches[k]} times in {steps} steps")
+                    if p and incremental:
+                        check(fm.last_reused_rows > 0,
+                              f"{name}, pass {p + 1}: no resident row reused")
+                    if not incremental:
+                        check(fm.last_reused_rows == 0,
+                              f"{name}, pass {p + 1}: reused rows in a full "
+                              f"rebuild")
+                        # a store mutation the flag keeps from proving:
+                        # the next pass rebuilds in full
+                        box.shrink_table(0.0)
+            tr.flush_sparse()
+            keys = np.sort(store.keys())
+            results[name] = (keys, store.get_rows(keys), losses)
+            del tr
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        flags.incremental_feed = saved
+    ref_keys, ref_rows, ref_losses = results["full rebuild"]
+    for name in ("preload", "incremental"):
+        keys, rows, losses = results[name]
+        check(np.array_equal(keys, ref_keys),
+              f"boundary trainer: {name} store keys differ from the full "
+              f"rebuild's")
+        np.testing.assert_allclose(rows, ref_rows, **TABLE_TOL)
+        np.testing.assert_allclose(losses, ref_losses, **LOSS_TOL)
+    print(f"boundary, trainer ({card}): stores of preload, incremental and "
+          f"full rebuild agree ({len(ref_keys)} keys, rows within rtol 1e-3, "
+          f"losses within rtol 2e-4) ok")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1186,6 +1404,9 @@ def main() -> int:
     for lay in (MULTI, ONEHOT):
         reference_check(torch, lay)
     persistence_phase(torch, kernels)
+    card = smi_line()
+    boundary_drill(torch, card)
+    boundary_trainer(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -41,6 +41,11 @@ class Flags:
     # a fresh sparse base chain every N passes (bounds the delta replay at
     # resume and lets retention reclaim old chains); deltas between
     ckpt_base_every: int = 8
+    # incremental delta feeds (embedding/feed_pass.py): a store mutation
+    # whose reach the stale-key log can prove re-fetches only the rows it
+    # touched, and a background staging it overtook is patched, not
+    # discarded. Off = any mutation forces the full rebuild (the A/B knob)
+    incremental_feed: bool = True
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):

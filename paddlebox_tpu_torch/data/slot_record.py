@@ -21,6 +21,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from paddlebox_tpu_torch.data.schema import DataFeedSchema, SlotType
+from paddlebox_tpu_torch.native.key_index import sorted_unique
 
 
 @dataclasses.dataclass
@@ -127,7 +128,7 @@ class SlotRecordBatch:
         extraction (reference MergeInsKeys data_set.cc:1786)."""
         if not self.sparse_values:
             return np.zeros(0, dtype=np.int64)
-        return np.unique(np.concatenate(self.sparse_values))
+        return sorted_unique(np.concatenate(self.sparse_values))
 
     # ---- device packing (the MiniBatchGpuPack equivalent) ----
 

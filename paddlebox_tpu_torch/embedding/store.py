@@ -27,13 +27,21 @@ the reference: the same sequence of operations gives the same arrays in
 both packages. The dirty mask is set by ``write_back`` (:245), by
 ``_ingest`` (:647, delta replay) and by a tombstoned key re-added in
 ``lookup_or_init`` (:218); a fresh key is not dirty (its init row is
-deterministic). The reference's stale-key log and spill-tier hooks serve
-``FeedPassManager`` and the disk tier, and ``export_serving`` the serving
-plane, none ported yet (ROADMAP).
+deterministic).
+
+The bounded stale-key log (``mutation_marker`` / ``stale_keys_since``,
+reference :104-150) tells ``FeedPassManager`` which keys' stored bytes a
+mutation changed, so a device-resident working set re-fetches exactly
+those rows instead of rebuilding. Every ``_mutations`` bump appends one
+entry: ``shrink`` the evicted keys on pure eviction (``decay == 1.0``),
+else ``None``; ``restore`` ``None``; ``_remove`` the present keys;
+``_ingest`` the ingested keys. The reference's spill-tier hooks and
+``export_serving`` are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -42,11 +50,16 @@ import threading
 import numpy as np
 
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.native.key_index import KeyIndex
+from paddlebox_tpu_torch.native.key_index import KeyIndex, sorted_unique
 from paddlebox_tpu_torch.utils import checkpoint as ckpt_lib
 from paddlebox_tpu_torch.utils import faultpoint
 from paddlebox_tpu_torch.utils.checkpoint import CheckpointCorruptError
 
+# Bounds of the stale-key log: more events than the ring holds, or one
+# event touching more keys than the cap, degrades to "unknown" (None) and
+# the consumer falls back to the full rebuild.
+_STALE_LOG_EVENTS = 64
+_STALE_LOG_MAX_KEYS = 1 << 21
 _EMPTY_KEYS = np.zeros(0, dtype=np.uint64)
 
 
@@ -56,6 +69,9 @@ def _delta_name(seq: int) -> str:
 
 class HostEmbeddingStore:
     _GROW = 1.5
+    # single-trainer-owned: the device tier may retain rows across passes
+    # and write back lazily (embedding/feed_pass.py)
+    supports_resident_reuse = True
 
     def __init__(self, cfg: EmbeddingConfig, initial_capacity: int = 1024):
         self.cfg = cfg
@@ -75,6 +91,11 @@ class HostEmbeddingStore:
         # bumped whenever rows change outside the pass pull/push cycle
         # (shrink, removal, delta replay, restore)
         self._mutations = 0
+        # (seq, affected keys | None) per mutation event; None = the event
+        # touched an unknowable set. Every _mutations bump appends exactly
+        # one entry (stale_keys_since's completeness check counts them).
+        self._stale_log: collections.deque = collections.deque(
+            maxlen=_STALE_LOG_EVENTS)
         # run before any read of row values for persistence or hygiene
         # (save, shrink, get_rows): a device tier holding unsynced rows
         # writes them back first
@@ -83,6 +104,47 @@ class HostEmbeddingStore:
     @property
     def mutation_count(self) -> int:
         return self._mutations
+
+    # ---- stale-key log (the incremental-feed contract) ----
+
+    def _log_mutation(self, keys: np.ndarray | None) -> None:
+        """Record one mutation event's affected keys (under the lock,
+        right after the ``_mutations`` bump). ``None`` = an unknowable
+        set (a restore's reset)."""
+        if keys is not None:
+            keys = sorted_unique(np.asarray(keys).astype(np.uint64))
+            if len(keys) > _STALE_LOG_MAX_KEYS:
+                keys = None
+        self._stale_log.append((self._mutations, keys))
+
+    def mutation_marker(self) -> int:
+        """Opaque marker for :meth:`stale_keys_since`."""
+        return int(self._mutations)
+
+    def stale_keys_since(self, marker) -> np.ndarray | None:
+        """Keys whose stored bytes changed or vanished since ``marker``
+        (sorted unique uint64; empty = nothing mutated). None = the log
+        cannot prove completeness (the ring rolled over, an event's key
+        set was unknowable, or the union outgrew the cap): the caller
+        must rebuild in full."""
+        marker = int(marker)
+        with self._lock:
+            if self._mutations == marker:
+                return _EMPTY_KEYS
+            events = [e for e in self._stale_log if e[0] > marker]
+            if len(events) != self._mutations - marker:
+                return None               # the ring rolled past the marker
+            parts, total = [], 0
+            for _, k in events:
+                if k is None:
+                    return None
+                parts.append(k)
+                total += len(k)
+                if total > _STALE_LOG_MAX_KEYS:
+                    return None
+            if not parts:
+                return _EMPTY_KEYS
+        return sorted_unique(np.concatenate(parts))
 
     @property
     def save_seq(self) -> int:
@@ -254,11 +316,15 @@ class HostEmbeddingStore:
                 self._dirty[:self._n] = True
             keep = self._rows[:self._n, 0] >= min_show
             evicted = int((~keep).sum())
+            gone = _EMPTY_KEYS
             if evicted:
                 gone = self._compact(keep)
                 # tombstone evictions so load(base + deltas) does not
                 # resurrect them
                 self._tombstones.update(int(k) for k in gone.tolist())
+            # a decay rewrote every surviving row's show counter (the whole
+            # key space is stale); pure eviction touches the evicted keys
+            self._log_mutation(gone if decay == 1.0 else None)
             return evicted
 
     # ---- checkpoint (SaveBase/SaveDelta/Load) ----
@@ -449,6 +515,7 @@ class HostEmbeddingStore:
             self._verify_chain(path, seq)
         with self._lock:
             self._mutations += 1
+            self._log_mutation(None)
             self._index = KeyIndex(max(1024, len(self._keys)))
             self._n = 0
             self._dirty[:] = False
@@ -488,6 +555,7 @@ class HostEmbeddingStore:
         with self._lock:
             self._mutations += 1
             present = self._index.lookup(keys) >= 0
+            self._log_mutation(keys[present])
             if not present.any():
                 return
             self._compact(~np.isin(self._keys[:self._n], keys[present]))
@@ -496,6 +564,7 @@ class HostEmbeddingStore:
         with self._lock:
             self._mutations += 1
             keys = np.asarray(keys).astype(np.uint64)
+            self._log_mutation(keys)
             idx, added = self._index.lookup_or_insert(keys)
             if added:
                 self._append_new_keys(idx, keys, added)

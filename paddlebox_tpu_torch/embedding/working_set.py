@@ -13,10 +13,16 @@ current pass:
   indices on the host (one KeyIndex batch probe), so the device only ever
   sees dense int32 indices; it also records which rows a batch touched.
 - ``end_pass(store)`` gathers the touched rows on the device and writes
-  them back to the host store.
+  them back to the host store: the eager write-back, kept for stores
+  that forbid resident reuse (``supports_resident_reuse``). The trainer's
+  default path is ``FeedPassManager`` (``feed_pass.py``), which keeps the
+  table resident across passes and writes back lazily through
+  ``fetch_rows``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -25,7 +31,7 @@ from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
-from paddlebox_tpu_torch.native.key_index import KeyIndex
+from paddlebox_tpu_torch.native.key_index import KeyIndex, sorted_unique
 
 
 def device_width(cfg: EmbeddingConfig) -> int:
@@ -40,6 +46,40 @@ def device_width(cfg: EmbeddingConfig) -> int:
     if pad == "auto":
         return 64 if 14 <= rw < 64 else rw
     return max(rw, int(pad))
+
+
+def transfer_bytes(cfg: EmbeddingConfig, n_rows: int) -> int:
+    """Host<->device bytes for ``n_rows`` full rows (f32 storage only:
+    quantized planes and the bf16 transfer compression are not ported)."""
+    if cfg.storage != "f32":
+        raise NotImplementedError(
+            f"storage={cfg.storage!r}: quantized transfers are not ported "
+            f"yet (ROADMAP, queue 1 item 9)")
+    return int(n_rows) * cfg.row_width * 4
+
+
+def bucket_size(x: int) -> int:
+    """Round up to quarter-power-of-two buckets (4 sizes per octave; at
+    most ~25% waste). The feed manager sizes its staged H2D plane with it,
+    as the reference does."""
+    if x <= 16:
+        return int(x)
+    p = 1 << (int(x).bit_length() - 1)
+    step = p >> 2
+    return -(-int(x) // step) * step
+
+
+def fetch_rows(table: torch.Tensor, row_idx: np.ndarray,
+               cfg: EmbeddingConfig) -> tuple[np.ndarray, int]:
+    """Gather ``row_idx`` rows on the table's device, then move only
+    those rows (their logical columns) to the host. Returns (rows
+    float32 (k, row_width), bytes moved device -> host)."""
+    k = len(row_idx)
+    if k == 0:
+        return np.zeros((0, cfg.row_width), np.float32), 0
+    sel = torch.from_numpy(np.asarray(row_idx, np.int64)).to(table.device)
+    rows = table.index_select(0, sel)[:, :cfg.row_width].cpu().numpy()
+    return rows, rows.nbytes
 
 
 class PassWorkingSet:
@@ -66,24 +106,40 @@ class PassWorkingSet:
     def begin_pass(cls, store: HostEmbeddingStore, keys: np.ndarray,
                    device: str | torch.device | None = None,
                    min_rows: int = 8,
-                   test_mode: bool = False) -> "PassWorkingSet":
+                   test_mode: bool = False,
+                   timing_out: dict | None = None) -> "PassWorkingSet":
         """Build the pass working set on ``device`` (the card unless
         ``device="cpu"``), inserting unseen keys into the store — or, with
         ``test_mode``, reading them without inserting (unseen keys get
-        their deterministic init row)."""
+        their deterministic init row). ``timing_out`` (updated in place)
+        receives the boundary split: ``build`` = key dedup + store fetch
+        + table assembly seconds, ``h2d`` = the copy to the device, waited
+        for."""
         dev = resolve_device(device)
         cfg = store.cfg
         if cfg.storage != "f32":
             raise NotImplementedError(
                 f"storage={cfg.storage!r}: quantized device tables are not "
                 f"ported yet (ROADMAP, storage variants)")
-        keys = np.unique(np.asarray(keys).astype(np.uint64))
+        t0 = time.perf_counter()
+        keys = sorted_unique(np.asarray(keys).astype(np.uint64))
         rows = (store.peek_rows(keys) if test_mode
                 else store.lookup_or_init(keys))
         n_rows = max(min_rows, len(keys) + 1)      # +1: the null row
         host = np.zeros((n_rows, device_width(cfg)), dtype=np.float32)
         host[1:1 + len(keys), :cfg.row_width] = rows
-        return cls(cfg, keys, torch.from_numpy(host).to(dev))
+        t1 = time.perf_counter()
+        table = torch.from_numpy(host).to(dev)
+        if timing_out is not None:
+            # the copy is done when the clock stops, so the h2d share
+            # carries the transfer and not its dispatch (the stream it
+            # ran on only: a staged build must not wait for training)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            t2 = time.perf_counter()
+            timing_out["build"] = timing_out.get("build", 0.0) + (t1 - t0)
+            timing_out["h2d"] = timing_out.get("h2d", 0.0) + (t2 - t1)
+        return cls(cfg, keys, table)
 
     def translate(self, ids: np.ndarray, mask: np.ndarray | None = None
                   ) -> np.ndarray:
@@ -111,11 +167,9 @@ class PassWorkingSet:
     def end_pass(self, store: HostEmbeddingStore) -> int:
         """Write the touched rows back to the host store; returns the
         bytes moved device → host."""
-        t = self.table
         dirty = np.flatnonzero(self.touched[1:1 + self.num_keys]) + 1
         if len(dirty) == 0:
             return 0
-        sel = torch.from_numpy(dirty.astype(np.int64)).to(t.device)
-        rows = t.index_select(0, sel)[:, :self.cfg.row_width].cpu().numpy()
+        rows, nbytes = fetch_rows(self.table, dirty, self.cfg)
         store.write_back(self.sorted_keys[dirty - 1], rows)
-        return rows.nbytes
+        return nbytes

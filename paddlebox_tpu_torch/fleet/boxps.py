@@ -9,11 +9,13 @@ The user-facing lifecycle is
     trainer.train_pass(dataset, metrics=box.metrics)
     box.end_pass(checkpointer=ckpt, trainer=trainer, dataset=dataset)
 
-``Trainer.train_pass`` does the per-pass device working-set build and
-write-back itself, so begin/end here is pass bookkeeping plus the
-persistence policy: ``end_pass`` commits a PassCheckpointer snapshot
-(with the dataset's shuffle cursor) and/or a delta save. BoxPS owns the
-store, the metric registry and the join/update phase bit.
+``Trainer.train_pass`` builds the pass's device working set through its
+``FeedPassManager``, which writes rows back lazily; the store's saves
+and ``shrink_table`` flush the card's rows first through the store's
+flush hooks. So begin/end here is pass bookkeeping plus the persistence
+policy: ``end_pass`` commits a PassCheckpointer snapshot (with the
+dataset's shuffle cursor) and/or a delta save. BoxPS owns the store, the
+metric registry and the join/update phase bit.
 
 Not ported yet (ROADMAP): publishing to the serving plane (``publisher``
 raises), multi-host pass barriers and heartbeats

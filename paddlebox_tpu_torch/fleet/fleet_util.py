@@ -96,6 +96,8 @@ class FleetUtil:
         if last is not None and all(last.get(k) == entry.get(k)
                                     for k in dedup):
             return False
+        # pblint: disable=donefile-discipline -- this is the port's sole
+        # donefile writer (the rule names the JAX package's FleetUtil)
         self._fs.write_text(os.path.join(self.root, name),
                             json.dumps(entry) + "\n", append=True)
         return True
@@ -110,6 +112,8 @@ class FleetUtil:
         path = os.path.join(self.root, name)
         alt = f"{path}.compact"
         content = "".join(json.dumps(e) + "\n" for e in entries)
+        # pblint: disable=donefile-discipline -- two-phase compaction
+        # STAGE write inside the port's sole donefile writer
         self._fs.write_text(alt, content)
         self._replace_main(path, content)
         self._fs.rm(alt)
@@ -118,10 +122,14 @@ class FleetUtil:
         """Land the rewritten main donefile atomically (tmp → fsync →
         os.replace)."""
         tmp = f"{path}.rewrite.{os.getpid()}"
+        # pblint: disable=donefile-discipline -- the compaction's tmp
+        # copy, inside the port's sole donefile writer
         with open(tmp, "w") as f:
             f.write(content)
             f.flush()
             os.fsync(f.fileno())
+        # pblint: disable=donefile-discipline -- two-phase compaction
+        # REPLACE, inside the port's sole donefile writer
         os.replace(tmp, path)
 
     def _repair_compaction(self, name: str) -> None:

@@ -17,19 +17,26 @@ no dense update, the store neither grown nor dirtied, the tail batch
 padded and masked out of the AUC) through the same pull engine as
 training; ``dense_state`` / ``restore_dense`` / ``save_checkpoint`` /
 ``resume`` carry the dense params and the optimizer state through a
-``PassCheckpointer`` in the JAX package's file format. Write-back is
-eager (``train_pass`` writes the touched rows back at its end), so
-``flush_sparse`` has nothing to flush.
+``PassCheckpointer`` in the JAX package's file format.
+
+The pass boundary is a ``FeedPassManager`` (``trainer.py:226`` in the
+JAX package): each pass's working set reuses the rows already on the
+card, write-back is lazy (rows reach the host store when they retire or
+when ``flush_sparse`` / a store save, shrink or ``get_rows`` flushes),
+and ``train_pass(preload_keys=...)`` stages the next pass's fresh rows on
+a background thread while this pass trains. Read the store with
+``get_rows`` (or after ``flush_sparse``), never ``peek_rows``, to see a
+pass's updates.
 
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
-Not ported yet (ROADMAP): multi-shard routing, kstep/async dense sync,
-supersteps, deferred push (push overlap), ``FeedPassManager`` (lazy
-write-back, incremental feed, ``train_pass(preload_keys=...)``), dump
-streams, mid-pass snapshot saving,
-coordinated multi-host resume, telemetry, tiering.
+Not ported yet (ROADMAP): multi-shard routing and shard ownership,
+kstep/async dense sync, supersteps, deferred push (push overlap:
+``flush_push`` is a no-op hook), the replica cache and quantized
+staging, dump streams, mid-pass snapshot saving, coordinated multi-host
+resume, telemetry, tiering.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
 from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding import sharded
+from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import PassWorkingSet
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
@@ -79,7 +87,8 @@ class Trainer:
 
     def __init__(self, model, store: HostEmbeddingStore,
                  schema: DataFeedSchema, config: TrainerConfig | None = None,
-                 seed: int = 0, device: str | torch.device | None = None):
+                 seed: int = 0, device: str | torch.device | None = None,
+                 feed_mgr: FeedPassManager | None = None):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -110,6 +119,11 @@ class Trainer:
                                     dtype=torch.int64, device=self.device)
         self.global_step = 0
         self.last_ws: PassWorkingSet | None = None
+        # the incremental, overlapped pass boundary: resident rows reused
+        # across passes, write-back lazy. Pass a shared manager when
+        # several trainers drive one table.
+        self.feed_mgr = feed_mgr or FeedPassManager(store, self.device)
+        self.feed_mgr.register_pre_flush(self.flush_push)
 
     # ------------------------------------------------------------------
     # engine selection
@@ -277,6 +291,9 @@ class Trainer:
             except BaseException as e:  # re-raised on the consumer side
                 q.put(_PackError(e))
 
+        # pblint: disable=thread-context -- the port has no
+        # monitor.context to inherit yet (ROADMAP queue 1 item 12): the
+        # pack thread emits no telemetry
         t = threading.Thread(target=producer, name="pbt-pack", daemon=True)
         t.start()
         try:
@@ -364,43 +381,58 @@ class Trainer:
     # the pass
     # ------------------------------------------------------------------
     def train_pass(self, dataset, metrics=None,
+                   preload_keys: np.ndarray | None = None,
                    skip_steps: int = 0) -> dict[str, float]:
-        """One pass over the dataset: build the working set from the
-        dataset's keys, train every full batch, write the touched rows
-        back to the store. Returns AUC stats plus loss_first/last/mean,
-        steps, step_seconds (the step loop's wall time, device work
-        included) and seconds (the whole pass).
+        """One pass over the dataset: the feed manager builds the working
+        set from the dataset's keys (reusing resident rows), every full
+        batch trains, and the pass's touched rows are marked for the lazy
+        write-back. Returns AUC stats plus loss_first/last/mean, steps,
+        step_seconds (the step loop's wall time, device work included)
+        and seconds (the whole pass); the boundary's own numbers are the
+        feed manager's ``last_*`` attributes.
 
         ``metrics``: a MetricRegistry; every registered metric gets each
-        batch's (preds, labels, cmatch, rank). ``skip_steps``: a resumed
+        batch's (preds, labels, cmatch, rank). ``preload_keys``: the next
+        pass's keys; its key diff, host fetch and H2D copy run on the
+        feed thread while this pass trains, and the next ``train_pass``
+        consumes the staging at its boundary. ``skip_steps``: a resumed
         pass — the first ``skip_steps`` batches are packed (their rows
         stay in the working set) but not trained, since the restored
         state already holds their effect (a snapshot cursor's
         ``mid_steps``); the stats cover the trained tail."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        ws = PassWorkingSet.begin_pass(self.store, dataset.unique_keys(),
-                                       device=self.device)
+        fm = self.feed_mgr
+        ws = fm.begin_pass(dataset.unique_keys())
+        self.last_ws = ws
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
         skip = int(skip_steps)
-        t_loop = time.perf_counter()
-        for pb, staged in self._pack_iter(dataset, ws, cfg.global_batch_size):
-            if skip > 0:
-                skip -= 1
-                continue
-            loss, preds = self.train_step(ws.table, *staged)
-            auc.update(preds, staged[3])
-            if metrics is not None:
-                metrics.add_batch(preds, staged[3], cmatch=pb.cmatch,
-                                  rank=pb.rank)
-            losses.append(loss)
-            self.global_step += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        step_seconds = time.perf_counter() - t_loop
-        self.last_ws = ws
-        ws.end_pass(self.store)
+        fm.pass_opened()
+        try:
+            if preload_keys is not None:
+                self.preload_pass(preload_keys)
+            t_loop = time.perf_counter()
+            for pb, staged in self._pack_iter(dataset, ws,
+                                              cfg.global_batch_size):
+                if skip > 0:
+                    skip -= 1
+                    continue
+                loss, preds = self.train_step(ws.table, *staged)
+                auc.update(preds, staged[3])
+                if metrics is not None:
+                    metrics.add_batch(preds, staged[3], cmatch=pb.cmatch,
+                                      rank=pb.rank)
+                losses.append(loss)
+                self.global_step += 1
+            if self.device.type == "cuda":
+                # the steps' stream only: a staging copy of the next pass
+                # on the feed manager's stream is not step time
+                torch.cuda.current_stream(self.device).synchronize()
+            step_seconds = time.perf_counter() - t_loop
+        finally:
+            fm.pass_closed()
+        fm.end_pass(ws, ws.table)
         lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
               if losses else np.zeros(0))
         out = auc.compute()
@@ -412,6 +444,17 @@ class Trainer:
         out["seconds"] = time.perf_counter() - t0
         return out
 
+    def preload_pass(self, keys: np.ndarray) -> None:
+        """BeginFeedPass: stage the next pass's working set (key diff,
+        host fetch, H2D of fresh rows) on a background thread while the
+        current pass trains."""
+        self.feed_mgr.begin_feed_pass(keys)
+
+    def wait_feed_pass_done(self) -> None:
+        """Join the background feed pass (WaitFeedPassDone); its error,
+        if any, is raised here."""
+        self.feed_mgr.wait_feed_pass_done()
+
     def eval_pass(self, dataset) -> dict[str, float]:
         """Test-mode pass (JAX trainer.py:2389/2421): the working set is
         read without growing or dirtying the store, nothing is pushed and
@@ -422,8 +465,7 @@ class Trainer:
         cfg = self.cfg
         bs = cfg.global_batch_size
         t0 = time.perf_counter()
-        ws = PassWorkingSet.begin_pass(self.store, dataset.unique_keys(),
-                                       device=self.device, test_mode=True)
+        ws = self.feed_mgr.begin_pass(dataset.unique_keys(), test_mode=True)
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         rows = torch.arange(bs, device=self.device)
         steps = examples = 0
@@ -447,11 +489,19 @@ class Trainer:
     # ------------------------------------------------------------------
     # dense state and snapshots
     # ------------------------------------------------------------------
-    def flush_sparse(self) -> int:
-        """Move device-held rows back to the host store before a save (JAX
-        trainer.py:2073). The port writes back eagerly at the end of each
-        ``train_pass``, so there is nothing left to move: returns 0."""
+    def flush_push(self) -> int:
+        """Apply a pending deferred sparse push (JAX trainer.py:2054),
+        registered as the feed manager's pre-flush hook. The port pushes
+        inline (push overlap is not ported, ROADMAP queue 1 item 6), so
+        nothing is ever pending: returns 0."""
         return 0
+
+    def flush_sparse(self) -> int:
+        """Move the lazily retained device rows back to the host store
+        (JAX trainer.py:2073); store saves, shrinks and ``get_rows`` run it
+        through the flush hooks. Returns the bytes moved D2H."""
+        self.flush_push()
+        return self.feed_mgr.flush()
 
     def eval_params(self) -> dict:
         """The dense params as a NumPy tree in the JAX layout (for
@@ -484,7 +534,10 @@ class Trainer:
         the cursor ({pass_id, global_step, date, phase, mid_steps,
         shuffle_state}) — re-enter the pass loop at ``pass_id + 1``, with
         ``train_pass(skip_steps=mid_steps)`` for a mid-pass snapshot — or
-        None on a fresh start."""
+        None on a fresh start. The store's restore is a mutation the
+        stale-key log cannot bound, so the feed manager drops any resident
+        rows unflushed and the next pass rebuilds its working set in
+        full."""
         if collectives is not None:
             raise NotImplementedError(
                 "coordinated multi-host resume (collectives=...) is not "

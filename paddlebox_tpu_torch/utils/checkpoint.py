@@ -73,8 +73,9 @@ def atomic_file(path: str, fault_point: str | None = None):
     except BaseException:
         try:
             os.unlink(tmp)
-        # the original exception is re-raised below and must not be
-        # masked by a failed tmp cleanup (worst case: an orphan .tmp)
+        # pblint: disable=silent-except -- unwind-path hygiene: the
+        # original exception is re-raised below and must not be masked
+        # by a failed tmp cleanup (worst case: an orphan .tmp file)
         except OSError:
             pass
         raise
@@ -87,8 +88,9 @@ def _fsync_dir(d: str) -> None:
         return
     try:
         os.fsync(fd)
-    # best-effort: some filesystems reject fsync on directory fds; the
-    # file's own fsync already committed its bytes
+    # pblint: disable=silent-except -- directory fsync is best-effort
+    # durability hardening: some filesystems reject fsync on directory
+    # fds; the file's own fsync already committed its bytes
     except OSError:
         pass
     finally:

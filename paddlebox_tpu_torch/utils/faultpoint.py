@@ -37,6 +37,15 @@ POINTS: tuple[str, ...] = (
     # embedding/store.save_delta: delta file landed, manifest commit not
     # yet — the chain manifest must still describe the previous save.
     "store.save_delta.pre_manifest",
+    # embedding/feed_pass.flush: unsynced device rows are about to move
+    # D2H into the host store (the materialization before every save) —
+    # dying here must leave the previous snapshot untouched.
+    "feed_pass.flush.pre",
+    # embedding/feed_pass._stage/_apply_patch: the incremental delta feed
+    # is about to fetch fresh/stale rows from the host store (or patch a
+    # background staging with rows mutated after it). Nothing is applied
+    # yet, so the previous pass's snapshot is the recovery point.
+    "feed_pass.delta_stage.pre",
     # utils/pass_ckpt.save: all planes written, snapshot MANIFEST.json not
     # yet committed — the snapshot must be invisible to resume.
     "pass_ckpt.pre_manifest",

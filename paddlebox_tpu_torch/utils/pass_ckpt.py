@@ -18,7 +18,10 @@ the snapshot's ``MANIFEST.json`` — the cursor, the chain members' CRC32s
 and the snapshot's own files' — is written LAST. ``resume`` walks
 snapshots newest-first and restores the first that fully verifies,
 falling back past a torn one with a warning. ``keep_last_n`` prunes old
-snapshots and any chain no surviving snapshot references.
+snapshots and any chain no surviving snapshot references. ``save`` first
+flushes the trainer's lazily retained device rows
+(``Trainer.flush_sparse``), so the sparse member holds every pass's
+updates; ``last_save`` records that flush's seconds and bytes.
 
 The directory layout and every file are the reference's, so a snapshot
 root written by either package resumes in the other. Not ported yet
@@ -131,7 +134,11 @@ class PassCheckpointer:
             pass_id = int(box.pass_id)
         metrics = metrics if metrics is not None else (
             box.metrics if box is not None else None)
-        trainer.flush_sparse()
+        # write-back is lazy: the rows the card still holds move to the
+        # store first, so the sparse save below sees every pass's updates
+        t_flush0 = time.perf_counter()
+        flush_bytes = trainer.flush_sparse()
+        flush_seconds = time.perf_counter() - t_flush0
 
         # sparse plane: a fresh base chain on the first save, every
         # base_every-th pass after, and whenever another writer saved the
@@ -195,7 +202,8 @@ class PassCheckpointer:
             "seconds": time.perf_counter() - t_save0,
             "bytes": sum(e["bytes"] for e in files.values()) + sparse_bytes,
             "sparse_member": sparse_member, "sparse_seconds": sparse_seconds,
-            "sparse_bytes": sparse_bytes}
+            "sparse_bytes": sparse_bytes, "flush_seconds": flush_seconds,
+            "flush_bytes": int(flush_bytes)}
         self._prune()
         return snap
 

@@ -29,6 +29,7 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 import paddlebox_tpu_torch
 import paddlebox_tpu_torch.data, paddlebox_tpu_torch.embedding.sharded
+import paddlebox_tpu_torch.embedding.feed_pass
 import paddlebox_tpu_torch.fleet, paddlebox_tpu_torch.metrics
 import paddlebox_tpu_torch.models, paddlebox_tpu_torch.ops.kernels
 import paddlebox_tpu_torch.train, paddlebox_tpu_torch.weights
