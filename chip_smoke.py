@@ -60,7 +60,23 @@ Phases, each of which exits non-zero on failure:
    (the full rebuild), whose stores must agree within TABLE_TOL. Prints
    each boundary's seconds, build/h2d split, fresh/reused/stale/patched
    rows and bytes, each save's flush, the step loop's examples/s and the
-   one-hot kernels' launches per pass.
+   one-hot kernels' launches per pass;
+9. ingest, on the one-hot layout at full width: phase 5's records as
+   MultiSlot text with ins_id prefixes in 8 files (two gzip), loaded
+   four ways — the native parser (which must be the one that parses),
+   pipe_command "cat", a MultiSlotDataGenerator script as the pipe
+   command over a raw form of one file, and .pbar archives — which must
+   pack to byte-identical batches; the Python parser on one file beside
+   the native one; merge_by_ins_id(2) dropping a known count; one pass
+   from the archives through BoxPS.begin_pass -> train_pass -> end_pass
+   (counts reset just before and read just after: binned_merge_acc and
+   merge_update 16 each, the others 0) agreeing with phase 5's pass; a
+   QueueDataset(num_threads=2) streaming the files into a HeterTrainer
+   on the card for one pass; its first 2 batches at prefetch_depth=1 on
+   the card and on the CPU agreeing. Prints each load's seconds, MB/s
+   and examples/s, the archive's size and write seconds, the parser
+   ratio and the HeterTrainer's split (host numbers on the card's
+   machine, beside its name and power limit).
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -763,14 +779,24 @@ def make_trainer(torch, lay, n_batch, device, seed=SEED):
     return store, schema, tr
 
 
-def main_path(torch, kernels, lay) -> dict[str, int]:
+def draw_keys(n_keys: int):
+    """A main path's key set and the generator its records draw from."""
+    rng = np.random.default_rng(SEED)
+    keys = np.unique(rng.integers(1, 1 << 50, n_keys + 4096,
+                                  dtype=np.uint64))[:n_keys]
+    rng.shuffle(keys)
+    return keys, rng
+
+
+def main_path(torch, kernels, lay, keep: dict | None = None
+              ) -> dict[str, int]:
+    """``keep``, when given, receives the pass's losses and its
+    working set's keys and flushed rows (phase 9 holds its archive-fed
+    pass against them)."""
     from paddlebox_tpu_torch.data import SlotDataset
     from paddlebox_tpu_torch.fleet import BoxPS
     print(f"== main path, {lay.name}")
-    rng = np.random.default_rng(SEED)
-    keys = np.unique(rng.integers(1, 1 << 50, lay.n_keys + 4096,
-                                  dtype=np.uint64))[:lay.n_keys]
-    rng.shuffle(keys)
+    keys, rng = draw_keys(lay.n_keys)
     store, schema, tr = make_trainer(torch, lay, B, None)
     t0 = time.perf_counter()
     records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
@@ -814,6 +840,8 @@ def main_path(torch, kernels, lay) -> dict[str, int]:
     check(changed > 0.99, f"only {changed:.3f} of the rows changed")
     print(f"write-back: show counters sum to {n_tokens}, "
           f"{changed * 100:.2f}% of rows changed ok")
+    if keep is not None:
+        keep.update(out=out, keys=ws_keys, rows=rows)
     eval_check(kernels, lay, tr, schema, keys, rng)
     breakdown(torch, tr, ds, out["step_seconds"] / steps * 1e3)
     if lay is ONEHOT:
@@ -1196,9 +1224,8 @@ def key_window(p: int, n_keys: int, churn: int) -> np.ndarray:
                    * np.uint64(2654435761) + np.uint64(1))
 
 
-def boundary_drill(torch, card: str, device=None, n_keys=ONEHOT.n_keys,
-                   passes=5) -> None:
-    """bench.py's boundary drill on the port: ``passes`` passes over key
+def boundary_drill(torch, card: str) -> None:
+    """bench.py's boundary drill on the port: 5 passes over key
     windows with 90% overlap, a table edit a pass (keys staying into the
     next window get +1 show, the cold tail's show is zeroed, every w
     column +0.5), then ``begin_feed_pass`` of the next window and a
@@ -1211,6 +1238,7 @@ def boundary_drill(torch, card: str, device=None, n_keys=ONEHOT.n_keys,
     from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
     cfg = EmbeddingConfig(dim=ONEHOT.dim, optimizer="adagrad",
                           learning_rate=0.05)
+    n_keys, passes = ONEHOT.n_keys, 5
     churn = n_keys // 10
     print(f"== boundary drill: {n_keys}-key windows, {passes} passes, 90% "
           f"overlap, dim {cfg.dim} (W {cfg.row_width}), shrink at every "
@@ -1219,7 +1247,7 @@ def boundary_drill(torch, card: str, device=None, n_keys=ONEHOT.n_keys,
     def run(incremental: bool):
         flags.incremental_feed = incremental
         store = HostEmbeddingStore(cfg)
-        mgr = FeedPassManager(store, device)
+        mgr = FeedPassManager(store)
         dev = mgr.device
         name = "incremental" if incremental else "full rebuild"
         total = 0.0
@@ -1270,8 +1298,7 @@ def boundary_drill(torch, card: str, device=None, n_keys=ONEHOT.n_keys,
           f"stores bit-identical ({len(inc)} keys, rows and key order) ok")
 
 
-def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
-                     n_batch=B, n_keys=None, expect_launches=True) -> None:
+def boundary_trainer(torch, kernels, card: str) -> None:
     """Three checkpointed passes of lay.steps steps through train_pass
     over sliding key windows (90% overlap, each draw uniform in its
     window), in three variants: (i) incremental with preload_keys= the
@@ -1285,7 +1312,7 @@ def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
     from paddlebox_tpu_torch.data import SlotDataset
     from paddlebox_tpu_torch.fleet import BoxPS
     from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
-    n_keys = n_keys or lay.n_keys
+    lay, n_batch, n_keys = ONEHOT, B, ONEHOT.n_keys
     churn = n_keys // 10
     print(f"== boundary, trainer: {lay.name}, {n_keys}-key windows sliding "
           f"by {churn}, 3 passes x {lay.steps} steps x {n_batch}, "
@@ -1297,7 +1324,7 @@ def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
     try:
         for name, incremental in variants:
             flags.incremental_feed = incremental
-            store, schema, tr = make_trainer(torch, lay, n_batch, device)
+            store, schema, tr = make_trainer(torch, lay, n_batch, None)
             box = BoxPS(store)
             box.init_metric("auc")
             dss = []
@@ -1349,11 +1376,10 @@ def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
                     check(steps == lay.steps, f"{name}: {steps} steps")
                     check(np.isfinite(out["loss_mean"]),
                           f"{name}: non-finite loss")
-                    if expect_launches:
-                        for k in lay.kernels:
-                            check(launches[k] == steps,
-                                  f"{name}, pass {p + 1}: {k} launched "
-                                  f"{launches[k]} times in {steps} steps")
+                    for k in lay.kernels:
+                        check(launches[k] == steps,
+                              f"{name}, pass {p + 1}: {k} launched "
+                              f"{launches[k]} times in {steps} steps")
                     if p and incremental:
                         check(fm.last_reused_rows > 0,
                               f"{name}, pass {p + 1}: no resident row reused")
@@ -1368,8 +1394,7 @@ def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
             keys = np.sort(store.keys())
             results[name] = (keys, store.get_rows(keys), losses)
             del tr
-            if torch.cuda.is_available():
-                torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     finally:
         flags.incremental_feed = saved
     ref_keys, ref_rows, ref_losses = results["full rebuild"]
@@ -1385,6 +1410,350 @@ def boundary_trainer(torch, kernels, card: str, device=None, lay=ONEHOT,
           f"losses within rtol 2e-4) ok")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: ingest — the data plane, then a pass from its archives and a
+# streamed HeterTrainer pass
+# ---------------------------------------------------------------------------
+
+N_FILES = 8
+GZ_FILES = (1, 5)                         # stored gzip in the text filelist
+U64 = (1 << 64) - 1
+MERGE_ODD = (1000, 500)                   # singleton and triple groups
+
+_GENERATOR = """
+import sys
+sys.path.insert(0, {repo!r})
+from paddlebox_tpu_torch.data import DataFeedSchema
+from paddlebox_tpu_torch.data.data_generator import MultiSlotDataGenerator
+
+SCHEMA = DataFeedSchema.ctr(num_sparse={s}, num_float={d}, max_len=1)
+DENSE = [slot.name for slot in SCHEMA.float_slots[1:]]
+SPARSE = [slot.name for slot in SCHEMA.sparse_slots]
+
+
+class Raw(MultiSlotDataGenerator):
+    # raw form: "<ins_id>,<label>,<dense ...>,<id ...>"
+    def generate_sample(self, line):
+        ins, label, dense, ids = line.split(",")
+        yield ins, ([("label", [label])]
+                    + [(n, [v]) for n, v in zip(DENSE, dense.split())]
+                    + [(n, [k]) for n, k in zip(SPARSE, ids.split())])
+
+
+Raw(SCHEMA, with_ins_id=True).run_from_stdin()
+"""
+
+
+def text_columns(records) -> tuple[list[str], list[str], list[str],
+                                   list[str]]:
+    """Per example: ins_id, label, dense and id strings of one-hot
+    records (floats as the shortest repr of their f32 value, which both
+    parsers read back to the same bits; signs as unsigned)."""
+    for offs in records.sparse_offsets:
+        check(bool(np.all(np.diff(offs) == 1)), "ingest expects one-hot")
+    ins = [f"day20261016-{i:07d}" for i in range(records.num)]
+    label = [repr(x) for x in records.float_values[0].tolist()]
+    dense = [" ".join(r) for r in zip(*([repr(x) for x in fv.tolist()]
+                                        for fv in records.float_values[1:]))]
+    ids = [" ".join(r) for r in zip(*([str(x & U64) for x in v.tolist()]
+                                      for v in records.sparse_values))]
+    return ins, label, dense, ids
+
+
+def write_ingest_files(d: str, records) -> tuple[list, list, str, int]:
+    """The records as MultiSlot text with ``<ins_id>\\t`` prefixes in
+    N_FILES files: the plain text of each, the filelist with GZ_FILES
+    gzip-compressed, and the raw form of file 0 for the generator.
+    Returns (plain, filelist, raw, text bytes)."""
+    import gzip
+    ins, label, dense, ids = text_columns(records)
+    per = records.num // N_FILES
+    plain, files, n_bytes = [], [], 0
+    for f in range(N_FILES):
+        rows = range(f * per, (f + 1) * per)
+        text = "".join(
+            f"{ins[i]}\t1 {label[i]} 1 " + dense[i].replace(" ", " 1 ")
+            + " 1 " + ids[i].replace(" ", " 1 ") + "\n"
+            for i in rows).encode()
+        path = os.path.join(d, f"part-{f:05d}")
+        with open(path, "wb") as fh:
+            fh.write(text)
+        plain.append(path)
+        n_bytes += len(text)
+        if f in GZ_FILES:
+            with gzip.open(path + ".gz", "wb", compresslevel=1) as fh:
+                fh.write(text)
+            files.append(path + ".gz")
+        else:
+            files.append(path)
+    raw = os.path.join(d, "raw-00000.csv")
+    with open(raw, "w") as fh:
+        fh.writelines(f"{ins[i]},{label[i]},{dense[i]},{ids[i]}\n"
+                      for i in range(per))
+    return plain, files, raw, n_bytes
+
+
+def batch_bytes(ds, n_batch: int) -> list[tuple]:
+    return [tuple(getattr(pb, k).tobytes()
+                  for k in ("ids", "mask", "floats", "ins_id"))
+            for pb in ds.batches(n_batch)]
+
+
+def parse_cap_ab(paths, schema, host: str) -> None:
+    """The native parser's thread cap, measured: every file parsed at
+    once on its own thread, each parse on its share of the cores (what
+    SlotDataset does) and uncapped (the parser's default, one thread per
+    core in every call), in turns, twice each. Reading and decompressing
+    are outside the timing."""
+    import concurrent.futures
+    from paddlebox_tpu_torch.data.dataset import parse_threads_per_file
+    from paddlebox_tpu_torch.native import slot_parser
+    bufs = []
+    for p in paths:
+        with open(p, "rb") as fh:
+            bufs.append(fh.read())
+    cap = parse_threads_per_file(len(bufs))
+    times: dict = {cap: [], 0: []}
+    with concurrent.futures.ThreadPoolExecutor(len(bufs)) as pool:
+        for t in (cap, 0, 0, cap):
+            t0 = time.perf_counter()
+            list(pool.map(functools.partial(
+                slot_parser.parse_buffer, schema=schema, with_ins_id=True,
+                n_threads=t), bufs))
+            times[t].append(time.perf_counter() - t0)
+    print(f"  parser threads, {len(bufs)} files at once: {cap} a file "
+          f"{' / '.join(f'{x:.3f}' for x in times[cap])} s, one per core "
+          f"({os.cpu_count()} cores) a file "
+          f"{' / '.join(f'{x:.3f}' for x in times[0])} s [{host}]")
+
+
+def ingest_phase(torch, kernels, card: str, ref: dict) -> None:
+    """Phase 9 on the one-hot headline. Writes phase 5's records as
+    MultiSlot text (ins_id prefixes, N_FILES files, two gzip), loads
+    them four ways — (a) the native parser, (b) pipe_command "cat" over
+    the plain files, (c) a MultiSlotDataGenerator script as the pipe
+    command over a raw form of file 0, (d) .pbar archives written by
+    archive_filelist — which must pack to byte-identical batches (ids,
+    mask, floats, ins_id); times each load, the archive write and the
+    Python parser on one file; merge_by_ins_id(2) must drop a known
+    count; one pass of BoxPS.begin_pass -> train_pass -> end_pass from
+    the archives (counts reset just before and read just after) must
+    agree with phase 5's in-memory pass (``ref``); a
+    QueueDataset(num_threads=2) streams the files into a HeterTrainer on
+    the card for one pass; its first 2 batches at prefetch_depth=1 on
+    the card and on the CPU must agree. Load and parse
+    numbers are host numbers taken on the card's machine."""
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    from paddlebox_tpu_torch.native import slot_parser
+    lay = ONEHOT
+    n = lay.steps * B
+    print(f"== ingest, {lay.name}: {n} examples in {N_FILES} files "
+          f"(files {GZ_FILES} gzip), batch {B}")
+    check(slot_parser.available(),
+          f"native slot parser did not build: {slot_parser.build_error()}")
+    keys, rng = draw_keys(lay.n_keys)
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=lay.max_len)
+    records = make_records(schema, n, keys, rng, lay.max_len)
+    host = f"host numbers on the card's machine ({card})"
+    with tempfile.TemporaryDirectory() as d:
+        _ingest(torch, kernels, card, ref, d, host, schema, records)
+
+
+def _ingest(torch, kernels, card, ref, d, host, schema, records) -> None:
+    from paddlebox_tpu_torch.data import (QueueDataset, SlotDataset,
+                                          archive, parser)
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.models import DeepFMModel
+    from paddlebox_tpu_torch.native import slot_parser
+    from paddlebox_tpu_torch.train import HeterConfig, HeterTrainer
+    lay = ONEHOT
+    n_batch = B
+    n = records.num
+    t0 = time.perf_counter()
+    plain, files, raw, n_bytes = write_ingest_files(d, records)
+    disk = sum(os.path.getsize(f) for f in files)
+    print(f"ingest files: {n_bytes} bytes of text "
+          f"({n_bytes / n:.1f} bytes a line), {disk} bytes on disk "
+          f"with gzip, written in {time.perf_counter() - t0:.2f} s")
+
+    def load(name, filelist, mb, **kw):
+        ds = SlotDataset(schema)
+        ds.with_ins_id = True
+        ds.set_filelist(filelist)
+        pipe = kw.pop("pipe", None)
+        ds.set_pipe_command(pipe)
+        ds.load_into_memory(global_shuffle=False, **kw)
+        st = ds.last_load_stats
+        sec = st["seconds"]
+        print(f"  load {name}: {sec:.3f} s | {mb / sec / 1e6:.1f} MB/s "
+              f"| {ds.num_examples / sec:.1f} examples/s | parses "
+              f"native {st['native']} python {st['python']} | "
+              f"{st['file_threads']} file threads x "
+              f"{st['parse_threads'] or 'all'} parser threads "
+              f"[{host}]")
+        check(st["python"] == 0 and st["native_rejects"] == 0
+              and st["parse_errors"] == 0,
+              f"load {name}: the Python parser ran ({st})")
+        return ds
+
+    ds_a = load("(a) native parser", files, n_bytes)
+    check(ds_a.last_load_stats["native"] == N_FILES,
+          "load (a): the native parser did not parse every file")
+    ds_b = load("(b) pipe_command cat", plain, n_bytes, pipe="cat")
+    gen = os.path.join(d, "gen.py")
+    with open(gen, "w") as fh:
+        fh.write(_GENERATOR.format(
+            repo=os.path.dirname(os.path.abspath(__file__)), s=S,
+            d=DENSE))
+    ds_c = load("(c) MultiSlotDataGenerator pipe", [raw],
+                os.path.getsize(raw), pipe=f"{sys.executable} {gen}")
+    t0 = time.perf_counter()
+    pbars = archive.archive_filelist(files, schema,
+                                     os.path.join(d, "arch"),
+                                     with_ins_id=True)
+    t_arch = time.perf_counter() - t0
+    arch_bytes = sum(os.path.getsize(f) for f in pbars)
+    print(f"  archive_filelist: {arch_bytes} bytes in {N_FILES} .pbar "
+          f"({arch_bytes / n_bytes:.3f} of the text), parse + write "
+          f"{t_arch:.3f} s [{host}]")
+    ds_d = load("(d) .pbar archives", pbars, arch_bytes)
+    check(ds_d.last_load_stats["native"] == 0, "archives were parsed")
+
+    want = batch_bytes(ds_a, n_batch)
+    check(len(want) == lay.steps, f"{len(want)} batches")
+    mem = [tuple(getattr(pb, k).tobytes() for k in ("ids", "mask",
+                                                     "floats"))
+           for pb in (records.pack(i * n_batch, (i + 1) * n_batch)
+                      for i in range(lay.steps))]
+    check([w[:3] for w in want] == mem,
+          "load (a) differs from the in-memory records")
+    check(batch_bytes(ds_b, n_batch) == want, "load (b) differs")
+    check(batch_bytes(ds_d, n_batch) == want, "load (d) differs")
+    got_c = batch_bytes(ds_c, n_batch)
+    check(len(got_c) == lay.steps // N_FILES
+          and got_c == want[:len(got_c)], "load (c) differs")
+    print(f"  loads (a) (b) (d) pack to {len(want)} byte-identical "
+          f"batches, (c) to the first {len(got_c)} (ids, mask, floats, "
+          f"ins_id) ok")
+
+    parse_cap_ab(plain, schema, host)
+    with open(plain[0], "rb") as fh:
+        buf = fh.read()
+    t0 = time.perf_counter()
+    nat = slot_parser.parse_buffer(buf, schema, with_ins_id=True)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = parser._parse_python(buf.decode().splitlines(), schema, True)
+    t_py = time.perf_counter() - t0
+    for f in ("sparse_values", "sparse_offsets", "float_values"):
+        check(all(a.tobytes() == b.tobytes() for a, b in
+                  zip(getattr(nat, f), getattr(py, f))),
+              f"python parser differs in {f}")
+    check(nat.ins_id.tobytes() == py.ins_id.tobytes(),
+          "python parser differs in ins_id")
+    mb = len(buf) / 1e6
+    print(f"  one file, {len(buf)} bytes: native {t_nat:.3f} s "
+          f"({mb / t_nat:.1f} MB/s), python {t_py:.3f} s "
+          f"({mb / t_py:.2f} MB/s): python/native {t_py / t_nat:.1f}x "
+          f"[{host}]")
+
+    # merge_by_ins_id on a copy whose ids pair up, with odd groups
+    n1, n3 = MERGE_ODD
+    n2 = (n - n1 - 3 * n3) // 2
+    sizes = [2] * n2 + [1] * n1 + [3] * n3
+    ids = np.repeat(np.arange(1, len(sizes) + 1, dtype=np.uint64), sizes)
+    ds_m = SlotDataset(schema)
+    ds_m.records = dataclasses.replace(
+        ds_d.records, ins_id=np.random.default_rng(SEED).permutation(ids))
+    t0 = time.perf_counter()
+    dropped = ds_m.merge_by_ins_id(merge_size=2)
+    t_merge = time.perf_counter() - t0
+    check(dropped == n1 + 3 * n3 and ds_m.num_examples == n2,
+          f"merge_by_ins_id dropped {dropped} ({ds_m.num_examples} left), "
+          f"expected {n1 + 3 * n3} ({n2} left)")
+    check(all(bool(np.all(np.diff(o) == 2))
+              for o in ds_m.records.sparse_offsets),
+          "merged examples do not hold two ids a slot")
+    print(f"  merge_by_ins_id(merge_size=2): {n2} pairs kept, {dropped} "
+          f"dropped ({n1} singletons + {n3} triples) in {t_merge:.3f} s ok")
+
+    # one pass from the archives against the in-memory pass
+    store, _, tr = make_trainer(torch, lay, n_batch, None)
+    box = BoxPS(store)
+    box.set_date(20261016)
+    box.begin_pass()
+    reset_counts(kernels)
+    out = tr.train_pass(ds_d)
+    launches = launch_counts(kernels)
+    box.end_pass()
+    print(f"  pass from the archives ({card}): steps {out['steps']} | loss "
+          f"mean {out['loss_mean']:.6f} (in-memory "
+          f"{ref['out']['loss_mean']:.6f}) | "
+          f"{out['steps'] * n_batch / out['step_seconds']:.1f} examples/s "
+          f"(step loop) | launches {launches}")
+    for name, k in launches.items():
+        want_k = out["steps"] if name in lay.kernels else 0
+        check(k == want_k, f"archive pass launched {name} {k} times, "
+              f"expected {want_k}")
+    check(np.array_equal(tr.last_ws.sorted_keys, ref["keys"]),
+          "archive pass: working set keys differ")
+    np.testing.assert_allclose(
+        [out[k] for k in ("loss_first", "loss_last", "loss_mean")],
+        [ref["out"][k] for k in ("loss_first", "loss_last", "loss_mean")],
+        **LOSS_TOL)
+    np.testing.assert_allclose(store.get_rows(ref["keys"]), ref["rows"],
+                               **TABLE_TOL)
+    print("  archive pass agrees with the in-memory pass (losses within "
+          "rtol 2e-4, rows within rtol 1e-3) ok")
+
+    def heter(dev, filelist, depth, threads):
+        cfg = EmbeddingConfig(dim=lay.dim, optimizer="adagrad",
+                              learning_rate=0.05)
+        hstore = HostEmbeddingStore(cfg)
+        htr = HeterTrainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN),
+                           hstore, schema,
+                           HeterConfig(global_batch_size=n_batch,
+                                       auc_buckets=1 << 16,
+                                       prefetch_depth=depth),
+                           seed=SEED, device=dev)
+        q = QueueDataset(schema, num_threads=threads)
+        q.with_ins_id = True
+        q.set_filelist(filelist)
+        return hstore, htr.train_pass(q), q
+
+    hstore, hout, q = heter(None, files, 2, 2)
+    steps = hout["steps"]
+    shows = float(hstore.get_rows(hstore.keys())[:, 0]
+                  .astype(np.float64).sum())
+    sp = hout["split"]
+    print(f"  HeterTrainer, QueueDataset(num_threads=2) ({card}): steps "
+          f"{steps} | loss mean {hout['loss_mean']:.6f} | auc "
+          f"{hout['auc']:.6f} | {steps * n_batch / hout['step_seconds']:.1f}"
+          f" examples/s (step loop) | pull {sp['pull']:.3f} s (prefetch "
+          f"thread) / device {sp['device']:.3f} s / push "
+          f"{sp['push']:.3f} s | {len(hstore)} keys | stream "
+          f"{q.last_stream_stats}")
+    check(steps == lay.steps and np.isfinite(hout["loss_mean"]),
+          f"heter pass: {steps} steps, loss {hout['loss_mean']}")
+    check(shows == n * S, f"heter store shows sum to {shows}, streamed "
+          f"{n * S} ids")
+    pair = [heter(dev, files[:1], 1, 1) for dev in (None, "cpu")]
+    (s_dev, o_dev, _), (s_cpu, o_cpu, _) = pair
+    check(o_dev["steps"] == o_cpu["steps"] == 2, "heter pair: steps")
+    np.testing.assert_allclose(
+        [o_dev[k] for k in ("loss_first", "loss_last")],
+        [o_cpu[k] for k in ("loss_first", "loss_last")], **LOSS_TOL)
+    hkeys = s_cpu.keys()
+    np.testing.assert_allclose(s_dev.get_rows(hkeys), s_cpu.get_rows(hkeys),
+                               **TABLE_TOL)
+    print(f"  HeterTrainer first 2 batches, prefetch_depth=1: card loss "
+          f"{o_dev['loss_last']:.6f} vs cpu "
+          f"{o_cpu['loss_last']:.6f}, {len(hkeys)} rows within rtol 1e-3 ok")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1398,8 +1767,10 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = kernel_phase(torch, kernels, dev, gen)
     launches = {}
+    onehot_pass: dict = {}
     for lay in (MULTI, ONEHOT):
-        launches.update(main_path(torch, kernels, lay))
+        launches.update(main_path(torch, kernels, lay,
+                                  onehot_pass if lay is ONEHOT else None))
         torch.cuda.empty_cache()
     for lay in (MULTI, ONEHOT):
         reference_check(torch, lay)
@@ -1407,6 +1778,7 @@ def main() -> int:
     card = smi_line()
     boundary_drill(torch, card)
     boundary_trainer(torch, kernels, card)
+    ingest_phase(torch, kernels, card, onehot_pass)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

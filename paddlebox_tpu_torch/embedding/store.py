@@ -164,6 +164,10 @@ class HostEmbeddingStore:
         if fn in self._flush_hooks:
             self._flush_hooks.remove(fn)
 
+    def has_flush_hooks(self) -> bool:
+        """Whether a device tier (a FeedPassManager) is attached."""
+        return bool(self._flush_hooks)
+
     def _run_flush_hooks(self) -> None:
         # outside the lock: hooks call write_back, which takes it
         for fn in list(self._flush_hooks):

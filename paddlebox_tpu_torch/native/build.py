@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import Sequence
 
@@ -22,6 +23,16 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 class BuildError(RuntimeError):
     """A native source failed to compile; carries the compiler output."""
+
+
+def cxx_command() -> list[str] | None:
+    """The compile command of the host libraries (key index, slot
+    parser): ``$CXX`` or g++ with the same flags for each; None when no
+    compiler is found."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        return None
+    return [cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 
 def output_path(name: str, sources: Sequence[str],

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 
 import numpy as np
@@ -58,9 +57,8 @@ def get_lib() -> ctypes.CDLL | None:
         if _lib_cache:
             return _lib_cache[0]
         lib = None
-        cxx = os.environ.get("CXX") or shutil.which("g++")
-        if cxx is not None:
-            cmd = [cxx, "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+        cmd = build_lib.cxx_command()
+        if cmd is not None:
             try:
                 path = build_lib.build("libkeyindex", [_SRC], [], cmd)
                 lib = ctypes.CDLL(path)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports with jax, jaxlib, optax and
-paddlebox_tpu blocked, names none of them in any import, and its entry
-points refuse to run on the CPU unless asked."""
+paddlebox_tpu blocked, parses through its native parser and runs a
+MultiSlotDataGenerator pipe command (itself blocked the same way) there,
+names none of them in any import, and its entry points refuse to run on
+the CPU unless asked."""
 
 import ast
 import os
@@ -27,6 +29,9 @@ class Blocker:
         return None
 
 sys.meta_path.insert(0, Blocker())
+"""
+
+_IMPORTS = _BLOCKER + """
 import paddlebox_tpu_torch
 import paddlebox_tpu_torch.data, paddlebox_tpu_torch.embedding.sharded
 import paddlebox_tpu_torch.embedding.feed_pass
@@ -36,15 +41,62 @@ import paddlebox_tpu_torch.train, paddlebox_tpu_torch.weights
 import paddlebox_tpu_torch.fleet.fleet_util, paddlebox_tpu_torch.metrics.metric
 import paddlebox_tpu_torch.utils.checkpoint, paddlebox_tpu_torch.utils.fs
 import paddlebox_tpu_torch.utils.faultpoint, paddlebox_tpu_torch.utils.pass_ckpt
+import paddlebox_tpu_torch.data.archive, paddlebox_tpu_torch.data.channel
+import paddlebox_tpu_torch.data.data_generator
+import paddlebox_tpu_torch.data.queue_dataset, paddlebox_tpu_torch.train.heter
+import paddlebox_tpu_torch.native.slot_parser, paddlebox_tpu_torch.utils.hashing
+
+# the native parser parses, and a data generator runs as a pipe command
+import os, tempfile
+from paddlebox_tpu_torch.data import DataFeedSchema, ParseStats, SlotDataset
+from paddlebox_tpu_torch.data import parser
+schema = DataFeedSchema.ctr(num_sparse=2, num_float=1)
+stats = ParseStats()
+got = parser.parse_multislot_buffer(b"1 1 1 0.5 2 7 8 1 9\\n", schema,
+                                    stats=stats)
+assert parser.is_native() and stats.native == 1 and got.num == 1, stats
+with tempfile.TemporaryDirectory() as d:
+    gen = os.path.join(d, "gen.py")
+    with open(gen, "w") as f:
+        f.write(GENERATOR)
+    raw = os.path.join(d, "raw")
+    with open(raw, "w") as f:
+        f.write("3 7,8\\n4 9\\n")
+    ds = SlotDataset(schema)
+    ds.set_filelist([raw])
+    ds.set_pipe_command(f"{sys.executable} {gen}")
+    ds.load_into_memory(global_shuffle=False)
+assert ds.num_examples == 2 and ds.last_load_stats["native"] == 1
+assert ds.records.sparse_values[0].tolist() == [3, 4]
+assert ds.records.sparse_values[1].tolist() == [7, 8, 9]
 bad = [m for m in sys.modules if m.partition(".")[0] in BLOCKED]
 assert not bad, bad
 print("OK")
 """
 
+# a pipe_command script: the blocker, then only the port
+_GENERATOR = _BLOCKER + """
+from paddlebox_tpu_torch.data import DataFeedSchema
+from paddlebox_tpu_torch.data.data_generator import MultiSlotDataGenerator
+
+
+class Gen(MultiSlotDataGenerator):
+    def generate_sample(self, line):
+        a, b = line.split()
+        yield [("label", [1]), ("dense_0", [0.5]), ("slot_0", [a]),
+               ("slot_1", b.split(","))]
+
+
+Gen(DataFeedSchema.ctr(num_sparse=2, num_float=1)).run_from_stdin()
+bad = [m for m in sys.modules if m.partition(".")[0] in BLOCKED]
+assert not bad, bad
+"""
+
 
 def test_imports_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", _BLOCKER], env=env,
+    script = f"GENERATOR = {_GENERATOR!r}\n" + _IMPORTS
+    r = subprocess.run([sys.executable, "-c", script], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("OK")
