@@ -76,7 +76,22 @@ Phases, each of which exits non-zero on failure:
    the card and on the CPU agreeing. Prints each load's seconds, MB/s
    and examples/s, the archive's size and write seconds, the parser
    ratio and the HeterTrainer's split (host numbers on the card's
-   machine, beside its name and power limit).
+   machine, beside its name and power limit);
+10. the model zoo: each of the seven families (dnn_ctr, deepfm,
+   wide_deep, dcn_v2, dlrm, mmoe, pv_rank; ZOO's full widths) on each
+   layout for one 16-step pass through BoxPS.begin_pass -> train_pass
+   -> end_pass on records with page views of 1-3 ads, counts reset just
+   before and read just after (16 for the layout's two kernels, 0 for
+   the others), printing loss, AUC, step-loop examples/s, profiled
+   device ms/step with its largest ops, and host syncs in one step
+   (must be 0); DLRM once more in bf16 on the one-hot layout; DeepFM on
+   the one-hot layout under each dense optimizer; every family at a
+   narrow width for 2 steps on the card and on the CPU, which must
+   agree (LOSS_TOL, TABLE_TOL, MLP_TOL); fused_gather_seqpool_cvm at the
+   multi-hot step's shapes against the unfused plain path, forward and
+   table gradient, one gather_pool launch each; and check_nan_inf
+   raising FloatingPointError at the step after a NaN is put into a
+   dense parameter.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -717,10 +732,12 @@ def kernel_phase(torch, kernels, dev, gen) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def make_records(schema, n, keys, rng, max_len):
-    """Criteo-shaped examples: 26 slots of 1..max_len ids drawn from the
-    key set, a 25%-positive label and 13 dense floats."""
+    """Criteo-shaped examples: the schema's slots (26 at full width) of
+    1..max_len ids drawn from the key set, a 25%-positive label and 13
+    dense floats."""
     from paddlebox_tpu_torch.data.slot_record import SlotRecordBatch
-    lens = [rng.integers(1, max_len + 1, n) for _ in range(S)]
+    lens = [rng.integers(1, max_len + 1, n)
+            for _ in range(len(schema.sparse_slots))]
     vals = [rng.choice(keys, int(l.sum())).astype(np.int64) for l in lens]
     offs = [np.concatenate([[0], np.cumsum(l)]).astype(np.int64)
             for l in lens]
@@ -881,6 +898,42 @@ def eval_check(kernels, lay, tr, schema, keys, rng) -> None:
               f"batches, expected {want}")
 
 
+def device_profile(torch, tr, staged) -> tuple[list, float]:
+    """torch.profiler over one train_step on each pre-staged batch: the
+    device-side ops as (ms per step, name), largest first (the CPU op
+    rows repeat their kernels' time, so they are left out), and the
+    device ops a step."""
+    from torch.profiler import ProfilerActivity, profile
+    ws = tr.last_ws
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in staged:
+            tr.train_step(ws.table, *s)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and getattr(e, "self_device_time_total", 0) > 0]
+    rows = sorted(((e.self_device_time_total / len(staged) / 1e3, e.key)
+                   for e in events), reverse=True)
+    return rows, sum(e.count for e in events) / len(staged)
+
+
+def step_syncs(torch, tr, staged) -> list:
+    """The host syncs of one train_step, as sync-debug warnings: each
+    stalls the host until the device drains, so the dispatch of the rest
+    of the step cannot overlap it."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            tr.train_step(tr.last_ws.table, *staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return syncs
+
+
 def breakdown(torch, tr, ds, loop_ms: float) -> None:
     """Where a main-path step's time goes: the host pack of one batch
     (translate + push plan + pin, the pack thread's work), the device
@@ -888,7 +941,6 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
     time by kernel, and the step loop of a second pass with the pack
     inline instead of on its thread. Runs after the main path's launch
     counts are read, on its last working set."""
-    from torch.profiler import ProfilerActivity, profile
     ws = tr.last_ws
     n = 4
     clock = time.perf_counter
@@ -916,30 +968,9 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
         tr.train_step(ws.table, *s)
     torch.cuda.synchronize()
     dev_ms = (time.perf_counter() - t0) / len(staged) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s in staged:
-            tr.train_step(ws.table, *s)
-        torch.cuda.synchronize()
-    # device-side events only: the CPU op rows repeat their kernels' time
-    dev_events = [e for e in prof.key_averages()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and getattr(e, "self_device_time_total", 0) > 0]
-    rows = sorted(((e.self_device_time_total / len(staged) / 1e3, e.key)
-                   for e in dev_events), reverse=True)
+    rows, n_dev = device_profile(torch, tr, staged)
     busy_ms = sum(r[0] for r in rows)
-    n_dev = sum(e.count for e in dev_events) / len(staged)
-    # host syncs in one step: each one stalls the host until the device
-    # drains, so the dispatch of the rest of the step cannot overlap it
-    import warnings
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as syncs:
-            warnings.simplefilter("always")
-            tr.train_step(ws.table, *staged[0])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    syncs = step_syncs(torch, tr, staged[0])
     print(f"breakdown: device step {dev_ms:.3f} ms (pre-staged, host "
           f"clock) | profiled device busy {busy_ms:.3f} ms/step in "
           f"{n_dev:.0f} device ops | host syncs per step {len(syncs)} | "
@@ -1754,6 +1785,259 @@ def _ingest(torch, kernels, card, ref, d, host, schema, records) -> None:
           f"{o_cpu['loss_last']:.6f}, {len(hkeys)} rows within rtol 1e-3 ok")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model zoo
+# ---------------------------------------------------------------------------
+
+# each family at its full width: bench.py's MLP (400-400-400) where the
+# family has one tower, DLRM at the widths of DLRM's Criteo Kaggle script
+# (bottom 13-512-256-dim, top ...-512-256-1)
+ZOO = {
+    "dnn_ctr": dict(hidden=HIDDEN),
+    "deepfm": dict(hidden=HIDDEN),
+    "wide_deep": dict(hidden=HIDDEN),
+    "dcn_v2": dict(num_cross_layers=3, hidden=HIDDEN),
+    "dlrm": dict(bottom_hidden=(512, 256), top_hidden=(512, 256)),
+    "mmoe": dict(num_experts=4, num_tasks=2, expert_hidden=(400, 400),
+                 expert_out=400, tower_hidden=(400,)),
+    "pv_rank": dict(max_rank=3, slot_proj=8, att_dim=8, hidden=HIDDEN),
+}
+# the card-vs-CPU check's narrow widths
+ZOO_NARROW = {
+    "dnn_ctr": dict(hidden=(16, 16)),
+    "deepfm": dict(hidden=(16, 16)),
+    "wide_deep": dict(hidden=(16, 16)),
+    "dcn_v2": dict(num_cross_layers=2, hidden=(16, 16)),
+    "dlrm": dict(bottom_hidden=(16,), top_hidden=(16, 16)),
+    "mmoe": dict(num_experts=3, num_tasks=2, expert_hidden=(16,),
+                 expert_out=16, tower_hidden=(16,)),
+    "pv_rank": dict(max_rank=3, slot_proj=4, att_dim=4, hidden=(16, 16)),
+}
+MLP_TOL = dict(rtol=2e-3, atol=2e-5)      # tests/test_torch_trainer.py
+GRAD_TOL = dict(rtol=1e-5, atol=1e-6)     # index_add_'s atomic order
+
+
+def page_views(records, rng) -> None:
+    """Give ``records`` page views of 1-3 ads: a shared search_id and
+    ranks 1..k within each view (PV-rank's rank_offset input)."""
+    n = records.num
+    pv = np.repeat(np.arange(n), rng.integers(1, 4, n))[:n]
+    starts = np.flatnonzero(np.r_[True, pv[1:] != pv[:-1]])
+    first = np.repeat(starts, np.diff(np.r_[starts, n]))
+    records.search_id = pv.astype(np.uint64)
+    records.rank = (np.arange(n) - first + 1).astype(np.int32)
+
+
+def zoo_trainer(name, lay, n_batch, device, widths, num_slots=S,
+                optimizer="adam", **opts):
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.models import MODEL_REGISTRY
+    from paddlebox_tpu_torch.train import Trainer, TrainerConfig
+    store = HostEmbeddingStore(EmbeddingConfig(
+        dim=lay.dim, optimizer="adagrad", learning_rate=0.05))
+    schema = DataFeedSchema.ctr(num_sparse=num_slots, num_float=DENSE,
+                                batch_size=n_batch, max_len=lay.max_len)
+    model = MODEL_REGISTRY[name](num_slots, lay.dim, DENSE, **widths[name],
+                                 **opts)
+    tr = Trainer(model, store, schema,
+                 TrainerConfig(global_batch_size=n_batch,
+                               auc_buckets=1 << 16,
+                               dense_optimizer=optimizer),
+                 seed=SEED, device=device)
+    return store, schema, tr
+
+
+def zoo_pass(torch, kernels, card, lay, name, ds, label=None,
+             optimizer="adam", **opts) -> dict:
+    """One 16-step pass of a family through BoxPS.begin_pass ->
+    train_pass -> end_pass, counts reset just before and read just
+    after; then device ms/step and host syncs on two of its batches."""
+    from paddlebox_tpu_torch.fleet import BoxPS
+    store, _, tr = zoo_trainer(name, lay, B, None, ZOO, optimizer=optimizer,
+                               **opts)
+    box = BoxPS(store)
+    box.set_date(20261017)
+    box.begin_pass()
+    reset_counts(kernels)
+    out = tr.train_pass(ds)
+    launches = launch_counts(kernels)
+    box.end_pass()
+    steps = out["steps"]
+    it = ds.batches(B)
+    staged = [tr.stage(tr._pack_host(tr.last_ws, next(it)))
+              for _ in range(2)]
+    tr.train_step(tr.last_ws.table, *staged[0])
+    top, _ = device_profile(torch, tr, staged)
+    dev_ms = sum(r[0] for r in top)
+    syncs = len(step_syncs(torch, tr, staged[0]))
+    eps = steps * B / out["step_seconds"]
+    label = label or name
+    print(f"  {label}, {lay.name} ({card}): loss {out['loss_mean']:.6f} "
+          f"| auc {out['auc']:.6f} | {eps:.1f} examples/s (step loop) | "
+          f"device {dev_ms:.3f} ms/step | host syncs/step {syncs} | "
+          f"launches {launches} | pull {tr.pull_engine} | push "
+          f"{tr.resolved_push_engine(tr.last_ws)}")
+    print("    largest device ops, ms/step: " + " | ".join(
+        f"{ms:.3f} {op[:60]}" for ms, op in top[:4]))
+    check(steps == lay.steps, f"{label}: {steps} steps, expected "
+          f"{lay.steps}")
+    check(np.isfinite(out["loss_mean"]), f"{label}: non-finite loss")
+    check(syncs == 0, f"{label}: {syncs} host syncs in one step")
+    for k, n in launches.items():
+        want = steps if k in lay.kernels else 0
+        check(n == want, f"{label}, {lay.name}: {k} launched {n} times in "
+              f"{steps} steps, expected {want}")
+    del tr, store, staged
+    torch.cuda.empty_cache()
+    return dict(examples_per_s=eps, device_ms=dev_ms, launches=launches)
+
+
+def zoo_reference(torch, name, lay) -> str:
+    """Two narrow steps of a family on the card and on the CPU (plain
+    versions) from the same carried-across weights."""
+    from paddlebox_tpu_torch import weights
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
+    nb, n_slots = 256, 4
+    rng = np.random.default_rng(SEED + 9)
+    keys = rng.choice(1 << 40, 3000, replace=False).astype(np.uint64)
+    runs = []
+    start = None
+    for device in ("cuda", "cpu"):
+        store, schema, tr = zoo_trainer(name, lay, nb, device, ZOO_NARROW,
+                                        num_slots=n_slots)
+        if start is None:
+            start = weights.model_params(tr.model)
+        weights.load_model_params(tr.model, start)
+        ds = SlotDataset(schema)
+        records = make_records(schema, 2 * nb, keys,
+                               np.random.default_rng(SEED + 10),
+                               lay.max_len)
+        page_views(records, np.random.default_rng(SEED + 11))
+        ds.records = records
+        out = tr.train_pass(ds)
+        tr.flush_sparse()         # lazy write-back: rows reach the store
+        runs.append((out, store.peek_rows(keys),
+                     dict(flatten_tree(weights.model_params(tr.model)))))
+    (gpu, g_rows, g_p), (cpu, c_rows, c_p) = runs
+    np.testing.assert_allclose(gpu["loss_mean"], cpu["loss_mean"],
+                               **LOSS_TOL)
+    np.testing.assert_allclose(g_rows, c_rows, **TABLE_TOL)
+    for k in c_p:
+        np.testing.assert_allclose(g_p[k], c_p[k], err_msg=k, **MLP_TOL)
+    return (f"{name} {gpu['loss_mean']:.6f} vs {cpu['loss_mean']:.6f}")
+
+
+def fused_gather_check(torch, kernels, cfg, table, idx, mask) -> None:
+    """fused_gather_seqpool_cvm at the multi-hot main path's shapes, on
+    the card: forward (the gather_pool kernel) and the table gradient
+    against the unfused plain path, fused_seqpool_cvm over a per-token
+    gather (its autograd scatters with index_add_)."""
+    from paddlebox_tpu_torch.embedding import sharded
+    from paddlebox_tpu_torch.ops.seqpool_cvm import (
+        fused_gather_seqpool_cvm, fused_seqpool_cvm)
+    L = MULTI.max_len
+    seg = np.repeat(np.arange(S), L)
+    gen = torch.Generator(device=table.device).manual_seed(SEED + 12)
+    cot = torch.randn(B, S * cfg.pull_width, generator=gen,
+                      device=table.device)
+    for case, kw in (("no filters", {}),
+                     ("embed_threshold 0.02", dict(embed_threshold=0.02))):
+        t = table.clone().requires_grad_()
+        reset_counts(kernels)
+        out = fused_gather_seqpool_cvm(t, idx, mask, seg, S, cfg, **kw)
+        (g,) = torch.autograd.grad((out * cot).sum(), [t])
+        torch.cuda.synchronize()
+        n = kernels.gather_pool.launches
+        tp = table.clone().requires_grad_()
+        pulled = sharded.lookup(tp, torch.where(mask, idx, 0), cfg)
+        want = fused_seqpool_cvm(pulled, mask, seg, S, **kw)
+        (gw,) = torch.autograd.grad((want * cot).sum(), [tp])
+        print(f"  fused_gather_seqpool_cvm ({case}) at (B, S, L, W) = "
+              f"({B}, {S}, {L}, {table.shape[1]}): gather_pool launches "
+              f"{n}")
+        assert_close("  forward", out.detach(), want.detach(), GATHER_TOL)
+        assert_close("  table gradient", g, gw, GRAD_TOL)
+        check(n == 1, f"fused_gather_seqpool_cvm launched gather_pool {n} "
+              f"times, expected 1")
+
+
+def nan_guard_check(torch, card) -> None:
+    """check_nan_inf on the card: a NaN put into one dense parameter
+    after a clean pass trips FloatingPointError at the next step."""
+    import re
+    from paddlebox_tpu_torch.data import SlotDataset
+    rng = np.random.default_rng(SEED + 13)
+    keys = rng.choice(1 << 40, 3000, replace=False).astype(np.uint64)
+    _, schema, tr = zoo_trainer("deepfm", ONEHOT, 256, None, ZOO_NARROW,
+                                num_slots=4)
+    tr.cfg.check_nan_inf = True
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, 2 * 256, keys, rng, 1)
+    tr.train_pass(ds)
+    with torch.no_grad():
+        tr.model.mlp[0].w[1, 2] = float("nan")
+    try:
+        tr.train_pass(ds)
+    except FloatingPointError as e:
+        m = re.search(r"at step (\d+)", str(e))
+        check(m is not None and int(m.group(1)) == 2,
+              f"nan guard tripped at the wrong step: {e}")
+        print(f"  nan guard ({card}): {str(e)[:150]}")
+        return
+    raise SmokeFailure("a NaN dense parameter did not trip check_nan_inf")
+
+
+def zoo_phase(torch, kernels, card) -> dict:
+    """Phase 10. Returns {family/layout: numbers} for the summary."""
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
+    from paddlebox_tpu_torch.train import optimizers
+    print(f"== model zoo: {len(ZOO)} families x 2 layouts at full width, "
+          f"{B} x {S} slots, {DENSE} dense, one 16-step pass each")
+    numbers = {}
+    onehot_ds = None
+    for lay in (MULTI, ONEHOT):
+        keys, rng = draw_keys(lay.n_keys)
+        schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                    batch_size=B, max_len=lay.max_len)
+        records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
+        page_views(records, rng)
+        ds = SlotDataset(schema)
+        ds.records = records
+        for name in ZOO:
+            numbers[f"{name}/{lay.name}"] = zoo_pass(torch, kernels, card,
+                                                     lay, name, ds)
+        if lay is ONEHOT:
+            onehot_ds = ds
+            numbers[f"dlrm_bf16/{lay.name}"] = zoo_pass(
+                torch, kernels, card, lay, "dlrm", ds, label="dlrm bf16",
+                compute_dtype=torch.bfloat16)
+    print("== dense optimizers, deepfm on onehot_dim8")
+    for opt in optimizers.NAMES:
+        numbers[f"deepfm+{opt}/onehot_dim8"] = zoo_pass(
+            torch, kernels, card, ONEHOT, "deepfm", onehot_ds,
+            label=f"deepfm + {opt}", optimizer=opt)
+    print("== zoo, card vs CPU: 2 narrow steps (4 slots, dim 8, hidden 16)")
+    for lay in (MULTI, ONEHOT):
+        agree = [zoo_reference(torch, name, lay) for name in ZOO]
+        print(f"  {lay.name}: losses (card vs CPU), rows and params within "
+              f"LOSS_TOL / TABLE_TOL / MLP_TOL ok: " + " | ".join(agree))
+    print("== fused_gather_seqpool_cvm at multi-hot main-path shapes")
+    cfg = EmbeddingConfig(dim=MULTI.dim, optimizer="adagrad",
+                          learning_rate=0.05)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    table, idx, mask = slice_inputs(torch, MULTI, cfg, torch.device("cuda"),
+                                    gen)
+    fused_gather_check(torch, kernels, cfg, table, idx, mask)
+    del table, idx, mask
+    torch.cuda.empty_cache()
+    nan_guard_check(torch, card)
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1779,6 +2063,7 @@ def main() -> int:
     boundary_drill(torch, card)
     boundary_trainer(torch, kernels, card)
     ingest_phase(torch, kernels, card, onehot_pass)
+    zoo_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -46,6 +46,9 @@ class Flags:
     # touched, and a background staging it overtook is patched, not
     # discarded. Off = any mutation forces the full rebuild (the A/B knob)
     incremental_feed: bool = True
+    # FLAGS_check_nan_inf: every step reads its loss back and raises
+    # FloatingPointError on nan/inf (as TrainerConfig.check_nan_inf)
+    check_nan_inf: bool = False
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):

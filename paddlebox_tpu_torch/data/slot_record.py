@@ -250,6 +250,28 @@ class PackedBatch:
     # PV's examples adjacent
     search_id: np.ndarray | None = None
 
+    def layout(self) -> SparseLayout:
+        return SparseLayout.from_schema(self.schema)
+
+    def slot_ids(self, name: str) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, mask) view of one sparse slot, shape (B, max_len)."""
+        lay = self.layout()
+        for i, slot in enumerate(self.schema.sparse_slots):
+            if slot.name == name:
+                a = lay.slot_starts[i]
+                b = a + lay.slot_lens[i]
+                return self.ids[:, a:b], self.mask[:, a:b]
+        raise KeyError(name)
+
+    def float_slot(self, name: str) -> np.ndarray:
+        """One float slot's columns, shape (B, max_len)."""
+        col = 0
+        for slot in self.schema.float_slots:
+            if slot.name == name:
+                return self.floats[:, col:col + slot.max_len]
+            col += slot.max_len
+        raise KeyError(name)
+
     def pad_to(self, batch_size: int) -> "PackedBatch":
         """Pad to ``batch_size`` rows with masked-out examples (a tail
         batch keeps the step's shape; padded rows carry mask=False

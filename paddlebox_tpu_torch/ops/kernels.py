@@ -166,7 +166,7 @@ def _require_cuda(name: str, device: torch.device,
 # gather_pool
 # ---------------------------------------------------------------------------
 
-def _slot_thresholds(threshold, num_slots: int,
+def slot_thresholds(threshold, num_slots: int,
                      device: torch.device) -> torch.Tensor:
     """(S,) f32 thresholds on ``device``. A scalar is filled on the
     device: copying it from the host would synchronize the stream on
@@ -216,7 +216,7 @@ def gather_pool_plain(table: torch.Tensor, idx: torch.Tensor,
     rows = table.index_select(
         0, idx.reshape(-1).long().clamp(0, n_rows - 1))[:, :P]
     rows = rows.reshape(B, S, L, P)
-    thr = _slot_thresholds(threshold, S, table.device)[None, :, None]
+    thr = slot_thresholds(threshold, S, table.device)[None, :, None]
     q_cols = torch.arange(P, device=table.device) >= cvm_offset + 1
     acc = None
     for l in range(L):
@@ -274,7 +274,7 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor,
     _require(0 <= cvm_offset < W, "cvm_offset out of range")
     # the kernel reads the thresholds only under need_filter: without it,
     # no (S,) tensor is made (a fill kernel on every pull)
-    thr = (_slot_thresholds(threshold, S, table.device) if need_filter
+    thr = (slot_thresholds(threshold, S, table.device) if need_filter
            else None)
     out = torch.empty((B, S, P), dtype=torch.float32, device=table.device)
     if B * S == 0 or P == 0:

@@ -28,6 +28,24 @@ a background thread while this pass trains. Read the store with
 ``get_rows`` (or after ``flush_sparse``), never ``peek_rows``, to see a
 pass's updates.
 
+The model is any of the zoo (``models.MODEL_REGISTRY``). A model that
+declares ``batch_extras(pb, n_shards)`` (PV-rank's rank_offset) has it
+called on the pack thread per batch, beside translate and the push
+plan; its arrays are pinned and copied with the batch and passed to the
+model after the standard arguments, in training and in eval (one card:
+``n_shards = 1``). The dense optimizer is any of
+``optimizers.NAMES``, built with ``dense_optimizer_kwargs``.
+
+Trainer options (``TrainerConfig``, as the JAX package's):
+``check_nan_inf`` (or ``flags.check_nan_inf``) reads each step's loss
+back — the one host sync a step makes with it on, none with it off — and
+on nan/inf raises FloatingPointError naming the non-finite leaves of
+{params, loss, preds, labels}, dumped to ``nan_dump_dir`` when set;
+``dump_fields_path`` streams ``step i pred label [field:value ...]``
+lines of each batch (``dump_fields``: ins_id, float slots, sparse slots)
+and, at pass end, ``param <path> v,v,...`` for the dense params matching
+``dump_param``, written on a writer thread (``utils/profiler.py``).
+
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
@@ -35,8 +53,9 @@ matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 Not ported yet (ROADMAP): multi-shard routing and shard ownership,
 kstep/async dense sync, supersteps, deferred push (push overlap:
 ``flush_push`` is a no-op hook), the replica cache and quantized
-staging, dump streams, mid-pass snapshot saving, coordinated multi-host
-resume, telemetry, tiering.
+staging, mid-pass snapshot saving, coordinated multi-host resume,
+telemetry (the nan trip's and the dump stream's counters and events
+included), tiering.
 """
 
 from __future__ import annotations
@@ -45,6 +64,7 @@ import dataclasses
 import queue
 import threading
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -65,15 +85,28 @@ from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
 from paddlebox_tpu_torch.ops.seqpool_cvm import PooledSlots
 from paddlebox_tpu_torch.train import optimizers
+from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
+from paddlebox_tpu_torch.utils.profiler import (DumpStream, dump_tree,
+                                                find_nonfinite)
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     dense_lr: float = 1e-3
-    dense_optimizer: str = "adam"          # adam | sgd
+    dense_optimizer: str = "adam"  # adam|sgd|momentum|adagrad|rmsprop|ftrl
+    dense_optimizer_kwargs: dict = dataclasses.field(default_factory=dict)
     global_batch_size: int = 256
     auc_buckets: int = 1 << 16
     label_slot: str = "label"
+    check_nan_inf: bool = False            # FLAGS_check_nan_inf
+    nan_dump_dir: str | None = None        # dump-all-scope dir on nan trip
+    dump_fields_path: str | None = None    # DumpField per-instance stream
+    # extra per-instance dump columns beyond (step, pred, label):
+    # "ins_id", any float slot name, or any sparse slot name (ids joined
+    # by ","). dump_param names dense-param path substrings; matched
+    # leaves are written to the stream at the end of each pass.
+    dump_fields: tuple = ()
+    dump_param: tuple = ()
 
 
 class _PackError:
@@ -104,8 +137,12 @@ class Trainer:
         model.init(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
-        self.dense_opt = optimizers.make(self.cfg.dense_optimizer,
-                                         self.cfg.dense_lr, self.params)
+        self.dense_opt = optimizers.make(
+            self.cfg.dense_optimizer, self.cfg.dense_lr, self.params,
+            **self.cfg.dense_optimizer_kwargs)
+        # the model-extras protocol: a host-side pack stage whose arrays
+        # the step passes to the model after the standard arguments
+        self._extras_fn = getattr(model, "batch_extras", None)
         self.pull_engine = self._select_pull_engine()
         # host push plans (block or dedup plan, built on the pack thread):
         # on the card while the binned engine is enabled, and wherever a
@@ -225,29 +262,36 @@ class Trainer:
 
     def pack_arrays(self, ws: PassWorkingSet, idx: np.ndarray,
                     mask: np.ndarray, dense: np.ndarray,
-                    labels: np.ndarray, with_plan: bool = True) -> tuple:
-        """Host tensors for one step: (idx, mask, dense, labels, plan);
-        plan is host_plan's (None without ``with_plan``: eval never
-        pushes). Pinned when the step runs on the card, so the copy can
-        overlap compute."""
+                    labels: np.ndarray, with_plan: bool = True,
+                    extras: tuple = ()) -> tuple:
+        """Host tensors for one step: (idx, mask, dense, labels, plan,
+        extras); plan is host_plan's (None without ``with_plan``: eval
+        never pushes), extras the model's batch_extras arrays (a tuple,
+        empty for most models). Pinned when the step runs on the card,
+        so the copy can overlap compute."""
         arrays = (np.ascontiguousarray(idx, np.int32),
                   np.ascontiguousarray(mask, bool),
                   np.ascontiguousarray(dense, np.float32),
                   np.ascontiguousarray(labels, np.float32))
         host = [torch.from_numpy(a) for a in arrays]
+        ext = [torch.from_numpy(np.ascontiguousarray(a)) for a in extras]
         plan = sharded.map_plan(
             self.host_plan(ws, idx) if with_plan else None,
             torch.from_numpy)
         if self.device.type == "cuda":
             host = [t.pin_memory() for t in host]
+            ext = [t.pin_memory() for t in ext]
             plan = sharded.map_plan(plan, torch.Tensor.pin_memory)
-        return (*host, plan)
+        return (*host, plan, tuple(ext))
 
     def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch,
                    with_plan: bool = True) -> tuple:
         idx = ws.translate(pb.ids, pb.mask)
         labels, dense = self.split_floats(pb.floats)
-        return self.pack_arrays(ws, idx, pb.mask, dense, labels, with_plan)
+        extras = (self._extras_fn(pb, 1) if self._extras_fn is not None
+                  else ())
+        return self.pack_arrays(ws, idx, pb.mask, dense, labels, with_plan,
+                                extras)
 
     def stage(self, host: tuple) -> tuple:
         """Host tensors from pack_arrays → the step's device tensors."""
@@ -256,8 +300,9 @@ class Trainer:
         def put(t):
             return t.to(dev, non_blocking=True)
 
-        *arrays, plan = host
-        return (*(put(t) for t in arrays), sharded.map_plan(plan, put))
+        *arrays, plan, extras = host
+        return (*(put(t) for t in arrays), sharded.map_plan(plan, put),
+                tuple(put(t) for t in extras))
 
     def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int,
                    test_mode: bool = False):
@@ -338,7 +383,7 @@ class Trainer:
 
     def train_step(self, table: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor, dense: torch.Tensor,
-                   labels: torch.Tensor, plan=None
+                   labels: torch.Tensor, plan=None, extras: tuple = ()
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """One training step on device tensors. Updates ``table`` and the
         dense params in place; returns (loss, preds) without a host
@@ -349,9 +394,15 @@ class Trainer:
         B = idx.shape[0]
         fused = self.pull_engine == "fused_gather_pool"
         pulled, model_in = self._pull(table, idx, requires_grad=True)
-        logits = self.model(model_in, mask, dense, lay.segment_ids, S)
+        logits = self.model(model_in, mask, dense, lay.segment_ids, S,
+                            *extras)
         loss = F.binary_cross_entropy_with_logits(logits, labels)
-        *gp, gpulled = torch.autograd.grad(loss, [*self.params, pulled])
+        # a parameter the loss does not reach (MMoE's other task heads)
+        # gets a zero gradient, as jax.grad gives it
+        *gp, gpulled = torch.autograd.grad(loss, [*self.params, pulled],
+                                           allow_unused=True)
+        gp = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(self.params, gp)]
         # only the (w, embedx) columns train; show/clk are counters
         if fused:
             sgrad = sharded.pooled_grad_tokens(gpulled, mask, self._seg, S)
@@ -367,14 +418,15 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, table: torch.Tensor, idx: torch.Tensor,
-                  mask: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, dense: torch.Tensor,
+                  extras: tuple = ()) -> torch.Tensor:
         """Predictions of one batch (the JAX eval step, trainer.py:894):
         the training step's pull and the model's forward; nothing is
         pushed or updated."""
         lay = self.layout
         _, model_in = self._pull(table, idx)
         logits = self.model(model_in, mask, dense, lay.segment_ids,
-                            lay.num_slots)
+                            lay.num_slots, *extras)
         return torch.sigmoid(logits)
 
     # ------------------------------------------------------------------
@@ -408,6 +460,12 @@ class Trainer:
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
         skip = int(skip_steps)
+        # DumpField stream: the previous batch's (step, preds, labels) is
+        # written each iteration, once the step after it is queued, and
+        # the writer thread formats and writes
+        dump_stream = (DumpStream(cfg.dump_fields_path, mode="a")
+                       if cfg.dump_fields_path else None)
+        dump_pending: tuple | None = None
         fm.pass_opened()
         try:
             if preload_keys is not None:
@@ -419,10 +477,18 @@ class Trainer:
                     skip -= 1
                     continue
                 loss, preds = self.train_step(ws.table, *staged)
-                auc.update(preds, staged[3])
+                labels = staged[3]
+                auc.update(preds, labels)
                 if metrics is not None:
-                    metrics.add_batch(preds, staged[3], cmatch=pb.cmatch,
+                    metrics.add_batch(preds, labels, cmatch=pb.cmatch,
                                       rank=pb.rank)
+                if dump_stream is not None:
+                    if dump_pending is not None:
+                        dump_stream.write_fields(*dump_pending)
+                    dump_pending = (self.global_step, preds, labels,
+                                    self._dump_extra_fields(pb))
+                if cfg.check_nan_inf or flags.check_nan_inf:
+                    self._nan_guard(loss, preds, labels)
                 losses.append(loss)
                 self.global_step += 1
             if self.device.type == "cuda":
@@ -432,6 +498,18 @@ class Trainer:
             step_seconds = time.perf_counter() - t_loop
         finally:
             fm.pass_closed()
+            if dump_stream is not None:
+                # flush the tail batch even when the pass raised (a nan
+                # trip must keep its debug stream); a dump failure is
+                # reported but never masks the training exception
+                try:
+                    if dump_pending is not None:
+                        dump_stream.write_fields(*dump_pending)
+                    if cfg.dump_param:
+                        self._dump_params(dump_stream)
+                    dump_stream.close()
+                except Exception as e:
+                    warnings.warn(f"dump stream failed: {e}")
         fm.end_pass(ws, ws.table)
         lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
               if losses else np.zeros(0))
@@ -443,6 +521,64 @@ class Trainer:
         out["step_seconds"] = step_seconds
         out["seconds"] = time.perf_counter() - t0
         return out
+
+    @staticmethod
+    def _read_loss(loss: torch.Tensor) -> float:
+        """The non-finite guard's read-back of a step's loss: the one
+        host sync a step makes with the guard on."""
+        return loss.item()
+
+    def _nan_guard(self, loss: torch.Tensor, preds: torch.Tensor,
+                   labels: torch.Tensor) -> None:
+        """FLAGS_check_nan_inf's trip: on a nan/inf loss, find the
+        offending leaves of {params, loss, preds, labels} (the params
+        after this step's update), dump them to ``nan_dump_dir`` when set,
+        and raise FloatingPointError naming the step and the leaves."""
+        if np.isfinite(self._read_loss(loss)):
+            return
+        scope = {"params": self.eval_params(), "loss": loss,
+                 "preds": preds, "labels": labels}
+        bad = find_nonfinite(scope)
+        dumped = None
+        if self.cfg.nan_dump_dir:
+            dumped = dump_tree(f"{self.cfg.nan_dump_dir}/nan_step"
+                               f"{self.global_step}", scope)
+        raise FloatingPointError(
+            f"nan/inf loss at step {self.global_step}; non-finite leaves: "
+            f"{bad[:8]}" + (f" (scope dumped to {dumped})" if dumped else ""))
+
+    def _dump_extra_fields(self, pb: PackedBatch) -> dict:
+        """Per-instance extra dump columns (``dump_fields``): ins_id,
+        float slots, sparse slot ids."""
+        extra: dict[str, Any] = {}
+        sparse_names = {s.name for s in self.schema.sparse_slots}
+        float_names = {s.name for s in self.schema.float_slots}
+        for f in self.cfg.dump_fields:
+            if f in ("pred", "label"):
+                continue                    # always in the base columns
+            if f == "ins_id":
+                extra["ins_id"] = (pb.ins_id if pb.ins_id is not None
+                                   else np.zeros(len(pb.floats), np.uint64))
+            elif f in float_names:
+                vals = pb.float_slot(f).reshape(len(pb.floats), -1)
+                # every value of a multi-value float slot (comma-joined)
+                extra[f] = vals[:, 0] if vals.shape[1] == 1 else vals
+            elif f in sparse_names:
+                # the (ids, mask) pair: the writer thread joins the ids
+                extra[f] = pb.slot_ids(f)
+            else:
+                raise KeyError(f"unknown dump field {f!r}")
+        return extra
+
+    def _dump_params(self, dump_stream: DumpStream) -> None:
+        """DumpParam: the dense params whose path contains one of
+        ``dump_param``, one ``param <path> v,v,...`` line each."""
+        for name, leaf in flatten_tree(self.eval_params()):
+            if not any(pat in name for pat in self.cfg.dump_param):
+                continue
+            vals = np.asarray(leaf).reshape(-1)
+            dump_stream.write(
+                f"param {name} " + ",".join(f"{v:.6g}" for v in vals))
 
     def preload_pass(self, keys: np.ndarray) -> None:
         """BeginFeedPass: stage the next pass's working set (key diff,
@@ -471,8 +607,8 @@ class Trainer:
         steps = examples = 0
         t_loop = time.perf_counter()
         for pb, staged in self._pack_iter(dataset, ws, bs, test_mode=True):
-            idx, mask, dense, labels, _ = staged
-            preds = self.eval_step(ws.table, idx, mask, dense)
+            idx, mask, dense, labels, _, extras = staged
+            preds = self.eval_step(ws.table, idx, mask, dense, extras)
             auc.update(preds, labels, mask=rows < pb.num)
             steps += 1
             examples += pb.num
@@ -506,7 +642,7 @@ class Trainer:
     def eval_params(self) -> dict:
         """The dense params as a NumPy tree in the JAX layout (for
         FleetUtil models and serving)."""
-        return weights.deepfm_params(self.model)
+        return weights.model_params(self.model)
 
     def dense_state(self) -> dict:
         """{"params", "opt_state"} as NumPy trees in the JAX layout: what

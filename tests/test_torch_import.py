@@ -45,6 +45,17 @@ import paddlebox_tpu_torch.data.archive, paddlebox_tpu_torch.data.channel
 import paddlebox_tpu_torch.data.data_generator
 import paddlebox_tpu_torch.data.queue_dataset, paddlebox_tpu_torch.train.heter
 import paddlebox_tpu_torch.native.slot_parser, paddlebox_tpu_torch.utils.hashing
+import paddlebox_tpu_torch.models.base, paddlebox_tpu_torch.models.dnn_ctr
+import paddlebox_tpu_torch.models.wide_deep, paddlebox_tpu_torch.models.dcn
+import paddlebox_tpu_torch.models.dlrm, paddlebox_tpu_torch.models.mmoe
+import paddlebox_tpu_torch.models.pv_rank, paddlebox_tpu_torch.ops.batch_fc
+import paddlebox_tpu_torch.ops.rank_attention
+import paddlebox_tpu_torch.ops.cross_norm
+import paddlebox_tpu_torch.ops.extended, paddlebox_tpu_torch.ops.fused_concat
+import paddlebox_tpu_torch.ops.share_embedding
+import paddlebox_tpu_torch.train.optimizers, paddlebox_tpu_torch.utils.profiler
+from paddlebox_tpu_torch.models import MODEL_REGISTRY
+assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
 
 # the native parser parses, and a data generator runs as a pipe command
 import os, tempfile

@@ -598,3 +598,43 @@ def test_gather_pool_kernel_at_group_boundaries(card, P, L, name):
     pads = kernels.gather_pool(t, torch.zeros_like(i), cfg, S, L, **kw)
     torch.cuda.synchronize()
     assert bool((pads == 0).all()) and not bool(torch.signbit(pads).any())
+
+
+@pytest.mark.parametrize("name", ["none", "need_filter_per_slot",
+                                  "embed_threshold", "quant_ratio"])
+@pytest.mark.parametrize("B,L,P", [(8, 1, 11), (33, 4, 35), (16, 3, 64),
+                                   (16, 2, 65), (8, 4, 129), (4, 2, 513)])
+def test_fused_gather_seqpool_cvm_matches_plain(card, B, L, P, name):
+    """fused_gather_seqpool_cvm on the card (the gather_pool kernel
+    forward, the plain backward) against the same op on CPU copies (the
+    plain gather_pool): features rtol 1e-6 / atol 1e-6, the table
+    gradient rtol 1e-5 / atol 1e-6 (the card's index_add_ sums duplicate
+    rows in another order); one kernel launch a forward."""
+    from paddlebox_tpu_torch.ops.seqpool_cvm import fused_gather_seqpool_cvm
+    S, n = 3, 200
+    cfg = EmbeddingConfig(dim=P - 3, optimizer="adagrad")
+    rng = np.random.default_rng(B * P + L)
+    table = rng.normal(size=(n, cfg.row_width)).astype(np.float32)
+    table[:, 0] = rng.integers(0, 20, size=n)
+    table[:, 1] = rng.integers(0, 5, size=n)
+    table[0] = 0.0
+    mask = rng.random((B, S * L)) < 0.75
+    idx = rng.integers(1, 40, (B, S * L)).astype(np.int32)   # duplicates
+    seg = np.repeat(np.arange(S), L)
+    cot = rng.normal(size=(B, S * P)).astype(np.float32)
+    kw = _FILTERS[name]
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        t = torch.from_numpy(table).to(dev).requires_grad_()
+        n0 = kernels.gather_pool.launches
+        out = fused_gather_seqpool_cvm(
+            t, torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev),
+            seg, S, cfg, **kw)
+        (g,) = torch.autograd.grad((out * torch.from_numpy(cot).to(dev))
+                                   .sum(), [t])
+        launched = kernels.gather_pool.launches - n0
+        assert launched == (1 if dev.type == "cuda" else 0)
+        outs.append((out.detach().cpu(), g.cpu()))
+    (out, g), (want, gwant) = outs
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g, gwant, rtol=1e-5, atol=1e-6)
