@@ -91,7 +91,35 @@ Phases, each of which exits non-zero on failure:
    multi-hot step's shapes against the unfused plain path, forward and
    table gradient, one gather_pool launch each; and check_nan_inf
    raising FloatingPointError at the step after a NaN is put into a
-   dense parameter.
+   dense parameter;
+11. the serving half and the phased loop, DeepFM at full width: (a) on
+   the one-hot layout three passes through BoxPS.end_pass(trainer=,
+   publisher=ServingPublisher(quant int8, publish_base_every 2,
+   hot_top_k 1024)), save_inference_model of pass 2's state and
+   Predictor.load on the card (its parameters and inputs must be on
+   cuda) scoring a batch within MLP_TOL of the CPU Predictor, a
+   ServingServer on the card whose first poll_once loads v1 (base) and
+   v2 (delta) with health "ok" and served scores tracking the export's
+   (Pearson > 0.98), then v3 (base); Predictor.predict at a batch split
+   into host lookup, H2D and device forward; (b) 64 lone requests one
+   after another (light load: one-row batches), then a BatchingFrontend(
+   max_batch 1024, max_wait_s 0.002) fed single examples by 4 client
+   threads (at least 16,384 requests) while pass 4's end_pass publishes
+   a delta and poll_once swaps it in: 0 failures, the run ends on the
+   new version; then a corrupted v5 is skipped with its CRC diagnosis
+   (health "degraded") while v4 keeps serving the same scores; (c) a
+   multi-hot export of a 2^20-key table scored on the card and on the
+   CPU; (d) a PhasedTrainer (join DeepFM with CVM, update DeepFM
+   without) for 3 one-hot passes driven by box.flip_phase(), the flip
+   reusing the resident working set (0 fresh rows), and at a narrow
+   width on the card and on the CPU (LOSS_TOL, TABLE_TOL); (e) an
+   AucRunner (baseline + 26 slot ablations) over a 4-batch multi-hot
+   eval set, and at a narrow width on the card and on the CPU (AUCs
+   within 1e-3). Every training pass and the AucRunner's run is counted
+   between a reset just before and a read just after (16 a one-hot pass
+   for binned_merge_acc and merge_update, 4 for the 4-step multi-hot
+   pass's pair, gather_pool once an eval batch: 27 x 4); the kernels
+   line carries the phase's sums as phase11_launches.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -2038,6 +2066,521 @@ def zoo_phase(torch, kernels, card) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving half and the phased loop
+# ---------------------------------------------------------------------------
+
+def request_arrays(tr, pb):
+    """A packed batch as a serving request: (ids uint64, mask, dense)."""
+    _, dense = tr.split_floats(pb.floats)
+    return pb.ids.astype(np.uint64), pb.mask, dense
+
+
+def count_pass(kernels, label, fn, want: dict):
+    """Run ``fn`` with every count reset just before and read just
+    after; the counts must be ``want`` (0 for a kernel it omits)."""
+    reset_counts(kernels)
+    out = fn()
+    launches = launch_counts(kernels)
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"{label}: {k} launched {n} times, "
+              f"expected {want.get(k, 0)}")
+    return out, launches
+
+
+def add_counts(total: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def predict_split(torch, pred, ids, mask, dense) -> dict:
+    """Predictor.predict at one batch split into its parts: the host
+    lookup, the one H2D copy (host clock, synchronised), the device
+    forward (CUDA events) and the whole call (host clock, D2H
+    included). Medians of 5 / means of 20."""
+    clock = time.perf_counter
+    looks, h2ds, wholes = [], [], []
+    for _ in range(5):
+        t0 = clock()
+        pulled = pred.table.lookup(ids, mask)
+        t1 = clock()
+        staged = pred.stage(pulled, mask, dense)
+        torch.cuda.synchronize()
+        t2 = clock()
+        pred.predict(ids, mask, dense)
+        t3 = clock()
+        looks.append(t1 - t0)
+        h2ds.append(t2 - t1)
+        wholes.append(t3 - t2)
+    check(all(t.is_cuda for t in staged), "predictor inputs not on cuda")
+    fwd = time_ms(functools.partial(pred.forward, *staged), iters=20)
+    return dict(lookup_ms=float(np.median(looks)) * 1e3,
+                h2d_ms=float(np.median(h2ds)) * 1e3, forward_ms=fwd,
+                predict_ms=float(np.median(wholes)) * 1e3,
+                h2d_mb=sum(t.numel() * t.element_size()
+                           for t in staged) / 1e6)
+
+
+def frontend_load(torch, srv, tr, box, ds, pub, card) -> dict:
+    """(b): a BatchingFrontend(max_batch=1024, max_wait_s=0.002) fed by 4
+    client threads (each at most 256 requests in flight) with single
+    examples. Once a quarter of the requests are in, pass 4's end_pass
+    publishes a delta and poll_once swaps it in under the traffic; each
+    client then goes on until it has sent 4096 and 256 more after the
+    swap. Before the load, a light-load probe: 64 lone requests one after
+    another through a frontend of their own (each scored as a one-row
+    batch)."""
+    import threading
+    from collections import deque
+    from paddlebox_tpu_torch.serving import BatchingFrontend
+    it = ds.batches(B)
+    reqs = [request_arrays(tr, next(it)) for _ in range(4)]
+    light = BatchingFrontend(srv, max_batch=1024, max_wait_s=0.002).start()
+    ids0, mask0, dense0 = reqs[0]
+    light.score(ids0[0], mask0[0], dense0[0])  # first call outside timing
+    lone = []
+    for i in range(1, 65):
+        t = time.perf_counter()
+        p = light.score(ids0[i], mask0[i], dense0[i])
+        lone.append((time.perf_counter() - t) * 1e3)
+        check(np.isfinite(p), f"light load: non-finite score {p}")
+    light.stop()
+    lone_st = light.stats()
+    check(lone_st["failures"] == 0 and lone_st.get("mean_batch") == 1.0,
+          f"light load: {lone_st}")
+    lone_p50 = float(np.median(lone))
+    fe = BatchingFrontend(srv, max_batch=1024, max_wait_s=0.002).start()
+    fe.score(*(a[0] for a in reqs[0]))         # first call outside timing
+    swapped = threading.Event()
+    sent = [0] * 4
+    errors, bad = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        ids, mask, dense = reqs[c]
+        pending, i, after = deque(), 0, 0
+        deadline = time.time() + 300
+        try:
+            while sent[c] < 4096 or after < 256:
+                check(time.time() < deadline, "frontend client timed out")
+                pending.append(fe.submit(ids[i], mask[i], dense[i]))
+                sent[c] += 1
+                after += swapped.is_set()
+                i = (i + 1) % B
+                if len(pending) >= 256:
+                    p = pending.popleft().result(timeout=60)
+                    if not np.isfinite(p):
+                        with lock:
+                            bad.append(p)
+            for f in pending:
+                if not np.isfinite(f.result(timeout=60)):
+                    with lock:
+                        bad.append(f)
+        except Exception as e:   # reported below
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while sum(sent) < 4096 and any(t.is_alive() for t in threads):
+        time.sleep(0.005)
+    v_before = srv.active.version
+    end = box.end_pass(trainer=tr, publisher=pub)      # pass 4: a delta
+    info = end["publish"]
+    check("error" not in info, f"mid-traffic publish failed: {info}")
+    check(info["kind"] == "delta", f"mid-traffic publish is {info['kind']}")
+    check(srv.poll_once() == 1, "mid-traffic poll_once applied nothing")
+    swapped.set()
+    h = srv.health()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    fe.stop()
+    st = fe.stats()
+    n = sum(sent)
+    check(not errors, f"frontend clients failed: {errors[:3]}")
+    check(not bad, f"non-finite scores: {bad[:3]}")
+    check(st["failures"] == 0 and st["count"] == n + 1,
+          f"frontend: {st}, {n} requests sent")
+    check(srv.health()["request_failures"] == 0, "server request failures")
+    check(srv.active.version == info["version"] == v_before + 1,
+          f"the run ended on v{srv.active.version}, published "
+          f"v{info['version']}")
+    check(n >= 16384, f"only {n} requests")
+    print(f"  (b) light load ({card}): 64 lone requests one after another, "
+          f"p50 {lone_p50:.3f} ms max {max(lone):.3f} ms (one-row batches)")
+    print(f"  (b) frontend ({card}): {n} single-example requests from 4 "
+          f"clients, {wall:.3f} s, {n / wall:.1f} served examples/s | "
+          f"p50 {st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms max "
+          f"{st['max_ms']:.3f} ms | {st['batches']} batches, mean "
+          f"{st['mean_batch']} | failures {st['failures']} | mid-traffic "
+          f"delta v{info['version']}: publish {info['seconds']:.3f} s "
+          f"{info['bytes']} bytes ({info['keys']} keys), build "
+          f"{h['last_build_seconds']:.4f} s, swap pause "
+          f"{h['last_swap_pause_ms']:.3f} ms, run ended on "
+          f"v{srv.active.version}")
+    return dict(requests=n, seconds=wall, examples_per_s=n / wall,
+                p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
+                lone_p50_ms=lone_p50,
+                delta_publish_s=info["seconds"],
+                delta_bytes=info["bytes"],
+                delta_build_s=h["last_build_seconds"],
+                swap_pause_ms=h["last_swap_pause_ms"])
+
+
+def serve_onehot(torch, kernels, card, total: dict) -> dict:
+    """(a) and (b) on the one-hot headline."""
+    import warnings
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.inference import (Predictor,
+                                               save_inference_model)
+    from paddlebox_tpu_torch.serving import ServingPublisher, ServingServer
+    lay = ONEHOT
+    keys, rng = draw_keys(lay.n_keys)
+    store, schema, tr = make_trainer(torch, lay, B, None)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
+    box = BoxPS(store)
+    want = {k: lay.steps for k in lay.kernels}
+    numbers: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        root = os.path.join(d, "serve")
+        pub = ServingPublisher(root, tr.model, schema, quant="int8",
+                               publish_base_every=2, hot_top_k=1024)
+        infos = []
+        for p in range(3):
+            box.begin_pass()
+            out, launches = count_pass(
+                kernels, f"(a) pass {p + 1}",
+                functools.partial(tr.train_pass, ds), want)
+            add_counts(total, launches)
+            check(out["steps"] == lay.steps and np.isfinite(
+                out["loss_mean"]), f"(a) pass {p + 1}: {out}")
+            end = box.end_pass(trainer=tr, publisher=pub)
+            info = end["publish"]
+            check("error" not in info, f"publish failed: {info}")
+            infos.append(info)
+            print(f"  (a) pass {p + 1} ({card}): loss {out['loss_mean']:.6f}"
+                  f" auc {out['auc']:.6f} | launches {launches} | publish "
+                  f"v{info['version']} {info['kind']} {info['seconds']:.3f} "
+                  f"s, {info['bytes']} bytes, {info['keys']} keys")
+            if p == 1:
+                # the export of pass 2's state, and the server loading
+                # v1 (base) then v2 (delta) in one poll
+                exp = os.path.join(d, "export")
+                t0 = time.perf_counter()
+                save_inference_model(exp, tr.model, tr.eval_params(),
+                                     store, schema)
+                t_exp = time.perf_counter() - t0
+                pred = Predictor.load(exp)
+                check(all(q.is_cuda for q in pred.model.parameters()),
+                      "Predictor params are not on cuda")
+                pb = next(ds.batches(B))
+                ids, mask, dense = request_arrays(tr, pb)
+                p_card = pred.predict(ids, mask, dense)
+                p_cpu = Predictor.load(exp, device="cpu").predict(
+                    ids, mask, dense)
+                assert_close(f"  (a) Predictor card vs CPU, {B} one-hot",
+                             torch.from_numpy(p_card),
+                             torch.from_numpy(p_cpu), MLP_TOL)
+                srv = ServingServer(root)
+                t0 = time.perf_counter()
+                check(srv.poll_once() == 2, "poll_once did not apply v1+v2")
+                t_poll = time.perf_counter() - t0
+                h = srv.health()
+                check(h["status"] == "ok" and h["active_version"] == 2,
+                      f"server health {h}")
+                check(srv.active.predictor.device.type == "cuda",
+                      "the server does not score on cuda")
+                served = srv.predict(ids, mask, dense)
+                r = float(np.corrcoef(served, p_card)[0, 1])
+                check(r > 0.98, f"served vs export Pearson {r:.4f}")
+                split = predict_split(torch, pred, ids, mask, dense)
+                print(f"  (a) export {t_exp:.3f} s | server poll (v1 base "
+                      f"+ v2 delta) {t_poll:.3f} s, build of v2 "
+                      f"{h['last_build_seconds']:.4f} s | served vs "
+                      f"export Pearson {r:.6f} | status {h['status']}")
+                print(f"  (a) Predictor.predict at {B} one-hot ({card}): "
+                      f"{split['predict_ms']:.3f} ms = host lookup "
+                      f"{split['lookup_ms']:.3f} + H2D {split['h2d_ms']:.3f}"
+                      f" ({split['h2d_mb']:.1f} MB) + device forward "
+                      f"{split['forward_ms']:.4f} ms + D2H/overhead")
+                numbers.update(export_s=t_exp, poll_s=t_poll,
+                               pearson=r, predict_split_onehot=split)
+            if p == 2:
+                check(srv.poll_once() == 1, "the v3 base did not load")
+                print(f"  (a) v3 base loaded: build "
+                      f"{srv.health()['last_build_seconds']:.4f} s, swap "
+                      f"pause {srv.health()['last_swap_pause_ms']:.3f} ms")
+        numbers.update(base_publish_s=infos[0]["seconds"],
+                       base_bytes=infos[0]["bytes"],
+                       delta_publish_s_a=infos[1]["seconds"],
+                       delta_bytes_a=infos[1]["bytes"])
+        # (b) pass 4 trains, then its publish lands mid-traffic
+        box.begin_pass()
+        out, launches = count_pass(kernels, "(b) pass 4",
+                                   functools.partial(tr.train_pass, ds),
+                                   want)
+        add_counts(total, launches)
+        numbers.update(frontend_load(torch, srv, tr, box, ds, pub, card))
+        # a corrupted fifth version: skipped with its CRC diagnosis while
+        # the last good version keeps serving
+        pb = next(ds.batches(B))
+        ids, mask, dense = request_arrays(tr, pb)
+        before = srv.predict(ids, mask, dense)
+        good = srv.active.version
+        info = pub.publish(store, tr.eval_params(), pass_id=5)
+        with open(os.path.join(info["path"], "sparse.npz"), "r+b") as f:
+            f.seek(4096)
+            f.write(b"\xde\xad\xbe\xef")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            applied = srv.poll_once()
+        h = srv.health()
+        msgs = [str(w.message) for w in caught]
+        check(applied == 0 and h["active_version"] == good
+              and h["status"] == "degraded"
+              and info["version"] in h["skipped_versions"]
+              and any("crc32" in m for m in msgs),
+              f"corrupt v{info['version']}: applied {applied}, health {h}, "
+              f"warnings {msgs}")
+        check(np.array_equal(srv.predict(ids, mask, dense), before),
+              "the last good version's scores changed")
+        print(f"  (a) corrupt v{info['version']} skipped: "
+              f"{h['last_error'][:160]} | status {h['status']}, still "
+              f"serving v{h['active_version']}")
+    del tr, store, srv, pred
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def phased_check(torch, kernels, card, ds, total: dict) -> dict:
+    """(d) PhasedTrainer on the one-hot layout at full width: a join
+    DeepFM (use_cvm) and an update DeepFM (no CVM columns) over one
+    store, 3 passes (join, update, join) driven by box.flip_phase(),
+    counts reset just before and read just after each pass."""
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.fleet.boxps import JOIN_PHASE, UPDATE_PHASE
+    from paddlebox_tpu_torch.models import DeepFMModel
+    from paddlebox_tpu_torch.train import PhasedTrainer, TrainerConfig
+    lay = ONEHOT
+    store = HostEmbeddingStore(EmbeddingConfig(
+        dim=lay.dim, optimizer="adagrad", learning_rate=0.05))
+    cfg = TrainerConfig(global_batch_size=B, auc_buckets=1 << 16)
+    pt = PhasedTrainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN),
+                       DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN,
+                                   use_cvm=False),
+                       store, ds.schema, cfg, cfg, seed=SEED)
+    box = BoxPS(store)
+    box.init_metric("auc_join", phase=JOIN_PHASE)
+    want = {k: lay.steps for k in lay.kernels}
+    outs = []
+    for p in range(3):
+        box.begin_pass()
+        out, launches = count_pass(
+            kernels, f"(d) phased pass {p + 1}",
+            functools.partial(pt.train_pass, ds, box=box), want)
+        add_counts(total, launches)
+        box.end_pass()
+        m = pt.join.feed_mgr
+        print(f"  (d) pass {p + 1}, phase {out['phase']} ({card}): loss "
+              f"{out['loss_mean']:.6f} auc {out['auc']:.6f} | "
+              f"{out['steps'] * B / out['step_seconds']:.1f} examples/s | "
+              f"fresh rows {m.last_fresh_rows} reused {m.last_reused_rows}"
+              f" | launches {launches}")
+        check(np.isfinite(out["loss_mean"]) and out["steps"] == lay.steps,
+              f"(d) pass {p + 1}: {out}")
+        if p == 1:
+            check(out["phase"] == UPDATE_PHASE and m.last_fresh_rows == 0,
+                  f"the flip rebuilt the working set: "
+                  f"{m.last_fresh_rows} fresh rows")
+        outs.append(out)
+        box.flip_phase()
+    check([o["phase"] for o in outs] == [JOIN_PHASE, UPDATE_PHASE,
+                                         JOIN_PHASE], "phase order")
+    check(box.get_metric_msg("auc_join")["size"] == 2 * lay.steps * B,
+          "the join-gated metric did not see exactly the join passes")
+    del pt, store
+    torch.cuda.empty_cache()
+    # card vs CPU at a narrow width, 2 steps a pass
+    from paddlebox_tpu_torch import weights
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    nb, n_slots = 256, 4
+    rng = np.random.default_rng(SEED + 20)
+    keys = rng.choice(1 << 40, 3000, replace=False).astype(np.uint64)
+    schema = DataFeedSchema.ctr(num_sparse=n_slots, num_float=DENSE,
+                                batch_size=nb, max_len=1)
+    records = make_records(schema, 2 * nb, keys,
+                           np.random.default_rng(SEED + 21), 1)
+    runs, start = [], None
+    for device in ("cuda", "cpu"):
+        st = HostEmbeddingStore(EmbeddingConfig(
+            dim=lay.dim, optimizer="adagrad", learning_rate=0.05))
+        c = TrainerConfig(global_batch_size=nb, auc_buckets=1 << 16)
+        ptn = PhasedTrainer(DeepFMModel(n_slots, lay.dim, DENSE,
+                                        hidden=(16, 16)),
+                            DeepFMModel(n_slots, lay.dim, DENSE,
+                                        hidden=(16, 16), use_cvm=False),
+                            st, schema, c, c, seed=SEED, device=device)
+        if start is None:
+            start = [weights.model_params(t.model)
+                     for t in (ptn.join, ptn.update)]
+        for t, params in zip((ptn.join, ptn.update), start):
+            weights.load_model_params(t.model, params)
+        dsn = SlotDataset(schema)
+        dsn.records = records
+        losses = [ptn.train_pass(dsn, phase=ph)["loss_mean"]
+                  for ph in (JOIN_PHASE, UPDATE_PHASE)]
+        ptn.flush_sparse()
+        runs.append((losses, st.peek_rows(keys)))
+    (g_loss, g_rows), (c_loss, c_rows) = runs
+    np.testing.assert_allclose(g_loss, c_loss, **LOSS_TOL)
+    np.testing.assert_allclose(g_rows, c_rows, **TABLE_TOL)
+    print(f"  (d) narrow PhasedTrainer, card vs CPU (join, update; 2 steps "
+          f"each): losses {g_loss} vs {c_loss}, rows within TABLE_TOL ok")
+    return dict(phased_losses=[o["loss_mean"] for o in outs])
+
+
+def serve_multihot_and_auc(torch, kernels, card, total: dict) -> dict:
+    """(c) the multi-hot export scored on the card and on the CPU, and (e)
+    the AucRunner over a 4-batch eval set."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.inference import (Predictor,
+                                               save_inference_model)
+    from paddlebox_tpu_torch.metrics import AucRunner
+    lay = MULTI
+    keys, rng = draw_keys(lay.n_keys)
+    store, schema, tr = make_trainer(torch, lay, B, None)
+    store.lookup_or_init(keys)                # the whole 2^20-key table
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, 4 * B, keys, rng, lay.max_len)
+    box = BoxPS(store)
+    box.begin_pass()
+    out, launches = count_pass(kernels, "(c) multi-hot pass",
+                               functools.partial(tr.train_pass, ds),
+                               {k: 4 for k in lay.kernels})
+    add_counts(total, launches)
+    box.end_pass()
+    numbers: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        exp = os.path.join(d, "export")
+        t0 = time.perf_counter()
+        save_inference_model(exp, tr.model, tr.eval_params(), store, schema)
+        t_exp = time.perf_counter() - t0
+        pred = Predictor.load(exp)
+        check(all(q.is_cuda for q in pred.model.parameters()),
+              "Predictor params are not on cuda")
+        check(len(pred.table) == lay.n_keys, f"export holds "
+              f"{len(pred.table)} keys")
+        ev = SlotDataset(schema)
+        ev.records = make_records(schema, 4 * B, keys, rng, lay.max_len)
+        pb = next(ev.batches(B))
+        ids, mask, dense = request_arrays(tr, pb)
+        p_card = pred.predict(ids, mask, dense)
+        p_cpu = Predictor.load(exp, device="cpu").predict(ids, mask, dense)
+        assert_close(f"  (c) Predictor card vs CPU, {B} multi-hot",
+                     torch.from_numpy(p_card), torch.from_numpy(p_cpu),
+                     MLP_TOL)
+        split = predict_split(torch, pred, ids, mask, dense)
+        print(f"  (c) multi-hot export {t_exp:.3f} s ({lay.n_keys} keys) | "
+              f"Predictor.predict at {B} ({card}): "
+              f"{split['predict_ms']:.3f} ms = host lookup "
+              f"{split['lookup_ms']:.3f} + H2D {split['h2d_ms']:.3f} "
+              f"({split['h2d_mb']:.1f} MB) + device forward "
+              f"{split['forward_ms']:.4f} ms + D2H/overhead")
+        numbers.update(predict_split_multihot=split)
+        del pred
+    # (e) the AUC runner: baseline + 26 ablations, one gather_pool launch
+    # per eval batch
+    runner = AucRunner(tr, seed=SEED)
+    t0 = time.perf_counter()
+    res, launches = count_pass(kernels, "(e) AucRunner",
+                               functools.partial(runner.run, ev),
+                               {"gather_pool": 27 * 4})
+    t_run = time.perf_counter() - t0
+    add_counts(total, launches)
+    drops = {k: v["auc_drop"] for k, v in res.items() if k != "__baseline__"}
+    check(len(drops) == S and all(np.isfinite(v) for v in drops.values()),
+          f"AucRunner drops {drops}")
+    top = sorted(drops.items(), key=lambda kv: -kv[1])[:3]
+    print(f"  (e) AucRunner ({card}): baseline auc "
+          f"{res['__baseline__']['auc']:.6f}, 26 ablations in {t_run:.2f} s "
+          f"| gather_pool launches {launches['gather_pool']} (27 x 4 eval "
+          f"batches) | largest drops " + ", ".join(
+              f"{k} {v:.5f}" for k, v in top))
+    numbers.update(auc_runner_s=t_run)
+    del tr, store
+    torch.cuda.empty_cache()
+    auc_runner_reference(torch)
+    return numbers
+
+
+def auc_runner_reference(torch) -> None:
+    """(e) at a narrow width: the card's and the CPU's AucRunner from the
+    same params and table give the same per-slot AUCs (within 1e-3, the
+    eval tolerance; each drop within 2e-3)."""
+    from paddlebox_tpu_torch import weights
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.metrics import AucRunner
+    nb, n_slots = 256, 4
+    rng = np.random.default_rng(SEED + 30)
+    keys = rng.choice(1 << 40, 3000, replace=False).astype(np.uint64)
+    res, start = [], None
+    for device in ("cuda", "cpu"):
+        store, schema, tr = zoo_trainer("deepfm", MULTI, nb, device,
+                                        ZOO_NARROW, num_slots=n_slots)
+        if start is None:
+            start = weights.model_params(tr.model)
+        weights.load_model_params(tr.model, start)
+        ds, ev = SlotDataset(schema), SlotDataset(schema)
+        ds.records = make_records(schema, 2 * nb, keys,
+                                  np.random.default_rng(SEED + 31), 4)
+        ev.records = make_records(schema, 2 * nb, keys,
+                                  np.random.default_rng(SEED + 32), 4)
+        tr.train_pass(ds)
+        res.append(AucRunner(tr, pool_size=2000, seed=SEED).run(ev))
+    g, c = res
+    for k in c:
+        check(abs(g[k]["auc"] - c[k]["auc"]) < 1e-3, f"AucRunner {k}: "
+              f"auc {g[k]['auc']} vs {c[k]['auc']}")
+        if k != "__baseline__":
+            check(abs(g[k]["auc_drop"] - c[k]["auc_drop"]) < 2e-3,
+                  f"AucRunner {k}: drop {g[k]['auc_drop']} vs "
+                  f"{c[k]['auc_drop']}")
+    print("  (e) narrow AucRunner, card vs CPU: " + " | ".join(
+        f"{k} {g[k]['auc_drop']:.5f} vs {c[k]['auc_drop']:.5f}"
+        for k in c if k != "__baseline__") + " ok")
+
+
+def serving_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 11. Returns the launches of every kernel over the phase's
+    training passes and evals (each counted around its own run)."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    print(f"== serving and the phased loop ({card}): DeepFM, {B} x {S} "
+          f"slots, {DENSE} dense, MLP {HIDDEN}")
+    total: dict[str, int] = {}
+    numbers = serve_onehot(torch, kernels, card, total)
+    keys, rng = draw_keys(ONEHOT.n_keys)
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=1)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, ONEHOT.steps * B, keys, rng, 1)
+    numbers.update(phased_check(torch, kernels, card, ds, total))
+    numbers.update(serve_multihot_and_auc(torch, kernels, card, total))
+    print(f"serving summary ({card}): " + json.dumps(
+        numbers, default=float, sort_keys=True))
+    print(f"launches in phase 11: {total}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2064,10 +2607,13 @@ def main() -> int:
     boundary_trainer(torch, kernels, card)
     ingest_phase(torch, kernels, card, onehot_pass)
     zoo_phase(torch, kernels, card)
+    serving = serving_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["phase11_launches"] = serving.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "phase11_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ The four hand-written Hopper kernels of the training step
 ``merge_update``) live under ``csrc/`` and are built with nvcc at first
 use into ``_build/`` (:mod:`.ops.kernels`). Persistence (``utils/``,
 ``embedding/store.py``, ``fleet/``) writes the JAX package's file
-formats, so checkpoints and models move between the two packages.
+formats, so checkpoints and models move between the two packages, and
+so does serving: an export or a published version (``inference/``,
+``serving/``) written by either package is scored by the other's.
 """
 
 __version__ = "0.1.0"

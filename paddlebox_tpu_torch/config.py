@@ -49,6 +49,18 @@ class Flags:
     # FLAGS_check_nan_inf: every step reads its loss back and raises
     # FloatingPointError on nan/inf (as TrainerConfig.check_nan_inf)
     check_nan_inf: bool = False
+    # version-split traffic: the share of live request batches the
+    # serving server routes to the CANDIDATE version (the newest one,
+    # held beside the stable one). 0.0 = every new version swaps in.
+    serving_split_fraction: float = 0.0
+    # shadow mode: score every request on both versions, serve the
+    # stable answer
+    serving_shadow: bool = False
+    # seconds of traffic a serving window covers (the latency window of
+    # stats() and the per-version records); 0 = no windowed records
+    serving_window_s: float = 30.0
+    # serving latency SLO (ms), stamped into every window record
+    serving_slo_ms: float = 50.0
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):
@@ -64,6 +76,8 @@ class Flags:
                 raw = os.environ[env_key]
                 if field.type in ("int", int):
                     f.set(field.name, int(raw))
+                elif field.type in ("float", float):
+                    f.set(field.name, float(raw))
                 elif field.type in ("bool", bool):
                     f.set(field.name, raw.lower() in ("1", "true", "yes"))
                 else:

@@ -35,8 +35,9 @@ mutation changed, so a device-resident working set re-fetches exactly
 those rows instead of rebuilding. Every ``_mutations`` bump appends one
 entry: ``shrink`` the evicted keys on pure eviction (``decay == 1.0``),
 else ``None``; ``restore`` ``None``; ``_remove`` the present keys;
-``_ingest`` the ingested keys. The reference's spill-tier hooks and
-``export_serving`` are not ported yet (ROADMAP).
+``_ingest`` the ingested keys. ``export_serving`` (:355) freezes the
+pull plane for the serving side. The reference's spill-tier hooks are
+not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -332,6 +333,18 @@ class HostEmbeddingStore:
             return evicted
 
     # ---- checkpoint (SaveBase/SaveDelta/Load) ----
+
+    def export_serving(self) -> tuple[np.ndarray, np.ndarray]:
+        """Snapshot (keys, pull values) for a serving table: the
+        inference-visible columns (show, clk, w, embedx — the pull
+        layout), after the flush hooks have moved any device-held rows
+        back. Optimizer state stays train-side (the reference's "xbox"
+        serving plane)."""
+        self._run_flush_hooks()
+        with self._lock:
+            keys = self._keys[:self._n].copy()
+            vals = self._rows[:self._n, :self.cfg.pull_width].copy()
+        return keys, vals
 
     def save_base(self, path: str, pass_id: int | None = None) -> str:
         """Full snapshot. Atomic-durable: base.npz lands via

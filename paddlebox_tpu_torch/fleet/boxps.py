@@ -17,8 +17,13 @@ policy: ``end_pass`` commits a PassCheckpointer snapshot (with the
 dataset's shuffle cursor) and/or a delta save. BoxPS owns the store, the
 metric registry and the join/update phase bit.
 
-Not ported yet (ROADMAP): publishing to the serving plane (``publisher``
-raises), multi-host pass barriers and heartbeats
+``end_pass(publisher=…, trainer=…)`` then publishes the pass's model to
+the serving plane (``serving.ServingPublisher``), after the snapshot; a
+failed publish degrades to a warning and ``{"error": ...}`` under
+``"publish"`` (serving keeps its last good version) instead of ending
+the pass loop.
+
+Not ported yet (ROADMAP): multi-host pass barriers and heartbeats
 (``attach_collectives``), and the telemetry pass scope; the spill-tier,
 replica-cache, exchange-wire and self-healing boundary hooks serve
 subsystems the port does not have yet.
@@ -27,6 +32,7 @@ subsystems the port does not have yet.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any
 
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
@@ -73,12 +79,10 @@ class BoxPS:
         ``trainer``, commit the crash-safe pass snapshot (dense +
         optimizer + sparse base/delta + metrics + cursor); ``dataset``
         adds its shuffle cursor. ``need_save_delta`` writes a delta of the
-        store into ``delta_path``. ``publisher`` (serving) is not ported
-        yet and raises."""
-        if publisher is not None:
-            raise NotImplementedError(
-                "end_pass(publisher=...): publishing to the serving plane "
-                "is not ported yet (ROADMAP, queue 1: serving)")
+        store into ``delta_path``. ``publisher`` (a ServingPublisher,
+        with ``trainer`` for the dense params) ships the pass's model to
+        the serving plane after the snapshot; a publish failure warns and
+        returns ``{"error": ...}`` under ``"publish"``."""
         if not self.in_pass:
             raise RuntimeError("end_pass without begin_pass")
         self.in_pass = False
@@ -99,6 +103,19 @@ class BoxPS:
                 raise ValueError("need_save_delta requires delta_path")
             out["delta_file"] = self.store.save_delta(
                 delta_path, pass_id=self.pass_id)
+        if publisher is not None:
+            if trainer is None:
+                raise ValueError("end_pass(publisher=...) needs trainer "
+                                 "(the dense params to publish)")
+            try:
+                out["publish"] = publisher.publish(
+                    self.store, trainer.eval_params(),
+                    pass_id=self.pass_id)
+            except Exception as e:   # noqa: BLE001 — degrade, don't die
+                out["publish"] = {"error": repr(e)}
+                warnings.warn(f"serving publish failed for pass "
+                              f"{self.pass_id} ({e!r}); serving stays on "
+                              f"its last good version")
         return out
 
     def flip_phase(self) -> None:

@@ -1,0 +1,241 @@
+"""ServingPublisher — the port of ``paddlebox_tpu/serving/publisher.py``
+(``ServingPublisher`` :56-357, ``_diff_plane`` :360).
+
+Every ``end_pass`` ships the pass's model to the serving plane as a
+versioned artifact (``serving/artifact.py``): a full base every
+``publish_base_every`` publishes, an exact key-delta otherwise, and one
+donefile line (``serving_model.donefile``, through
+``FleetUtil.append_donefile``) announces it — only after the committed
+version re-hashed clean against its manifest. A kill anywhere in the
+three windows ``serving.publish.{pre_manifest, pre_upload,
+pre_donefile}`` leaves every announced version verifiable: a torn
+publish never serves. A re-publish after a resume re-lands the lost
+version idempotently (``publish_if_behind``; the donefile append dedups
+a replayed line).
+
+Deltas diff the current pull plane against a retained copy of the last
+published one (not the store's dirty mask, which belongs to the
+PassCheckpointer). Cold rows cross quantized (int8/int16, a scale a
+row); the ``hot_top_k`` hottest keys by show count stay f32 and are
+flagged for the server's replica cache. The donefile is compacted past
+``compact_after`` entries to the newest ``keep_bases`` bases and their
+tails, pruning the dropped version directories.
+
+Remote roots (the reference stages, uploads and downloads back to
+verify) raise ``RemoteFSNotPorted`` (ROADMAP, queue 1 item 8), and the
+reference's remote-only arguments (``staging_dir``, ``verify_upload``)
+come with them. The
+reference's telemetry counters and trace links wait for the port's
+monitor (item 12); the publish-info dict carries the numbers.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Any
+
+import numpy as np
+
+from paddlebox_tpu_torch.embedding.gating import GateSpec
+from paddlebox_tpu_torch.fleet.fleet_util import FleetUtil
+from paddlebox_tpu_torch.inference import export as export_lib
+from paddlebox_tpu_torch.serving import artifact as art
+from paddlebox_tpu_torch.utils import checkpoint as ckpt_lib
+from paddlebox_tpu_torch.utils import faultpoint
+from paddlebox_tpu_torch.utils import fs as fs_lib
+
+DONEFILE = "serving_model.donefile"
+
+
+class ServingPublisher:
+    """Owns one local serving output root and a monotonic version
+    sequence continued from its donefile. Drive it per pass through
+    ``BoxPS.end_pass(publisher=…, trainer=…)`` or call :meth:`publish`."""
+
+    def __init__(self, root: str, model: Any, schema: Any, *,
+                 publish_base_every: int | None = None,
+                 quant: str = "int8", hot_top_k: int = 1024,
+                 label_slot: str = "label",
+                 compact_after: int = 256, keep_bases: int = 2,
+                 prune_artifacts: bool = True):
+        if quant not in ("f32", "int8", "int16"):
+            raise ValueError(f"quant must be f32|int8|int16, got {quant!r}")
+        if fs_lib.is_remote(root):
+            raise fs_lib.RemoteFSNotPorted(root)
+        self._fs, self.root = fs_lib.resolve(root)
+        # donefile discipline (append after commit, idempotent replay,
+        # malformed lines skipped) is FleetUtil's
+        self._fleet = FleetUtil(self.root)
+        self.model = model
+        self.schema = schema
+        self.label_slot = label_slot
+        self.publish_base_every = (8 if publish_base_every is None
+                                   else int(publish_base_every))
+        if self.publish_base_every < 1:
+            raise ValueError("publish_base_every must be >= 1")
+        self.quant = quant
+        self.hot_top_k = int(hot_top_k)
+        self.compact_after = int(compact_after)
+        self.keep_bases = max(1, int(keep_bases))
+        self.prune_artifacts = bool(prune_artifacts)
+        # the donefile is the authority across restarts: one read seeds
+        # the version and the entry count compaction tracks
+        entries = self._fleet.entries(DONEFILE)
+        self._version = int(entries[-1]["version"]) if entries else 0
+        self._entry_count = len(entries)
+        # deltas need the retained previous plane: a restarted publisher
+        # has none, so its first publish is a base
+        self._last_pub: tuple[np.ndarray, np.ndarray] | None = None
+        self._deltas_since_base = 0
+        # compaction failures are reported, never fatal (the donefile is
+        # merely longer than the policy wants)
+        self.compaction_errors = 0
+
+    def publish(self, store, dense_params, pass_id: int) -> dict:
+        """Snapshot ``store``'s pull plane and ``dense_params`` (a
+        JAX-layout tree, e.g. ``Trainer.eval_params()``) into the next
+        version, verify it, announce it. Returns {version, kind, path,
+        seconds, bytes, keys, announced}."""
+        t0 = time.perf_counter()
+        # export_serving flushes the device-held rows first
+        keys, vals = store.export_serving()
+        version = self._version + 1
+        is_base = (self._last_pub is None
+                   or self._deltas_since_base >= self.publish_base_every - 1)
+        kind = "base" if is_base else "delta"
+        name = art.version_name(version)
+        meta_kw: dict[str, Any] = {}
+        if is_base:
+            hot = np.zeros(len(keys), bool)
+            if self.hot_top_k > 0 and len(keys):
+                k = min(self.hot_top_k, len(keys))
+                # hottest by show count (pull column 0)
+                hot[np.argpartition(-vals[:, 0], k - 1)[:k]] = True
+            meta_kw.update(keys=keys, vals=vals, hot=hot, quant=self.quant,
+                           fixed_cols=int(store.cfg.fixed_cols))
+            parent = None
+        else:
+            pk, pv = self._last_pub
+            ch_keys, ch_rows, removed = _diff_plane(pk, pv, keys, vals)
+            meta_kw.update(keys=ch_keys, vals=ch_rows, removed=removed)
+            parent = self._version
+
+        target = os.path.join(self.root, name)
+        manifest = art.write_artifact(
+            target, version=version, pass_id=int(pass_id), kind=kind,
+            parent_version=parent,
+            model_meta=export_lib.model_meta(
+                self.model, self.schema,
+                vals.shape[1] if len(vals) else store.cfg.pull_width,
+                self.label_slot),
+            dense_params=dense_params, gate=GateSpec.from_cfg(store.cfg),
+            ts=int(time.time()), **meta_kw)
+        faultpoint.hit("serving.publish.pre_upload")
+        # the verification the donefile contract requires
+        ckpt_lib.verify_manifest(target)
+        faultpoint.hit("serving.publish.pre_donefile")
+        entry = {"version": version, "pass": int(pass_id), "kind": kind,
+                 "parent": parent, "path": target, "ts": int(time.time())}
+        announced = self._fleet.append_donefile(DONEFILE, entry,
+                                                dedup=("version", "path"))
+        if announced:
+            self._entry_count += 1
+        # only a new base makes entries droppable, so only a base
+        # publish tries to compact
+        if (is_base and self.compact_after > 0
+                and self._entry_count > self.compact_after):
+            try:
+                self.compact_donefile()
+            except OSError as e:
+                self.compaction_errors += 1
+                warnings.warn(f"serving donefile compaction failed: {e!r}")
+
+        self._version = version
+        self._deltas_since_base = 0 if is_base else \
+            self._deltas_since_base + 1
+        # the caller's arrays go back to the live store: keep copies
+        self._last_pub = (keys.copy(), vals.copy())
+        nbytes = sum(e["bytes"] for e in manifest["files"].values())
+        return {"version": version, "kind": kind, "path": target,
+                "seconds": time.perf_counter() - t0, "bytes": int(nbytes),
+                "keys": int(manifest["num_keys"]),
+                "announced": bool(announced)}
+
+    def latest_announced(self) -> dict | None:
+        return self._fleet.latest(DONEFILE)
+
+    def compact_donefile(self, keep_bases: int | None = None) -> int:
+        """Keep the newest ``keep_bases`` base entries and every entry
+        after the oldest kept one; drop the rest (and, with
+        ``prune_artifacts``, their version directories). A cold-starting
+        server seeks the newest loadable base and its deltas, so nothing
+        it can reach is dropped. The rewrite is FleetUtil's two-phase
+        ``.compact`` staging. Returns the entries dropped."""
+        keep_bases = (self.keep_bases if keep_bases is None
+                      else max(1, int(keep_bases)))
+        entries = self._fleet.entries(DONEFILE)
+        self._entry_count = len(entries)
+        base_idx = [i for i, e in enumerate(entries)
+                    if str(e.get("kind", "")) == "base"]
+        if len(base_idx) <= keep_bases:
+            return 0
+        cut = base_idx[-keep_bases]
+        kept, dropped = entries[cut:], entries[:cut]
+        if not dropped:
+            return 0
+        self._fleet.rewrite_donefile(DONEFILE, kept)
+        self._entry_count = len(kept)
+        if self.prune_artifacts:
+            kept_names = {art.version_name(int(e["version"]))
+                          for e in kept if "version" in e}
+            for e in dropped:
+                try:
+                    name = art.version_name(int(e["version"]))
+                except (KeyError, TypeError, ValueError):
+                    continue            # a foreign or malformed entry
+                if name in kept_names:
+                    continue
+                target = os.path.join(self.root, name)
+                # retention is hygiene: a failed prune is reported and
+                # the rest of the prune goes on
+                try:
+                    self._fs.rm(target)
+                except OSError as err:
+                    warnings.warn(f"serving artifact prune of {target} "
+                                  f"failed: {err!r}")
+        return len(dropped)
+
+    def publish_if_behind(self, store, dense_params,
+                          pass_id: int) -> dict | None:
+        """Resume catch-up: a kill between the pass snapshot and the
+        donefile append loses that pass's announcement. Called after a
+        resume with the restored pass: when the donefile is behind, the
+        current plane re-publishes (a base: a restarted publisher holds
+        no retained plane). None when serving is caught up."""
+        if pass_id < 1:
+            return None
+        last = self.latest_announced()
+        if last is not None and int(last.get("pass", -1)) >= int(pass_id):
+            return None
+        return self.publish(store, dense_params, pass_id=pass_id)
+
+
+def _diff_plane(prev_keys: np.ndarray, prev_vals: np.ndarray,
+                keys: np.ndarray, vals: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Exact key-delta between two pull planes: (changed_keys,
+    changed_rows, removed_keys). Changed = a new key, or any pull column
+    differing bitwise from the retained publish."""
+    order_p = np.argsort(prev_keys, kind="stable")
+    pk, pv = prev_keys[order_p], prev_vals[order_p]
+    pos = np.searchsorted(pk, keys)
+    pos_c = np.minimum(pos, max(len(pk) - 1, 0))
+    existed = (pk[pos_c] == keys) if len(pk) else np.zeros(len(keys), bool)
+    same = np.zeros(len(keys), bool)
+    if existed.any():
+        same[existed] = (pv[pos_c[existed]] == vals[existed]).all(axis=1)
+    changed = ~same
+    removed = pk[~np.isin(pk, keys)] if len(pk) else pk
+    return keys[changed], vals[changed], removed

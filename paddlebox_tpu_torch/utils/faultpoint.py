@@ -52,6 +52,15 @@ POINTS: tuple[str, ...] = (
     # utils/pass_ckpt.save: manifest committed — resume must land on THIS
     # snapshot.
     "pass_ckpt.post_manifest",
+    # serving/artifact.write_artifact: every member landed, the version's
+    # MANIFEST.json not yet committed — the version never happened.
+    "serving.publish.pre_manifest",
+    # serving/publisher.publish: the version directory committed, its
+    # verification not yet run.
+    "serving.publish.pre_upload",
+    # serving/publisher.publish: verified, the donefile line not yet
+    # appended — no server may see the version.
+    "serving.publish.pre_donefile",
 )
 
 

@@ -1,14 +1,17 @@
-"""The PyTorch port stands alone: it imports with jax, jaxlib, optax and
-paddlebox_tpu blocked, parses through its native parser and runs a
-MultiSlotDataGenerator pipe command (itself blocked the same way) there,
-names none of them in any import, and its entry points refuse to run on
-the CPU unless asked."""
+"""The PyTorch port stands alone: every module of it (found by walking
+the package) imports with jax, jaxlib, optax and paddlebox_tpu blocked,
+it parses through its native parser and runs a MultiSlotDataGenerator
+pipe command (itself blocked the same way) there, the serving CLI
+starts there, it names none of them in any import, and its entry points
+(Trainer, PassWorkingSet, Predictor, ServingServer, PhasedTrainer)
+refuse to run on the CPU unless asked."""
 
 import ast
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,28 +35,20 @@ sys.meta_path.insert(0, Blocker())
 """
 
 _IMPORTS = _BLOCKER + """
+import importlib, pkgutil
 import paddlebox_tpu_torch
-import paddlebox_tpu_torch.data, paddlebox_tpu_torch.embedding.sharded
-import paddlebox_tpu_torch.embedding.feed_pass
-import paddlebox_tpu_torch.fleet, paddlebox_tpu_torch.metrics
-import paddlebox_tpu_torch.models, paddlebox_tpu_torch.ops.kernels
-import paddlebox_tpu_torch.train, paddlebox_tpu_torch.weights
-import paddlebox_tpu_torch.fleet.fleet_util, paddlebox_tpu_torch.metrics.metric
-import paddlebox_tpu_torch.utils.checkpoint, paddlebox_tpu_torch.utils.fs
-import paddlebox_tpu_torch.utils.faultpoint, paddlebox_tpu_torch.utils.pass_ckpt
-import paddlebox_tpu_torch.data.archive, paddlebox_tpu_torch.data.channel
-import paddlebox_tpu_torch.data.data_generator
-import paddlebox_tpu_torch.data.queue_dataset, paddlebox_tpu_torch.train.heter
-import paddlebox_tpu_torch.native.slot_parser, paddlebox_tpu_torch.utils.hashing
-import paddlebox_tpu_torch.models.base, paddlebox_tpu_torch.models.dnn_ctr
-import paddlebox_tpu_torch.models.wide_deep, paddlebox_tpu_torch.models.dcn
-import paddlebox_tpu_torch.models.dlrm, paddlebox_tpu_torch.models.mmoe
-import paddlebox_tpu_torch.models.pv_rank, paddlebox_tpu_torch.ops.batch_fc
-import paddlebox_tpu_torch.ops.rank_attention
-import paddlebox_tpu_torch.ops.cross_norm
-import paddlebox_tpu_torch.ops.extended, paddlebox_tpu_torch.ops.fused_concat
-import paddlebox_tpu_torch.ops.share_embedding
-import paddlebox_tpu_torch.train.optimizers, paddlebox_tpu_torch.utils.profiler
+# every module of the package, found by walking it: a new module cannot
+# escape the check
+walked = [m.name for m in pkgutil.walk_packages(
+    paddlebox_tpu_torch.__path__, "paddlebox_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
+for name in ("paddlebox_tpu_torch.serving.server",
+             "paddlebox_tpu_torch.inference.predictor",
+             "paddlebox_tpu_torch.train.phased",
+             "paddlebox_tpu_torch.metrics.auc_runner",
+             "paddlebox_tpu_torch.ops.kernels"):
+    assert name in walked, (name, walked)
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
 
@@ -151,3 +146,56 @@ def test_trainer_without_device_raises_on_a_host_without_cuda():
         Trainer(DeepFMModel(2, 4, 1, hidden=(8,)), store, schema)
     with pytest.raises(RuntimeError, match="CUDA"):
         PassWorkingSet.begin_pass(store, [1, 2, 3])
+
+
+def test_serving_cli_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    script = _BLOCKER + """
+import runpy
+sys.argv = ["server", "--help"]
+try:
+    runpy.run_module("paddlebox_tpu_torch.serving.server",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [m for m in sys.modules if m.partition(".")[0] in BLOCKED]
+assert not bad, bad
+print("OK")
+"""
+    r = subprocess.run([sys.executable, "-c", script], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "--health-port" in r.stdout and r.stdout.strip().endswith("OK")
+
+
+def test_serving_entry_points_refuse_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.inference import Predictor, ServingTable
+    from paddlebox_tpu_torch.models import DNNCTRModel
+    from paddlebox_tpu_torch.serving import ServingServer
+    from paddlebox_tpu_torch.train import PhasedTrainer
+    from paddlebox_tpu_torch import weights
+    schema = DataFeedSchema.ctr(num_sparse=2, num_float=1)
+    model = DNNCTRModel(2, 4, 1, hidden=(8,))
+    params = weights.model_params(model)
+    table = ServingTable(np.zeros(0, np.uint64), np.zeros((0, 7),
+                                                          np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(model, params, table, schema)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingServer(str(tmp_path / "serve"))
+    store = HostEmbeddingStore(EmbeddingConfig(dim=4))
+    upd = DNNCTRModel(2, 4, 1, hidden=(8,), use_cvm=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PhasedTrainer(model, upd, store, schema)
+    # each runs when asked for the CPU
+    assert Predictor(model, params, table, schema,
+                     device="cpu").device.type == "cpu"
+    assert ServingServer(str(tmp_path / "serve"),
+                         device="cpu").device.type == "cpu"
+    pt = PhasedTrainer(model, upd, store, schema, device="cpu")
+    assert pt.join.device.type == pt.update.device.type == "cpu"

@@ -403,10 +403,18 @@ def test_foreign_save_forces_a_base(tmp_path):
 
 
 def test_end_pass_refuses_publisher_and_remote_resume():
+    """Publishing is ported: end_pass refuses a publisher without the
+    trainer whose dense params it publishes, and a publisher that fails
+    degrades to {"error": ...} with a warning instead of raising.
+    Multi-host resume still raises."""
     store, tr, box = _make("port", carry=False)
     box.begin_pass()
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(ValueError, match="needs trainer"):
         box.end_pass(publisher=object())
+    box.begin_pass()
+    with pytest.warns(UserWarning, match="publish failed"):
+        out = box.end_pass(publisher=object(), trainer=tr)
+    assert "error" in out["publish"]
     with pytest.raises(NotImplementedError, match="multi-host"):
         tr.resume(None, collectives=object())
 
