@@ -119,7 +119,30 @@ Phases, each of which exits non-zero on failure:
    between a reset just before and a read just after (16 a one-hot pass
    for binned_merge_acc and merge_update, 4 for the 4-step multi-hot
    pass's pair, gather_pool once an eval batch: 27 x 4); the kernels
-   line carries the phase's sums as phase11_launches.
+   line carries the phase's sums as phase11_launches;
+12. the storage tiers, DeepFM one-hot at full width, every training pass
+   counted between a reset just before and a read just after (the sums
+   are the kernels line's phase12_launches): (a) phase 5's pass with
+   int16 and with int8 device tables (QuantTable on the card) through
+   BoxPS: binned_merge_acc 16, the other kernels 0, the table's bytes
+   against f32's, loss and AUC against phase 5's, profiled device
+   ms/step, and on one step's tokens binned_merge_acc beside the plain
+   requant pass and the plain dequant at the gather; a small int8 pass
+   on the card and on the CPU whose decoded tables agree within
+   TABLE_TOL plus one quantization step; (b) three checkpointed f32
+   passes on disjoint 2^19-key windows A, B, A (Zipf ids) over
+   tiering.store_from_flags(table_tiering "spill", spill_cache_rows
+   2^16), binned_merge_acc and merge_update 16 each a pass, agreeing
+   with the same passes on a HostEmbeddingStore (TABLE_TOL, LOSS_TOL),
+   printing each pass's cache hit rate, fault-in seconds, spill file
+   bytes and boundary split with spill_fault_in; (c) the same with
+   flags.use_replica_cache: pass 3 serves fresh keys from the replica
+   and agrees with (b); (d) phase 5's pass with
+   flags.transfer_compress_embedx: the build's H2D and the flush's D2H
+   bytes equal transfer_bytes, the flushed rows are the bf16 rounding
+   of the card's, and they agree with phase 5's rows (TABLE_TOL; embedx
+   within one bf16 step more, the build having rounded the initial
+   rows).
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -759,14 +782,24 @@ def kernel_phase(torch, kernels, dev, gen) -> list[dict]:
 # phase 5: the main paths
 # ---------------------------------------------------------------------------
 
-def make_records(schema, n, keys, rng, max_len):
+def make_records(schema, n, keys, rng, max_len, zipf=None):
     """Criteo-shaped examples: the schema's slots (26 at full width) of
     1..max_len ids drawn from the key set, a 25%-positive label and 13
-    dense floats."""
+    dense floats. ``zipf``: each slot's ids a Zipf(zipf) draw over the
+    keys, its ranks scattered by a permutation of its own, in place of
+    uniform draws."""
     from paddlebox_tpu_torch.data.slot_record import SlotRecordBatch
     lens = [rng.integers(1, max_len + 1, n)
             for _ in range(len(schema.sparse_slots))]
-    vals = [rng.choice(keys, int(l.sum())).astype(np.int64) for l in lens]
+    if zipf is None:
+        vals = [rng.choice(keys, int(l.sum())).astype(np.int64)
+                for l in lens]
+    else:
+        w = 1.0 / np.arange(1, len(keys) + 1) ** zipf
+        w /= w.sum()
+        vals = [keys[rng.permutation(len(keys))[
+            rng.choice(len(keys), int(l.sum()), p=w)]].astype(np.int64)
+            for l in lens]
     offs = [np.concatenate([[0], np.cumsum(l)]).astype(np.int64)
             for l in lens]
     floats = [(rng.random(n) < 0.25).astype(np.float32)]
@@ -806,15 +839,18 @@ def check_text_parse(schema, records) -> None:
     print(f"text parse: {n} MultiSlot lines pack to identical bytes ok")
 
 
-def make_trainer(torch, lay, n_batch, device, seed=SEED):
+def make_trainer(torch, lay, n_batch, device, seed=SEED, storage="f32",
+                 store_fn=None):
+    """``store_fn(cfg)`` builds the host table (a HostEmbeddingStore by
+    default)."""
     from paddlebox_tpu_torch.data import DataFeedSchema
     from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
                                                HostEmbeddingStore)
     from paddlebox_tpu_torch.models import DeepFMModel
     from paddlebox_tpu_torch.train import Trainer, TrainerConfig
     cfg = EmbeddingConfig(dim=lay.dim, optimizer="adagrad",
-                          learning_rate=0.05)
-    store = HostEmbeddingStore(cfg)
+                          learning_rate=0.05, storage=storage)
+    store = (store_fn or HostEmbeddingStore)(cfg)
     schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
                                 batch_size=n_batch, max_len=lay.max_len)
     tr = Trainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN), store,
@@ -2581,6 +2617,372 @@ def serving_phase(torch, kernels, card) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the storage tiers
+# ---------------------------------------------------------------------------
+
+def counted_pass(kernels, tr, ds, total: dict, box=None, **end_kw):
+    """One train_pass with every count reset just before and read just
+    after, inside BoxPS.begin_pass / end_pass(trainer=tr, **end_kw) when
+    ``box`` is given; the counts add into ``total``. Returns (result,
+    launches, end_pass's dict or None)."""
+    if box is not None:
+        box.set_date(20261017)
+        box.begin_pass()
+    reset_counts(kernels)
+    out = tr.train_pass(ds)
+    launches = launch_counts(kernels)
+    add_counts(total, launches)
+    end = box.end_pass(trainer=tr, **end_kw) if box is not None else None
+    return out, launches, end
+
+
+def expect_launches(what: str, launches: dict, want: dict) -> None:
+    got = {k: launches[k] for k in SOURCES}
+    full = {k: want.get(k, 0) for k in SOURCES}
+    check(got == full, f"{what}: launches {got}, expected {full}")
+
+
+def quant_tables(torch, kernels, card, ref, total: dict) -> None:
+    """(a) One 16-step one-hot pass at int16 and at int8 through
+    BoxPS.begin_pass -> train_pass -> end_pass on phase 5's records:
+    binned_merge_acc 16, the other kernels 0; the device table's bytes
+    against the f32 table's; loss and AUC against phase 5's f32 pass;
+    device ms/step (profiler); the plain dequant-at-gather and requant
+    pass timed beside binned_merge_acc on one step's tokens."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.embedding import quant, sharded
+    from paddlebox_tpu_torch.embedding.working_set import device_width
+    from paddlebox_tpu_torch.fleet import BoxPS
+    lay = ONEHOT
+    for storage in ("int16", "int8"):
+        store, schema, tr = make_trainer(torch, lay, B, None,
+                                         storage=storage)
+        cfg = store.cfg
+        ds = SlotDataset(schema)
+        ds.records = ref["records"]
+        out, launches, _ = counted_pass(kernels, tr, ds, total,
+                                        box=BoxPS(store))
+        ws = tr.last_ws
+        engine = tr.resolved_push_engine(ws)
+        check(quant.is_quant(ws.table)
+              and ws.table.fp.device.type == "cuda"
+              and ws.table.qx.dtype == getattr(torch, storage),
+              f"{storage}: the card's table is not a {storage} QuantTable")
+        check(engine == "binned_kernel",
+              f"{storage}: the quantized one-hot push resolved {engine}, "
+              f"not binned_merge_acc")
+        check(out["steps"] == lay.steps and np.isfinite(out["loss_mean"]),
+              f"{storage}: {out['steps']} steps, loss {out['loss_mean']}")
+        expect_launches(f"{storage} pass", launches,
+                        {"binned_merge_acc": lay.steps})
+        q_bytes = (ws.table.fp.numel() * 4
+                   + ws.table.qx.numel() * ws.table.qx.element_size())
+        f32_bytes = ws.padded_rows * device_width(
+            dataclasses.replace(cfg, storage="f32")) * 4
+        it = ds.batches(B)
+        staged = [tr.stage(tr._pack_host(ws, next(it))) for _ in range(4)]
+        rows, _ = device_profile(torch, tr, staged)
+        busy = sum(r[0] for r in rows)
+        syncs = step_syncs(torch, tr, staged[0])
+        check(not syncs, f"{storage}: {len(syncs)} host syncs in a step: "
+              f"{[str(w.message)[:80] for w in syncs[:2]]}")
+        f32 = ref["out"]
+        print(f"  (a) {storage} pass ({card}): table {q_bytes} B (fp + qx) "
+              f"vs f32 {f32_bytes} B ({q_bytes / f32_bytes:.3f}) | loss "
+              f"mean {out['loss_mean']:.6f} (f32 {f32['loss_mean']:.6f}) "
+              f"auc {out['auc']:.6f} (f32 {f32['auc']:.6f}) | step loop "
+              f"{out['step_seconds'] / lay.steps * 1e3:.3f} ms, device "
+              f"busy {busy:.3f} ms/step (profiler), host syncs/step 0 | "
+              f"push {engine} | "
+              f"launches {launches}")
+        for ms, name in rows[:6]:
+            print(f"      {ms:8.4f} ms/step  {name[:90]}")
+        # one step's tokens: the binned accumulator, then the plain
+        # requant pass over the planes, and the plain dequant at gather
+        idx, mask, _, labels, plan, _ = staged[0]
+        flat = idx.reshape(-1)
+        gen = torch.Generator(device=flat.device).manual_seed(SEED)
+        grads = torch.randn((flat.numel(), cfg.grad_width),
+                            device=flat.device, generator=gen) * 0.01
+        shows = mask.reshape(-1).to(torch.float32)
+        clks = (mask * labels[:, None]).reshape(-1).to(torch.float32)
+        n_rows = ws.padded_rows
+        acc_ms = time_ms(lambda: kernels.binned_merge_acc(
+            flat, grads, shows, clks, cfg, n_rows, plan=plan))
+        acc = kernels.binned_merge_acc(flat, grads, shows, clks, cfg,
+                                       n_rows, plan=plan)
+        scratch = quant.QuantTable(ws.table.fp.clone(),
+                                   ws.table.qx.clone())
+        upd_ms = time_ms(lambda: sharded.quant_update(scratch, acc, cfg))
+        pull_ms = time_ms(lambda: sharded.lookup(ws.table, idx, cfg))
+        touched = int((acc[:, cfg.grad_width + 2] > 0).sum())
+        print(f"  (a) {storage} push parts ({card}), one step, {touched} "
+              f"touched of {n_rows} rows: binned_merge_acc {acc_ms:.4f} ms "
+              f"| requant pass (plain: dequant, update, requant, where) "
+              f"{upd_ms:.4f} ms | dequant at the gather (plain) "
+              f"{pull_ms:.4f} ms")
+        del tr, ws, staged, scratch, acc
+        torch.cuda.empty_cache()
+    quant_reference(torch)
+
+
+def quant_reference(torch) -> None:
+    """A small int8 one-hot pass on the card (binned_merge_acc, then the
+    requant pass) and on the CPU (index_add_) from the same params and
+    data: the decoded tables agree within TABLE_TOL plus one quantization
+    step of the row (the kernel's f32 atomics reorder sums, and a code
+    may round the other way)."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.embedding import quant
+    nb, steps = 256, 4
+    rng = np.random.default_rng(SEED + 1)
+    keys = rng.choice(1 << 40, 4000, replace=False).astype(np.uint64)
+    outs, rows, engines = [], [], []
+    for device in ("cuda", "cpu"):
+        store, schema, tr = make_trainer(torch, ONEHOT, nb, device,
+                                         storage="int8")
+        ds = SlotDataset(schema)
+        ds.records = make_records(schema, nb * steps, keys,
+                                  np.random.default_rng(SEED + 2), 1)
+        outs.append(tr.train_pass(ds))
+        engines.append(tr.resolved_push_engine(tr.last_ws))
+        rows.append(store.get_rows(keys[np.isin(keys, store.keys())]))
+    check(engines == ["binned_kernel", "xla_scatter"],
+          f"int8 reference: engines {engines}")
+    gpu, cpu = rows
+    cfg = store.cfg
+    step = np.zeros_like(cpu)
+    step[:, cfg.embedx_cols] = quant.encode_rows_np(cpu, cfg)[0][:, -1:]
+    err = np.abs(gpu - cpu)
+    bound = TABLE_TOL["atol"] + TABLE_TOL["rtol"] * np.abs(cpu) + step
+    check(gpu.shape == cpu.shape and bool((err <= bound).all()),
+          f"int8 card vs CPU: decoded rows differ past TABLE_TOL plus one "
+          f"quantization step (worst excess {float((err - bound).max())})")
+    print(f"  (a) int8 card ({engines[0]}) vs CPU ({engines[1]}) on "
+          f"{nb * steps} examples: loss {outs[0]['loss_mean']:.6f} vs "
+          f"{outs[1]['loss_mean']:.6f}, decoded rows within TABLE_TOL plus "
+          f"one quantization step (max abs err {float(err.max()):.3g}) ok")
+
+
+def spill_tiers(torch, kernels, card, total: dict) -> None:
+    """(b) Three checkpointed f32 one-hot passes on windows A, B, A
+    (2^19 keys each, disjoint, each slot's ids Zipf(ZIPF_A): A's rows
+    sit out pass 2 and return in pass 3) over tiering.store_from_flags with
+    table_tiering="spill" and spill_cache_rows 2^16; (c) the same with
+    flags.use_replica_cache. Each must agree within TABLE_TOL (losses
+    LOSS_TOL) with the passes on a HostEmbeddingStore; binned_merge_acc
+    and merge_update launch 16 times a pass; the replica serves pass 3's
+    fresh keys."""
+    import tempfile as _tf
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    from paddlebox_tpu_torch.embedding import tiering
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    lay, n = ONEHOT, ONEHOT.n_keys
+    cache_rows = n // 8                  # 2^16 slots: an eighth of a window
+    windows = (key_window(0, n, n), key_window(1, n, n),
+               key_window(0, n, n))
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=1)
+    # Criteo-like skew: hot keys keep their RAM and replica slots across
+    # the pass they sit out (uniform keys would all rank alike)
+    records = [make_records(schema, lay.steps * B, w,
+                            np.random.default_rng(SEED + 40 + p), 1,
+                            zipf=ZIPF_A)
+               for p, w in enumerate(windows)]
+    print(f"== (b, c) spill tier ({card}): {n}-key windows A, B, A "
+          f"(disjoint, Zipf({ZIPF_A}) ids), spill_cache_rows {cache_rows}, "
+          f"3 checkpointed passes x "
+          f"{lay.steps} steps x {B}")
+    saved = (flags.table_tiering, flags.spill_cache_rows, flags.spill_dir,
+             flags.use_replica_cache)
+    results = {}
+    try:
+        with _tf.TemporaryDirectory() as d:
+            for name in ("host", "spill", "spill + replica"):
+                flags.table_tiering = "off" if name == "host" else "spill"
+                flags.spill_cache_rows = cache_rows
+                flags.spill_dir = os.path.join(d, name.replace(" + ", "_"))
+                flags.use_replica_cache = name == "spill + replica"
+                store, _, tr = make_trainer(torch, lay, B, None,
+                                            store_fn=tiering.store_from_flags)
+                check((tr.table_tiering == "spill") == (name != "host"),
+                      f"{name}: the trainer's table tiering is "
+                      f"{tr.table_tiering}")
+                box = BoxPS(store)
+                ckpt = (None if name == "host" else PassCheckpointer(
+                    os.path.join(d, name.replace(" + ", "_") + "_snap"),
+                    base_every=2))
+                losses = []
+                for p, rec in enumerate(records):
+                    ds = SlotDataset(schema)
+                    ds.records = rec
+                    f0 = tiering.fault_in_seconds(store)
+                    out, launches, end = counted_pass(
+                        kernels, tr, ds, total, box=box,
+                        **({} if ckpt is None else {"checkpointer": ckpt,
+                                                    "dataset": ds}))
+                    losses.append(out["loss_mean"])
+                    fm = tr.feed_mgr
+                    expect_launches(f"{name}, pass {p + 1}", launches,
+                                    {k: lay.steps for k in lay.kernels})
+                    split = fm.last_boundary_split
+                    line = (f"  ({'c' if 'replica' in name else 'b'}) {name}, "
+                            f"pass {p + 1} ({card}): boundary "
+                            f"{fm.last_boundary_seconds:.4f} s (build "
+                            f"{split['build']:.4f} h2d {split['h2d']:.4f} "
+                            f"spill_fault_in {split['spill_fault_in']:.4f})"
+                            f" | fresh {fm.last_fresh_rows} reused "
+                            f"{fm.last_reused_rows} replica hits "
+                            f"{fm.last_replica_hits} | pass "
+                            f"{out['seconds']:.3f} s, step loop "
+                            f"{out['step_seconds']:.3f} s")
+                    if name != "host":
+                        tier = end["tiering"]
+                        seen = tier["pass_hits"] + tier["pass_misses"]
+                        sv = ckpt.last_save
+                        line += (f" | cache hit rate "
+                                 f"{tier['pass_hits'] / max(seen, 1):.4f} "
+                                 f"({tier['pass_hits']}/{seen}, conflicts "
+                                 f"{tier['pass_conflicts']}) | fault-in "
+                                 f"{tiering.fault_in_seconds(store) - f0:.4f}"
+                                 f" s over the pass and its save | spill "
+                                 f"file {tier['spill_bytes']} B | save "
+                                 f"{'base' if sv['rotated'] else 'delta'} "
+                                 f"{sv['sparse_seconds']:.3f} s, flush "
+                                 f"{sv['flush_seconds']:.3f} s")
+                    print(line)
+                    if name == "spill + replica" and p == 2:
+                        check(fm.last_replica_hits > 0,
+                              "(c) pass 3 served no fresh key from the "
+                              "replica tier")
+                    if name != "spill + replica":
+                        check(fm.last_replica_hits == 0,
+                              f"{name}: replica hits without the tier")
+                tr.flush_sparse()
+                keys = np.sort(store.keys())
+                results[name] = (keys, store.get_rows(keys), losses)
+                if name != "host":
+                    print(f"  {name} totals ({card}): "
+                          f"{json.dumps(tiering.spill_stats(store))} | "
+                          f"replica refreshes "
+                          f"{getattr(tr.replica_cache, 'refreshes', 0)}")
+                del tr
+                torch.cuda.empty_cache()
+    finally:
+        (flags.table_tiering, flags.spill_cache_rows, flags.spill_dir,
+         flags.use_replica_cache) = saved
+    for name, ref in (("spill", "host"), ("spill + replica", "spill")):
+        keys, rows, losses = results[name]
+        rkeys, rrows, rlosses = results[ref]
+        check(np.array_equal(keys, rkeys),
+              f"{name}: store keys differ from {ref}'s")
+        np.testing.assert_allclose(rows, rrows, **TABLE_TOL)
+        np.testing.assert_allclose(losses, rlosses, **LOSS_TOL)
+    print(f"(b, c) spill and spill + replica agree with the host store and "
+          f"each other ({len(results['host'][0])} keys, rows within rtol "
+          f"1e-3, losses within rtol 2e-4) ok")
+
+
+def compressed_transfer(torch, kernels, card, ref, total: dict) -> None:
+    """(d) Phase 5's one-hot pass with flags.transfer_compress_embedx: the
+    H2D bytes of the build and the D2H bytes of the flush equal
+    transfer_bytes; the flushed host rows are the bf16 rounding of the
+    card's rows; against phase 5's uncompressed rows, every column but
+    embedx within TABLE_TOL and embedx within TABLE_TOL of the bf16
+    rounding plus one bf16 step (the build rounded the initial rows
+    too)."""
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.embedding.working_set import transfer_bytes
+    from paddlebox_tpu_torch.fleet import BoxPS
+    lay = ONEHOT
+    saved = flags.transfer_compress_embedx
+    flags.transfer_compress_embedx = True
+    try:
+        store, schema, tr = make_trainer(torch, lay, B, None)
+        cfg = store.cfg
+        ds = SlotDataset(schema)
+        ds.records = ref["records"]
+        out, launches, _ = counted_pass(kernels, tr, ds, total,
+                                        box=BoxPS(store))
+        fm, ws = tr.feed_mgr, tr.last_ws
+        h2d = fm.last_h2d_bytes
+        check(h2d == transfer_bytes(cfg, ws.padded_rows),
+              f"(d) H2D {h2d} B, transfer_bytes says "
+              f"{transfer_bytes(cfg, ws.padded_rows)}")
+        expect_launches("(d) pass", launches,
+                        {k: lay.steps for k in lay.kernels})
+        sel = np.flatnonzero(ws.touched[1:1 + ws.num_keys]) + 1
+        card_rows = ws.table[torch.from_numpy(sel).to(ws.table.device),
+                             :cfg.row_width].cpu()
+        t0 = time.perf_counter()
+        d2h = tr.flush_sparse()
+        flush_s = time.perf_counter() - t0
+        want_d2h = transfer_bytes(cfg, len(sel))
+    finally:
+        flags.transfer_compress_embedx = saved
+    check(d2h == want_d2h,
+          f"(d) D2H {d2h} B, transfer_bytes says {want_d2h}")
+    e = cfg.embedx_cols
+    rows = store.get_rows(ws.sorted_keys[sel - 1])
+    want = card_rows.numpy().copy()
+    want[:, e] = card_rows[:, e].to(torch.bfloat16).float().numpy()
+    check(np.array_equal(rows, want),
+          "(d) flushed rows are not the bf16 rounding of the card's rows")
+    check(np.array_equal(ws.sorted_keys, ref["keys"]),
+          "(d) the working set differs from phase 5's")
+    u = ref["rows"][sel - 1]
+    rest = np.ones(cfg.row_width, bool)
+    rest[e] = False
+    np.testing.assert_allclose(rows[:, rest], u[:, rest], **TABLE_TOL)
+    ub = torch.from_numpy(np.ascontiguousarray(u[:, e])).to(
+        torch.bfloat16).float().numpy()
+    err = np.abs(rows[:, e] - ub)
+    bound = (TABLE_TOL["atol"] + TABLE_TOL["rtol"] * np.abs(ub)
+             + np.abs(ub) * 2.0 ** -7)
+    check(bool((err <= bound).all()),
+          f"(d) embedx past the bf16 bound (worst excess "
+          f"{float((err - bound).max())})")
+    f32 = ref["out"]
+    print(f"  (d) bf16 transfer ({card}): H2D {h2d} B for {ws.padded_rows} "
+          f"rows (f32 {ws.padded_rows * cfg.row_width * 4} B) | flush D2H "
+          f"{d2h} B for {len(sel)} rows in {flush_s:.3f} s | loss mean "
+          f"{out['loss_mean']:.6f} (f32 {f32['loss_mean']:.6f}) auc "
+          f"{out['auc']:.6f} (f32 {f32['auc']:.6f}) | boundary "
+          f"{fm.last_boundary_seconds:.4f} s | rows: bf16 of the card's "
+          f"exactly, vs phase 5's embedx max abs err {float(err.max()):.3g}"
+          f" ok")
+
+
+def storage_phase(torch, kernels, card, ref) -> dict[str, int]:
+    """Phase 12. ``ref`` holds phase 5's one-hot pass (result, keys,
+    rows). Returns the launches of every kernel over the phase's training
+    passes (each counted around its own pass)."""
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    print(f"== storage tiers ({card}): DeepFM one-hot, {B} x {S} slots, "
+          f"dim {ONEHOT.dim}, {ONEHOT.n_keys} keys")
+    keys, rng = draw_keys(ONEHOT.n_keys)
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=1)
+    ref = dict(ref, records=make_records(schema, ONEHOT.steps * B, keys,
+                                         rng, 1))
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    quant_tables(torch, kernels, card, ref, total)
+    t1 = time.perf_counter()
+    spill_tiers(torch, kernels, card, total)
+    t2 = time.perf_counter()
+    compressed_transfer(torch, kernels, card, ref, total)
+    t3 = time.perf_counter()
+    print(f"launches in phase 12: {total} | seconds: quantized "
+          f"{t1 - t0:.1f}, spill + replica {t2 - t1:.1f}, bf16 "
+          f"{t3 - t2:.1f}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2608,12 +3010,14 @@ def main() -> int:
     ingest_phase(torch, kernels, card, onehot_pass)
     zoo_phase(torch, kernels, card)
     serving = serving_phase(torch, kernels, card)
+    storage = storage_phase(torch, kernels, card, onehot_pass)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
+        r["phase12_launches"] = storage.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "phase11_launches")
+            "phase11_launches", "phase12_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

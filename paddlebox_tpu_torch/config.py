@@ -61,6 +61,34 @@ class Flags:
     serving_window_s: float = 30.0
     # serving latency SLO (ms), stamped into every window record
     serving_slo_ms: float = 50.0
+    # the HBM replica hot tier (FLAGS_use_gpu_replica_cache): at every
+    # pass boundary the trainer mirrors the rows the spill tier ranks
+    # hottest onto the card, and the feed manager fills a pass's fresh
+    # keys from it instead of the RAM/disk path. Placement only: training
+    # is bit-identical on or off (embedding/replica_cache.py)
+    use_replica_cache: bool = False
+    # embedx crosses host<->device as bfloat16 at the pass boundary
+    # (counters, w and optimizer state stay f32); the device table stays
+    # f32. Rounds embedx to 8 mantissa bits once per boundary. Opt-in
+    transfer_compress_embedx: bool = False
+    # storage tier of a table built by embedding.tiering.store_from_flags:
+    # "off" = the in-RAM HostEmbeddingStore, "spill" = SpillEmbeddingStore
+    # (a memory-mapped row file under a RAM row cache). A storage choice,
+    # never a math change
+    table_tiering: str = "off"
+    # RAM row-cache slots of a spill store (its host-DRAM hot tier)
+    spill_cache_rows: int = 1 << 16
+    # RAM row-cache ways per set (set = row_id % n_sets; the coldest way by
+    # the TierManager score is the victim); 1 = direct-mapped
+    spill_cache_assoc: int = 4
+    # root directory of spill row files ("" = a fresh temp dir per store)
+    spill_dir: str = ""
+    # re-budget each spill cache at the pass boundary off its hit rate and
+    # eviction churn (tiering.autotune_cache_rows), within [256, 1<<22]
+    spill_cache_autotune: bool = False
+    # madvise(WILLNEED) readahead of the spill rows a working-set build is
+    # about to fault in, before it reads them
+    spill_prefetch: bool = True
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):

@@ -25,6 +25,20 @@
   instead of discarded. An unprovable mutation (a restore, a decay
   shrink, an oversized event, or the flag off) forces the full rebuild.
 
+- **Storage tiers.** A quantized table stages, combines and patches as
+  its two planes; under ``flags.transfer_compress_embedx`` the staged
+  embedx crosses as bfloat16 (``working_set.upload_rows``). With a spill
+  store, ``flags.spill_prefetch`` reads ahead the disk rows a staging is
+  about to fault in, and the boundary split gains ``spill_fault_in``
+  (the store's fault-in seconds over the boundary). With the replica
+  tier attached (``set_replica``), a staging's fresh keys that the
+  replica can prove current are served from it: their rows are copied
+  on the device from the replica's plane into the staged plane
+  (``index_copy_``), or, for quantized and compressed transfers, filled
+  on the host before the conversion, so the staged bytes round exactly
+  as store-fetched rows do. Every write-back site tells the replica
+  which keys it pushed (``note_written``).
+
 The reference's combine and patch are XLA programs, not Pallas kernels;
 here they are plain torch (``index_select`` and indexed assignment).
 The working set keeps the port's row rule, ``max(min_rows, K + 1)``
@@ -32,11 +46,9 @@ rows; ``bucket_size`` sizes only the staged H2D plane, as the
 reference's does, and the patch plane is not padded.
 
 Not carried (each raises ``NotImplementedError`` naming its ROADMAP
-item): a device mesh and per-host shard ownership (queue 1 item 11), the
-HBM replica tier, quantized or bf16-compressed staging and spill
-prefetch (queue 1 item 9). The reference's telemetry counters wait for
-the port's monitor (queue 1 item 12); the ``last_*`` attributes carry
-the numbers.
+item): a device mesh and per-host shard ownership (queue 1 item 11).
+The reference's telemetry counters wait for the port's monitor (queue 1
+item 12); the ``last_*`` attributes carry the numbers.
 """
 
 from __future__ import annotations
@@ -50,15 +62,28 @@ import torch
 
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.embedding import quant, tiering
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
                                                        bucket_size,
+                                                       embedx_compressed,
                                                        fetch_rows,
-                                                       transfer_bytes)
+                                                       upload_rows)
 from paddlebox_tpu_torch.native.key_index import sorted_unique
 from paddlebox_tpu_torch.utils import faultpoint
 
 _EMPTY_KEYS = np.zeros(0, dtype=np.uint64)
+_SPLIT_KEYS = ("build", "h2d", "spill_fault_in")
+
+
+def _planes(table) -> list[torch.Tensor]:
+    """A working-set table's tensors: [table], or a QuantTable's
+    [fp, qx]."""
+    return [table.fp, table.qx] if quant.is_quant(table) else [table]
+
+
+def _from_planes(planes: list[torch.Tensor]):
+    return quant.QuantTable(*planes) if len(planes) == 2 else planes[0]
 
 
 class _Staging:
@@ -67,7 +92,7 @@ class _Staging:
 
     __slots__ = ("keys", "pos_prev", "fresh_dev", "n_fresh", "h2d_bytes",
                  "prev", "store_gen", "full_ws", "timings", "marker",
-                 "patch_keys", "n_stale")
+                 "patch_keys", "n_stale", "replica_hits")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -98,6 +123,8 @@ class FeedPassManager:
         # write-back: rebuild + eager write-back
         self._eager = not getattr(store, "supports_resident_reuse", True)
         self._current: PassWorkingSet | None = None
+        # the trainer's replica hot tier (set_replica), or None
+        self._replica = None
         self._gen = -1                    # store.mutation_count at retain
         self._marker = None               # store.mutation_marker at retain
         # rows of _current whose device values are fresher than the store
@@ -134,9 +161,12 @@ class FeedPassManager:
         self.last_boundary_seconds = 0.0     # begin_pass side (the build)
         self.last_end_seconds = 0.0          # end_pass side (lazy: ~0)
         # the last boundary's host build (key diff + store fetch + table
-        # assembly) and H2D copy, charged where the work ran: a staged
-        # (overlapped) feed's parts can exceed the boundary's wall time
-        self.last_boundary_split = {"build": 0.0, "h2d": 0.0}
+        # assembly), H2D copy and the spill tier's fault-in inside the
+        # build, charged where the work ran: a staged (overlapped) feed's
+        # parts can exceed the boundary's wall time
+        self.last_boundary_split = dict.fromkeys(_SPLIT_KEYS, 0.0)
+        # fresh rows the last staging took from the replica tier
+        self.last_replica_hits = 0
 
     # -- helpers -----------------------------------------------------------
 
@@ -168,29 +198,38 @@ class FeedPassManager:
             return None, None
         return self._current, stale
 
-    def _h2d(self, host: np.ndarray) -> torch.Tensor:
-        """Copy host rows to the device. On the card: from a pinned
-        buffer, asynchronously on the manager's stream, then wait on that
-        stream only (the training stream keeps running)."""
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """Queue the copy of one host array to the device. On the card:
+        from a pinned buffer, asynchronously on the manager's stream (the
+        caller waits with ``_upload``)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
         if self._side is None:
-            return torch.from_numpy(host).to(self.device)
-        pinned = torch.empty(host.shape, dtype=torch.float32,
-                             pin_memory=True)
-        pinned.numpy()[...] = host
+            return t.to(self.device)
         with torch.cuda.stream(self._side):
-            out = pinned.to(self.device, non_blocking=True)
+            return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _upload(self, host: np.ndarray):
+        """Host f32 rows → the staged table under the storage and
+        transfer settings (``upload_rows``), on the manager's stream,
+        waited for on that stream only (training keeps running).
+        Returns (table, bytes that crossed)."""
+        if self._side is None:
+            return upload_rows(host, self.store.cfg, self._put)
+        with torch.cuda.stream(self._side):
+            out = upload_rows(host, self.store.cfg, self._put)
         self._side.synchronize()
         return out
 
-    def _consume(self, t: torch.Tensor) -> torch.Tensor:
-        """Hand a tensor made on the manager's stream to the current one:
+    def _consume(self, table):
+        """Hand a table made on the manager's stream to the current one:
         order after the copy, and keep the caching allocator from giving
         its memory to the current stream's work while it is read there."""
         if self._side is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_stream(self._side)
-            t.record_stream(cur)
-        return t
+            for t in _planes(table):
+                t.record_stream(cur)
+        return table
 
     # -- feed pass (BeginFeedPass / WaitFeedPassDone) ----------------------
 
@@ -238,6 +277,7 @@ class FeedPassManager:
         whose store bytes changed since retain: they re-fetch with the
         fresh rows. Runs on the feed thread or synchronously."""
         cfg = self.store.cfg
+        fault0 = tiering.fault_in_seconds(self.store)
         if prev is None:
             timing: dict = {}
             if self._side is not None:
@@ -250,11 +290,13 @@ class FeedPassManager:
                 ws = PassWorkingSet.begin_pass(
                     self.store, keys, self.device, min_rows=self.min_rows,
                     test_mode=test_mode, timing_out=timing)
+            timing["spill_fault_in"] = (tiering.fault_in_seconds(self.store)
+                                        - fault0)
             return _Staging(keys=ws.sorted_keys, prev=None, store_gen=gen,
                             marker=marker, full_ws=ws,
                             n_fresh=len(ws.sorted_keys),
-                            h2d_bytes=transfer_bytes(cfg, ws.padded_rows),
-                            timings=timing)
+                            h2d_bytes=ws.h2d_bytes, timings=timing,
+                            replica_hits=0)
         t0 = time.perf_counter()
         pos = prev._tindex.lookup(keys)            # -1 = fresh
         n_stale = 0
@@ -271,20 +313,52 @@ class FeedPassManager:
         # leave the host store for the staging plane
         faultpoint.hit("feed_pass.delta_stage.pre")
         fresh_keys = keys[pos < 0]
-        rows = (self.store.peek_rows(fresh_keys) if test_mode
-                else self.store.lookup_or_init(fresh_keys))
+        # the replica short-circuit: fresh keys the replica tier holds
+        # (current per the stale-key log and the write-back invalidation)
+        # skip the RAM/disk fault path. Replica keys already exist in the
+        # store, so skipping lookup_or_init for them skips no insert.
+        served = None
+        if self._replica is not None and len(fresh_keys):
+            served = self._replica.serve(fresh_keys)
+        miss_keys = fresh_keys if served is None else fresh_keys[~served.hit]
+        if flags.spill_prefetch:
+            prefetch = getattr(self.store, "prefetch_rows", None)
+            if prefetch is not None:
+                prefetch(miss_keys)
+        miss_rows = (self.store.peek_rows(miss_keys) if test_mode
+                     else self.store.lookup_or_init(miss_keys))
         n_fresh = len(fresh_keys)
         n_fresh_pad = bucket_size(max(1, n_fresh))
         staged = np.zeros((n_fresh_pad, cfg.row_width), np.float32)
-        staged[:n_fresh] = rows
+        # quantized and compressed transfers convert the served rows
+        # through the same rounding as store-fetched ones, so they fill
+        # on the host before the conversion; plain f32 fills on the
+        # device from the replica plane below
+        host_fill = cfg.storage != "f32" or embedx_compressed(cfg)
+        if served is None:
+            staged[:n_fresh] = miss_rows
+        else:
+            staged[np.flatnonzero(~served.hit)] = miss_rows
+            if host_fill:
+                staged[np.flatnonzero(served.hit)] = served.rows
         t1 = time.perf_counter()
-        fresh_dev = self._h2d(staged)
-        timing = {"build": t1 - t0, "h2d": time.perf_counter() - t1}
+        fresh_dev, nbytes = self._upload(staged)
+        if served is not None and not host_fill:
+            dst = torch.from_numpy(np.flatnonzero(served.hit)).to(
+                self.device)
+            src = torch.from_numpy(served.src).to(self.device)
+            # the replica's plane is read on the current stream; the
+            # staged plane was made on the manager's
+            fresh_dev = self._consume(fresh_dev)
+            fresh_dev.index_copy_(0, dst, served.plane.index_select(0, src))
+        timing = {"build": t1 - t0, "h2d": time.perf_counter() - t1,
+                  "spill_fault_in": (tiering.fault_in_seconds(self.store)
+                                     - fault0)}
         return _Staging(keys=keys, pos_prev=pos, fresh_dev=fresh_dev,
-                        n_fresh=n_fresh, n_stale=n_stale,
-                        h2d_bytes=transfer_bytes(cfg, n_fresh_pad),
+                        n_fresh=n_fresh, n_stale=n_stale, h2d_bytes=nbytes,
                         prev=prev, store_gen=gen, marker=marker,
-                        full_ws=None, timings=timing)
+                        full_ws=None, timings=timing,
+                        replica_hits=0 if served is None else served.n)
 
     # -- pass lifecycle ----------------------------------------------------
 
@@ -322,19 +396,23 @@ class FeedPassManager:
             n_patch, patch_bytes = self._apply_patch(
                 ws, staged.patch_keys, None)
             self._account_begin(staged.h2d_bytes + patch_bytes, 0,
-                                staged.n_fresh, 0, t0, ws.table,
-                                split=staged.timings, patched=n_patch)
+                                staged.n_fresh, 0, t0, split=staged.timings,
+                                patched=n_patch)
+            self.last_replica_hits = 0
             if not self._eager:
                 self._retain(ws)
             return ws
         if prev is None:
             timing: dict = {}
+            fault0 = tiering.fault_in_seconds(self.store)
             ws = PassWorkingSet.begin_pass(
                 self.store, keys, self.device, min_rows=self.min_rows,
                 test_mode=test_mode, timing_out=timing)
-            self._account_begin(
-                transfer_bytes(self.store.cfg, ws.padded_rows), 0,
-                len(ws.sorted_keys), 0, t0, ws.table, split=timing)
+            timing["spill_fault_in"] = (tiering.fault_in_seconds(self.store)
+                                        - fault0)
+            self._account_begin(ws.h2d_bytes, 0, len(ws.sorted_keys), 0, t0,
+                                split=timing)
+            self.last_replica_hits = 0
             if not test_mode and not self._eager:
                 self._retain(ws)
             return ws
@@ -349,8 +427,9 @@ class FeedPassManager:
                                                  carried)
         self._account_begin(staged.h2d_bytes + patch_bytes, d2h,
                             staged.n_fresh, len(keys) - staged.n_fresh, t0,
-                            ws.table, split=staged.timings,
+                            split=staged.timings,
                             patched=n_patch, stale=int(staged.n_stale or 0))
+        self.last_replica_hits = int(staged.replica_hits or 0)
         if not test_mode:
             self._retain(ws, carried)
         return ws
@@ -373,12 +452,14 @@ class FeedPassManager:
         faultpoint.hit("feed_pass.delta_stage.pre")
         rows = self.store.lookup_or_init(pk)
         idx = pos[live] + 1
-        rows_dev = self._consume(self._h2d(rows))
+        rows_dev, nbytes = self._upload(rows)
+        rows_dev = self._consume(rows_dev)
         sel = torch.from_numpy(idx).to(self.device)
-        ws.table[sel, :rows.shape[1]] = rows_dev
+        for plane, new in zip(_planes(ws.table), _planes(rows_dev)):
+            plane[sel, :new.shape[1]] = new
         if carried is not None:
             carried[idx] = False       # the store value is authoritative
-        return len(pk), transfer_bytes(self.store.cfg, len(pk))
+        return len(pk), nbytes
 
     def _writeback_retiring(self, prev: PassWorkingSet,
                             new_keys: np.ndarray) -> int:
@@ -401,7 +482,12 @@ class FeedPassManager:
         if len(retiring) == 0:
             return 0
         rows, nbytes = fetch_rows(prev.table, retiring, self.store.cfg)
-        self.store.write_back(prev.sorted_keys[retiring - 1], rows)
+        rkeys = prev.sorted_keys[retiring - 1]
+        self.store.write_back(rkeys, rows)
+        if self._replica is not None:
+            # write_back does not enter the stale-key log: the replica
+            # must be told its copies of these keys are old
+            self._replica.note_written(rkeys)
         self._unsynced[retiring] = False
         return nbytes
 
@@ -446,7 +532,10 @@ class FeedPassManager:
         k = ws.num_keys
         row_ids = np.flatnonzero(self._unsynced[1:1 + k]) + 1
         rows, nbytes = fetch_rows(ws.table, row_ids, self.store.cfg)
-        self.store.write_back(ws.sorted_keys[row_ids - 1], rows)
+        fkeys = ws.sorted_keys[row_ids - 1]
+        self.store.write_back(fkeys, rows)
+        if self._replica is not None:
+            self._replica.note_written(fkeys)
         self._unsynced[:] = False
         self.last_d2h_bytes += nbytes
         return nbytes
@@ -494,12 +583,15 @@ class FeedPassManager:
         src = np.zeros(n_rows, np.int64)       # fresh and tail rows: row 0
         src[1:1 + k][resident] = pos[resident] + 1
         dev = self.device
-        table = prev.table.index_select(0, torch.from_numpy(src).to(dev))
+        sel = torch.from_numpy(src).to(dev)
+        planes = [p.index_select(0, sel) for p in _planes(prev.table)]
         fresh_rows = np.flatnonzero(~resident) + 1   # key order = slot order
         if len(fresh_rows):
-            fresh = self._consume(staged.fresh_dev)
-            table[torch.from_numpy(fresh_rows).to(dev), :cfg.row_width] = \
-                fresh[:len(fresh_rows)]
+            fresh = _planes(self._consume(staged.fresh_dev))
+            dst = torch.from_numpy(fresh_rows).to(dev)
+            for plane, new in zip(planes, fresh):
+                plane[dst, :new.shape[1]] = new[:len(fresh_rows)]
+        table = _from_planes(planes)
         # carry the unsynced marks of resident rows into their new slots:
         # their only fresh copy still lives on the device
         carried = np.zeros(n_rows, bool)
@@ -520,6 +612,10 @@ class FeedPassManager:
             ws.table = table
         if self._eager:
             nbytes = ws.end_pass(self.store)
+            if self._replica is not None:
+                # the eager write-back pushed the pass's touched rows: the
+                # whole key set is invalidated, conservatively
+                self._replica.note_written(ws.sorted_keys)
             self.last_d2h_bytes = nbytes
             self.last_end_seconds = time.perf_counter() - t0
             return nbytes
@@ -534,10 +630,12 @@ class FeedPassManager:
         return 0
 
     def set_replica(self, replica) -> None:
-        if replica is not None:
-            raise NotImplementedError(
-                "the HBM replica tier is not ported yet (ROADMAP, queue 1 "
-                "item 9)")
+        """Attach the trainer's replica hot tier
+        (``replica_cache.TrainerReplicaCache``): from then on a staging
+        serves fresh keys from it when it can prove them current, and
+        every write-back site invalidates the pushed keys there. None
+        detaches."""
+        self._replica = replica
 
     def set_ownership(self, ownership) -> None:
         if ownership is not None:
@@ -586,14 +684,13 @@ class FeedPassManager:
                           else np.zeros_like(ws.touched))
 
     def _account_begin(self, h2d: int, d2h: int, fresh: int, reused: int,
-                       t0: float, table: torch.Tensor,
-                       split: dict | None = None, patched: int = 0,
+                       t0: float, split: dict | None = None, patched: int = 0,
                        stale: int = 0) -> None:
-        if table.device.type == "cuda":
+        if self.device.type == "cuda":
             # the copies and the combine are queued, not done: wait for
             # them, or the boundary reads near zero and its cost lands in
             # the first steps
-            torch.cuda.synchronize(table.device)
+            torch.cuda.synchronize(self.device)
         self.last_boundary_seconds = time.perf_counter() - t0
         self.last_h2d_bytes = h2d
         self.last_d2h_bytes = d2h
@@ -602,4 +699,4 @@ class FeedPassManager:
         self.last_patched_rows = patched
         self.last_stale_rows = stale
         self.last_boundary_split = {k: float((split or {}).get(k, 0.0))
-                                    for k in ("build", "h2d")}
+                                    for k in _SPLIT_KEYS}

@@ -33,8 +33,10 @@ def _gate_grads(g_x: torch.Tensor, show: torch.Tensor,
 
 def _g2_ratio(g0: float, acc: torch.Tensor) -> torch.Tensor:
     """g0 / (g0 + acc) as one f32 division. (``float / tensor`` in torch
-    is reciprocal-then-multiply, two roundings.)"""
-    g0t = acc.new_tensor(g0)
+    is reciprocal-then-multiply, two roundings.) The constant is filled on
+    the tensor's device: a scalar tensor made from the host would be a
+    copy the host waits for on every call."""
+    g0t = torch.full_like(acc, g0)
     return g0t / (g0t + acc)
 
 

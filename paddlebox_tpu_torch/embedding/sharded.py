@@ -2,7 +2,8 @@
 core of ``embedding/sharded.py`` (lines 46-406).
 
 The pass working set is one dense (n_rows, W) float32 table on the
-device; batches carry int32 indices (0 = the all-zero null/padding row).
+device, or for int8/int16 storage a two-plane ``quant.QuantTable``;
+batches carry int32 indices (0 = the all-zero null/padding row).
 
 - ``lookup`` — gather pull values for any index shape;
 - ``fused_pull_pool`` — the multi-hot pull: gather + per-(example, slot)
@@ -14,7 +15,11 @@ device; batches carry int32 indices (0 = the all-zero null/padding row).
 - ``plan_premerge`` — segment-sum per-token push payloads onto one lane
   per unique row, over the host dedup plan;
 - ``push`` — merge duplicates and apply the in-table optimizer through
-  the engine ``ops.kernels.resolve_push_engine`` picks.
+  the engine ``ops.kernels.resolve_push_engine`` picks. A quantized
+  table takes the accumulator alone from the engine (``binned_merge_acc``
+  on the card for narrow rows) and then the dequant -> f32 update ->
+  requant pass over its touched rows, which the reference runs in XLA
+  with no Pallas kernel and the port in plain PyTorch.
 
 The routed multi-shard path is not ported yet (ROADMAP, multi-GPU).
 """
@@ -25,8 +30,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from paddlebox_tpu_torch.embedding import gating
+from paddlebox_tpu_torch.embedding import gating, quant
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
+from paddlebox_tpu_torch.embedding.optim import apply_updates
 from paddlebox_tpu_torch.ops import kernels
 
 NULL_INDEX = 0  # reserved all-zero row; padding tokens point here
@@ -62,12 +68,18 @@ def map_plan(plan, fn: Callable):
     return type(plan)(*(None if a is None else fn(a) for a in plan))
 
 
-def lookup(table: torch.Tensor, idx: torch.Tensor,
-           cfg: EmbeddingConfig) -> torch.Tensor:
+def lookup(table, idx: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
     """Gather pull values (show, clk, w, embedx) for int indices of any
     shape; returns idx.shape + (pull_width,). Null/padding indices return
-    the zero row; create-threshold gating applies."""
-    rows = table.index_select(0, idx.reshape(-1).long())[:, :cfg.pull_width]
+    the zero row; create-threshold gating applies. A quantized table
+    gathers both planes and dequantizes at the gather."""
+    flat = idx.reshape(-1).long()
+    if quant.is_quant(table):
+        fp = table.fp.index_select(0, flat)
+        x = table.qx.index_select(0, flat).to(torch.float32) * fp[:, -1:]
+        rows = torch.cat([fp[:, :cfg.fixed_cols], x], dim=1)
+    else:
+        rows = table.index_select(0, flat)[:, :cfg.pull_width]
     return gating.gate_pull(rows, cfg).reshape(*idx.shape, cfg.pull_width)
 
 
@@ -78,13 +90,18 @@ def fused_pull_supported(cfg: EmbeddingConfig) -> bool:
             and cfg.expand_create_threshold == 0)
 
 
-def fused_pull_pool(table: torch.Tensor, idx: torch.Tensor,
-                    cfg: EmbeddingConfig, num_slots: int,
-                    slot_len: int) -> torch.Tensor:
+def fused_pull_pool(table, idx: torch.Tensor, cfg: EmbeddingConfig,
+                    num_slots: int, slot_len: int) -> torch.Tensor:
     """(B, S*L) translated indices → (B, S, pull_width) sum-pooled rows
     through the gather_pool kernel (its plain version on the CPU). Masked
     tokens must already point at NULL_INDEX (translate does); the null
-    row is all zeros, so padding contributes nothing."""
+    row is all zeros, so padding contributes nothing. The kernel reads
+    f32 tables only (``pallas_kernels.py:846``): a quantized table pools
+    ``lookup``'s dequantized rows."""
+    if quant.is_quant(table):
+        B = idx.shape[0]
+        return lookup(table, idx.reshape(-1), cfg).reshape(
+            B, num_slots, slot_len, cfg.pull_width).sum(dim=2)
     return kernels.gather_pool(table, idx, cfg, num_slots, slot_len)
 
 
@@ -163,7 +180,24 @@ def plan_premerge(idx: torch.Tensor, grads: torch.Tensor,
     return uniq, m[:, :gw], m[:, gw], m[:, gw + 1]
 
 
-def push(table: torch.Tensor, idx: torch.Tensor, grads: torch.Tensor,
+def quant_update(table: quant.QuantTable, acc: torch.Tensor,
+                 cfg: EmbeddingConfig) -> None:
+    """The quantized table's update, in place: dequantize every row,
+    apply the optimizer in f32 exactly as an f32 table does, requantize
+    with a fresh per-row scale, and keep the result where the touch
+    count ``acc[:, grad_width + 2]`` is > 0. Untouched rows keep the
+    bits of both planes (a row must not round twice unless it changed).
+    One pass over the planes, as the reference's XLA fusion."""
+    gw = cfg.grad_width
+    rows = quant.assemble_rows(table.fp, table.qx, cfg)
+    new = quant.split_rows(apply_updates(rows, acc[:, :gw], acc[:, gw],
+                                         acc[:, gw + 1], cfg), cfg)
+    touched = (acc[:, gw + 2] > 0)[:, None]
+    table.fp.copy_(torch.where(touched, new.fp, table.fp))
+    table.qx.copy_(torch.where(touched, new.qx, table.qx))
+
+
+def push(table, idx: torch.Tensor, grads: torch.Tensor,
          shows: torch.Tensor, clks: torch.Tensor, cfg: EmbeddingConfig,
          plan: BlockPlan | DedupPlan | None = None) -> str:
     """Merge-and-update: apply summed grads + show/clk increments to the
@@ -189,6 +223,19 @@ def push(table: torch.Tensor, idx: torch.Tensor, grads: torch.Tensor,
         if plan.rstart is not None:
             # the lanes are sorted by row: the windows index them directly
             windows = (None, plan.rstart, plan.end)
+    if quant.is_quant(table):
+        n_rows = quant.table_rows(table)
+        engine = kernels.resolve_push_engine(
+            cfg, n_rows, premerged=premerged,
+            device_type=table.fp.device.type)
+        if engine == "binned_kernel":
+            acc = kernels.binned_merge_acc(idx, grads, shows, clks, cfg,
+                                           n_rows, plan=windows)
+        else:
+            acc = kernels.binned_merge_acc_plain(idx, grads, shows, clks,
+                                                 cfg, n_rows)
+        quant_update(table, acc, cfg)
+        return engine
     n_rows, W = table.shape
     engine = kernels.resolve_push_engine(
         cfg, n_rows, premerged=premerged, device_type=table.device.type,

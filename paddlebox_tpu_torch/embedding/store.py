@@ -36,8 +36,15 @@ those rows instead of rebuilding. Every ``_mutations`` bump appends one
 entry: ``shrink`` the evicted keys on pure eviction (``decay == 1.0``),
 else ``None``; ``restore`` ``None``; ``_remove`` the present keys;
 ``_ingest`` the ingested keys. ``export_serving`` (:355) freezes the
-pull plane for the serving side. The reference's spill-tier hooks are
-not ported yet (ROADMAP).
+pull plane for the serving side.
+
+Every row read and write goes through the row-storage hooks
+(``_alloc_rows``, ``_read_rows``, ``_write_rows``, ``_rows_compacted``,
+``_rows_persistent``; reference :160-176) and every base/delta payload
+through ``_save_base_payload`` / ``_save_delta_payload`` (:435-446), so
+the disk spill tier (``spill_store.SpillEmbeddingStore``) swaps the row
+array for a memory-mapped file under a RAM cache and streams its
+payloads, with everything else inherited.
 """
 
 from __future__ import annotations
@@ -78,7 +85,7 @@ class HostEmbeddingStore:
         self.cfg = cfg
         self._index = KeyIndex(initial_capacity)
         self._keys = np.zeros(initial_capacity, dtype=np.uint64)
-        self._rows = np.zeros((initial_capacity, cfg.row_width), np.float32)
+        self._rows = self._alloc_rows(initial_capacity)
         self._n = 0
         self._dirty = np.zeros(initial_capacity, dtype=bool)
         self._tombstones: set[int] = set()  # evicted since the last save
@@ -97,6 +104,9 @@ class HostEmbeddingStore:
         # one entry (stale_keys_since's completeness check counts them).
         self._stale_log: collections.deque = collections.deque(
             maxlen=_STALE_LOG_EVENTS)
+        # the BoxPS whose open pass runs this store's pass-boundary tier
+        # work (fleet/boxps.py); None = each train_pass runs its own
+        self.boundary_owner = None
         # run before any read of row values for persistence or hygiene
         # (save, shrink, get_rows): a device tier holding unsynced rows
         # writes them back first
@@ -157,6 +167,25 @@ class HostEmbeddingStore:
         """Monotonic number of save_base/save_delta calls on this store
         object (all directories) — the dirty-mask consumption counter."""
         return self._save_count
+
+    # ---- row-storage hooks (the disk spill tier overrides them) ----
+
+    _rows_persistent = False   # True when _alloc_rows reopens existing rows
+
+    def _alloc_rows(self, capacity: int) -> np.ndarray:
+        return np.zeros((capacity, self.cfg.row_width), dtype=np.float32)
+
+    def _read_rows(self, idx: np.ndarray) -> np.ndarray:
+        return self._rows[idx].copy()
+
+    def _write_rows(self, idx: np.ndarray, rows: np.ndarray) -> None:
+        self._rows[idx] = rows
+
+    def _rows_compacted(self) -> None:
+        """Called when row storage changed outside ``_write_rows``: a
+        shrink or removal reassigned row ids, a restore reset them, or a
+        show decay rewrote ``self._rows`` in place. Caching tiers must
+        invalidate."""
 
     def register_flush_hook(self, fn) -> None:
         self._flush_hooks.append(fn)
@@ -222,14 +251,14 @@ class HostEmbeddingStore:
                                     + np.flatnonzero(res)] = True
                         self._tombstones.difference_update(
                             int(k) for k in new_keys[res].tolist())
-            return self._rows[idx].copy()
+            return self._read_rows(idx)
 
     def write_back(self, keys: np.ndarray, rows: np.ndarray) -> None:
         """Persist updated rows after a pass (EndPass)."""
         keys = np.asarray(keys).astype(np.uint64)
         with self._lock:
             idx = self._lookup_strict(keys)
-            self._rows[idx] = np.asarray(rows, dtype=np.float32)
+            self._write_rows(idx, np.asarray(rows, dtype=np.float32))
             self._dirty[idx] = True
 
     def peek_rows(self, keys: np.ndarray) -> np.ndarray:
@@ -240,7 +269,7 @@ class HostEmbeddingStore:
         with self._lock:
             idx = self._index.lookup(keys)
             hit = idx >= 0
-            rows[hit] = self._rows[idx[hit]]
+            rows[hit] = self._read_rows(idx[hit])
         return rows
 
     def get_rows(self, keys: np.ndarray) -> np.ndarray:
@@ -249,7 +278,7 @@ class HostEmbeddingStore:
         self._run_flush_hooks()
         keys = np.asarray(keys).astype(np.uint64)
         with self._lock:
-            return self._rows[self._lookup_strict(keys)].copy()
+            return self._read_rows(self._lookup_strict(keys))
 
     def keys(self) -> np.ndarray:
         """The stored keys, in insertion (row) order."""
@@ -285,8 +314,9 @@ class HostEmbeddingStore:
         dirty = np.zeros(new_cap, dtype=bool)
         dirty[:self._n] = self._dirty[:self._n]
         self._dirty = dirty
-        rows = np.zeros((new_cap, self.cfg.row_width), np.float32)
-        rows[:self._n] = self._rows[:self._n]
+        rows = self._alloc_rows(new_cap)
+        if not self._rows_persistent:   # a file-backed plane keeps its rows
+            rows[:self._n] = self._rows[:self._n]
         self._rows = rows
 
     def _compact(self, keep: np.ndarray) -> np.ndarray:
@@ -304,6 +334,7 @@ class HostEmbeddingStore:
         self._rows[:self._n] = kept_rows
         self._dirty[:] = False
         self._dirty[:self._n] = kept_dirty
+        self._rows_compacted()           # row ids changed
         return gone
 
     # ---- hygiene (ShrinkTable) ----
@@ -319,6 +350,8 @@ class HostEmbeddingStore:
                 self._rows[:self._n, 0] *= decay
                 # decayed counters must reach the next delta checkpoint
                 self._dirty[:self._n] = True
+                # an in-place write past _write_rows: drop cached copies
+                self._rows_compacted()
             keep = self._rows[:self._n, 0] >= min_show
             evicted = int((~keep).sum())
             gone = _EMPTY_KEYS
@@ -364,8 +397,7 @@ class HostEmbeddingStore:
                     fname,
                     fault_point="store.save_base.pre_replace") as tmp:
                 with open(tmp, "wb") as f:
-                    np.savez_compressed(f, keys=self._keys[:self._n],
-                                        rows=self._rows[:self._n])
+                    self._save_base_payload(f)
             self._save_seq = 0
             self._save_count += 1
             self._write_meta(path)
@@ -387,6 +419,7 @@ class HostEmbeddingStore:
             # a failed write must not burn a seq and leave a gap
             seq = self._save_seq + 1
             idx = np.flatnonzero(self._dirty[:self._n])
+            keys = self._keys[idx]
             fname = os.path.join(path, _delta_name(seq))
             removed = np.fromiter(sorted(self._tombstones), dtype=np.uint64,
                                   count=len(self._tombstones))
@@ -394,9 +427,7 @@ class HostEmbeddingStore:
                     fname,
                     fault_point="store.save_delta.pre_replace") as tmp:
                 with open(tmp, "wb") as f:
-                    np.savez_compressed(f, keys=self._keys[idx],
-                                        rows=self._rows[idx],
-                                        removed=removed)
+                    self._save_delta_payload(f, keys, idx, removed)
             self._save_seq = seq
             self._save_count += 1
             self._write_meta(path)
@@ -405,6 +436,18 @@ class HostEmbeddingStore:
             self._dirty[:] = False
             self._tombstones.clear()
         return fname
+
+    # ---- payload hooks (the disk spill tier streams them from its
+    # memory-mapped rows instead of materializing the plane) ----
+
+    def _save_base_payload(self, f) -> None:
+        np.savez_compressed(f, keys=self._keys[:self._n],
+                            rows=self._rows[:self._n])
+
+    def _save_delta_payload(self, f, keys: np.ndarray, idx: np.ndarray,
+                            removed: np.ndarray) -> None:
+        np.savez_compressed(f, keys=keys, rows=self._rows[idx],
+                            removed=removed)
 
     # ---- chain protocol (PassCheckpointer records and verifies exactly
     # these members' CRCs) ----
@@ -537,6 +580,7 @@ class HostEmbeddingStore:
             self._n = 0
             self._dirty[:] = False
             self._tombstones.clear()
+            self._rows_compacted()       # every row id is reset
         base = os.path.join(path, "base.npz")
         try:
             ctx = np.load(base)
@@ -595,7 +639,7 @@ class HostEmbeddingStore:
                     self._tombstones.difference_update(
                         int(k) for k in keys[res].tolist())
             # last occurrence wins for duplicate keys (replay order)
-            self._rows[idx] = np.asarray(rows, dtype=np.float32)
+            self._write_rows(idx, np.asarray(rows, dtype=np.float32))
             # every ingested row diverges from what the last save captured:
             # the next delta must carry it (restore clears the mask after
             # its replay, so the first post-load delta stays small)

@@ -6,7 +6,8 @@ current pass:
 - ``begin_pass(store, keys, device)`` dedups the pass's keys, assigns
   dense indices 1..K in sorted-key order (0 = the all-zero NULL_INDEX row
   that padding tokens point at), fetches their rows from the host store
-  and lays them out as one (n_rows, W) float32 tensor on the device.
+  and lays them out on the device: one (n_rows, W) float32 tensor, or
+  for ``storage="int8" | "int16"`` a two-plane ``quant.QuantTable``.
   ``test_mode=True`` (eval, JAX ``working_set.py:331-357``) reads with
   ``peek_rows``, so an eval pass never grows or dirties the store.
 - ``translate(ids, mask)`` maps uint64 feature signs to int32 working-set
@@ -18,6 +19,16 @@ current pass:
   default path is ``FeedPassManager`` (``feed_pass.py``), which keeps the
   table resident across passes and writes back lazily through
   ``fetch_rows``.
+
+Transfers (``upload_rows`` H2D, ``fetch_rows`` D2H) carry logical
+columns only: the pad columns of ``device_width`` are added and dropped
+on the device. A quantized table crosses as its planes; under
+``flags.transfer_compress_embedx`` an f32 table's embedx columns cross
+as bfloat16 (``_put_compressed`` / ``_get_compressed``; counters, w and
+optimizer state stay f32), converted on the host with ``torch.bfloat16``
+(round to nearest even, as the reference's ``ml_dtypes`` cast). The
+byte counts returned are those of the arrays that crossed, which equal
+``transfer_bytes``.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.embedding import quant
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.native.key_index import KeyIndex, sorted_unique
@@ -38,24 +50,35 @@ def device_width(cfg: EmbeddingConfig) -> int:
     """Physical column count of the f32 device table
     (flags.table_pad_width): the logical row width unless padding is
     asked for; pad columns are zeros that pass through every update and
-    never reach the host."""
+    never reach the host. Quantized tables keep their plane layout."""
     rw = cfg.row_width
     pad = flags.table_pad_width
-    if not pad:
+    if not pad or cfg.storage != "f32":
         return rw
     if pad == "auto":
         return 64 if 14 <= rw < 64 else rw
     return max(rw, int(pad))
 
 
+def embedx_compressed(cfg: EmbeddingConfig) -> bool:
+    """Whether embedx crosses as bfloat16 (an f32 table with embedx
+    columns under flags.transfer_compress_embedx)."""
+    return bool(flags.transfer_compress_embedx and cfg.storage == "f32"
+                and cfg.total_dim)
+
+
 def transfer_bytes(cfg: EmbeddingConfig, n_rows: int) -> int:
-    """Host<->device bytes for ``n_rows`` full rows (f32 storage only:
-    quantized planes and the bf16 transfer compression are not ported)."""
+    """Host<->device bytes for ``n_rows`` full rows under the storage and
+    compression settings: quantized embedx crosses as int8/int16 beside
+    the f32 fp plane; the bf16 transfer halves an f32 table's embedx."""
+    n_rows = int(n_rows)
     if cfg.storage != "f32":
-        raise NotImplementedError(
-            f"storage={cfg.storage!r}: quantized transfers are not ported "
-            f"yet (ROADMAP, queue 1 item 9)")
-    return int(n_rows) * cfg.row_width * 4
+        qbytes = 1 if cfg.storage == "int8" else 2
+        return n_rows * (4 * quant.fp_width(cfg) + qbytes * cfg.total_dim)
+    if embedx_compressed(cfg):
+        e = cfg.total_dim
+        return n_rows * (4 * (cfg.row_width - e) + 2 * e)
+    return n_rows * cfg.row_width * 4
 
 
 def bucket_size(x: int) -> int:
@@ -69,16 +92,79 @@ def bucket_size(x: int) -> int:
     return -(-int(x) // step) * step
 
 
-def fetch_rows(table: torch.Tensor, row_idx: np.ndarray,
+def _put_compressed(host: np.ndarray, cfg: EmbeddingConfig, put
+                    ) -> tuple[torch.Tensor, int]:
+    """f32 rows → device rows with embedx through bfloat16: the embedx
+    block is rounded to bf16 on the host and crosses as its 16-bit
+    pattern (numpy has no bfloat16), the rest crosses f32, and the rows
+    are put back together in f32 on the device."""
+    e = cfg.embedx_cols
+    rest = np.ascontiguousarray(
+        np.concatenate([host[:, :e.start], host[:, e.stop:]], axis=1))
+    emb = torch.from_numpy(np.ascontiguousarray(host[:, e])).to(
+        torch.bfloat16).view(torch.int16).numpy()
+    rest_d = put(rest)
+    emb_d = put(emb).view(torch.bfloat16).to(torch.float32)
+    table = torch.cat([rest_d[:, :e.start], emb_d, rest_d[:, e.start:]],
+                      dim=1)
+    return table, rest.nbytes + emb.nbytes
+
+
+def _get_compressed(rows: torch.Tensor, cfg: EmbeddingConfig
+                    ) -> tuple[np.ndarray, int]:
+    """Device f32 rows (logical columns) → host f32 rows with embedx
+    through bfloat16: rounded on the device, crossed as 16-bit patterns,
+    widened on the host."""
+    e = cfg.embedx_cols
+    rest = torch.cat([rows[:, :e.start], rows[:, e.stop:]], dim=1).cpu()
+    emb = rows[:, e].to(torch.bfloat16).view(torch.int16).cpu()
+    out = np.empty((rows.shape[0], cfg.row_width), np.float32)
+    out[:, :e.start] = rest[:, :e.start].numpy()
+    out[:, e] = emb.view(torch.bfloat16).to(torch.float32).numpy()
+    out[:, e.stop:] = rest[:, e.start:].numpy()
+    return out, rest.numel() * 4 + emb.numel() * 2
+
+
+def upload_rows(host: np.ndarray, cfg: EmbeddingConfig, put):
+    """f32 host rows (n, row_width) → the device table under cfg.storage
+    and flags.transfer_compress_embedx: an f32 tensor at logical width,
+    or a QuantTable. ``put`` moves one numpy array to the device (the
+    feed manager's copies it on its own stream). Returns (table, bytes
+    that crossed)."""
+    if cfg.storage != "f32":
+        if flags.transfer_compress_embedx:
+            raise ValueError(
+                "transfer_compress_embedx is redundant with quantized "
+                "storage: the embedx plane already crosses as "
+                f"{cfg.storage}")
+        fp, qx = quant.encode_rows_np(host, cfg)
+        return quant.QuantTable(put(fp), put(qx)), fp.nbytes + qx.nbytes
+    if embedx_compressed(cfg):
+        return _put_compressed(host, cfg, put)
+    host = np.ascontiguousarray(host, np.float32)
+    return put(host), host.nbytes
+
+
+def fetch_rows(table, row_idx: np.ndarray,
                cfg: EmbeddingConfig) -> tuple[np.ndarray, int]:
     """Gather ``row_idx`` rows on the table's device, then move only
-    those rows (their logical columns) to the host. Returns (rows
-    float32 (k, row_width), bytes moved device -> host)."""
+    those rows (their logical columns; both planes of a quantized table,
+    decoded on the host; embedx as bfloat16 under the transfer
+    compression) to the host. Returns (rows float32 (k, row_width),
+    bytes moved device -> host)."""
     k = len(row_idx)
     if k == 0:
         return np.zeros((0, cfg.row_width), np.float32), 0
-    sel = torch.from_numpy(np.asarray(row_idx, np.int64)).to(table.device)
-    rows = table.index_select(0, sel)[:, :cfg.row_width].cpu().numpy()
+    planes = [table.fp, table.qx] if quant.is_quant(table) else [table]
+    sel = torch.from_numpy(np.asarray(row_idx, np.int64)).to(
+        planes[0].device)
+    if quant.is_quant(table):
+        fp, qx = (p.index_select(0, sel).cpu().numpy() for p in planes)
+        return quant.decode_rows_np(fp, qx, cfg), fp.nbytes + qx.nbytes
+    rows = table.index_select(0, sel)[:, :cfg.row_width]
+    if embedx_compressed(cfg):
+        return _get_compressed(rows, cfg)
+    rows = rows.cpu().numpy()
     return rows, rows.nbytes
 
 
@@ -87,12 +173,14 @@ class PassWorkingSet:
                  table: torch.Tensor):
         self.cfg = cfg
         self.sorted_keys = sorted_keys      # uint64 (K,), ascending
-        self.table = table                  # (n_rows, W) float32
+        self.table = table        # (n_rows, W) float32, or a QuantTable
         self._tindex = KeyIndex(len(sorted_keys) or 1)
         self._tindex.rebuild(sorted_keys)
         # rows any batch referenced: end_pass ships only these (push never
         # modifies a row that no batch indexed)
         self.touched = np.zeros(self.padded_rows, dtype=bool)
+        # bytes the build moved host -> device (begin_pass sets it)
+        self.h2d_bytes = 0
 
     @property
     def num_keys(self) -> int:
@@ -100,7 +188,7 @@ class PassWorkingSet:
 
     @property
     def padded_rows(self) -> int:
-        return int(self.table.shape[0])
+        return quant.table_rows(self.table)
 
     @classmethod
     def begin_pass(cls, store: HostEmbeddingStore, keys: np.ndarray,
@@ -117,19 +205,26 @@ class PassWorkingSet:
         for."""
         dev = resolve_device(device)
         cfg = store.cfg
-        if cfg.storage != "f32":
-            raise NotImplementedError(
-                f"storage={cfg.storage!r}: quantized device tables are not "
-                f"ported yet (ROADMAP, storage variants)")
         t0 = time.perf_counter()
         keys = sorted_unique(np.asarray(keys).astype(np.uint64))
+        if flags.spill_prefetch:
+            # readahead of the disk-tier rows about to fault in (spill
+            # stores): the kernel pages them in while the fetch below runs
+            prefetch = getattr(store, "prefetch_rows", None)
+            if prefetch is not None:
+                prefetch(keys)
         rows = (store.peek_rows(keys) if test_mode
                 else store.lookup_or_init(keys))
         n_rows = max(min_rows, len(keys) + 1)      # +1: the null row
-        host = np.zeros((n_rows, device_width(cfg)), dtype=np.float32)
-        host[1:1 + len(keys), :cfg.row_width] = rows
+        host = np.zeros((n_rows, cfg.row_width), dtype=np.float32)
+        host[1:1 + len(keys)] = rows
         t1 = time.perf_counter()
-        table = torch.from_numpy(host).to(dev)
+        table, nbytes = upload_rows(
+            host, cfg, lambda a: torch.from_numpy(a).to(dev))
+        W = device_width(cfg)
+        if W > cfg.row_width:
+            # pad columns are added on the device: H2D carries none
+            table = torch.nn.functional.pad(table, (0, W - cfg.row_width))
         if timing_out is not None:
             # the copy is done when the clock stops, so the h2d share
             # carries the transfer and not its dispatch (the stream it
@@ -139,7 +234,9 @@ class PassWorkingSet:
             t2 = time.perf_counter()
             timing_out["build"] = timing_out.get("build", 0.0) + (t1 - t0)
             timing_out["h2d"] = timing_out.get("h2d", 0.0) + (t2 - t1)
-        return cls(cfg, keys, table)
+        ws = cls(cfg, keys, table)
+        ws.h2d_bytes = nbytes
+        return ws
 
     def translate(self, ids: np.ndarray, mask: np.ndarray | None = None
                   ) -> np.ndarray:

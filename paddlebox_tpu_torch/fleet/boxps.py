@@ -23,10 +23,18 @@ failed publish degrades to a warning and ``{"error": ...}`` under
 ``"publish"`` (serving keeps its last good version) instead of ending
 the pass loop.
 
+The pass boundary of the storage tiers runs in ``end_pass`` after the
+snapshot and the publish: ``tiering.end_pass_rebalance`` re-scores a
+spill store's RAM tier (its counts under ``"tiering"``), then
+``trainer.refresh_replica_boundary`` rebuilds the replica tier from that
+ranking. While a BoxPS pass is open its store's ``boundary_owner`` is
+the BoxPS, so ``Trainer.train_pass`` leaves that work to ``end_pass``
+(the JAX package asks its monitor hub whether a pass scope is open).
+
 Not ported yet (ROADMAP): multi-host pass barriers and heartbeats
-(``attach_collectives``), and the telemetry pass scope; the spill-tier,
-replica-cache, exchange-wire and self-healing boundary hooks serve
-subsystems the port does not have yet.
+(``attach_collectives``), and the telemetry pass scope; the
+exchange-wire and self-healing boundary hooks serve subsystems the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import time
 import warnings
 from typing import Any
 
+from paddlebox_tpu_torch.embedding import tiering
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.metrics.metric import MetricRegistry
 
@@ -68,6 +77,7 @@ class BoxPS:
         if self.in_pass:
             raise RuntimeError("begin_pass while a pass is open")
         self.in_pass = True
+        self.store.boundary_owner = self
         self.pass_id += 1
         self._pass_t0 = time.time()
 
@@ -86,6 +96,7 @@ class BoxPS:
         if not self.in_pass:
             raise RuntimeError("end_pass without begin_pass")
         self.in_pass = False
+        self.store.boundary_owner = None
         out: dict[str, Any] = {"pass_id": self.pass_id,
                                "seconds": time.time() - self._pass_t0}
         if checkpointer is not None:
@@ -116,6 +127,14 @@ class BoxPS:
                 warnings.warn(f"serving publish failed for pass "
                               f"{self.pass_id} ({e!r}); serving stays on "
                               f"its last good version")
+        # re-score the spill store's RAM tier off this pass's traffic, then
+        # rebuild the replica tier from that ranking
+        tier = tiering.end_pass_rebalance(self.store)
+        if tier is not None:
+            out["tiering"] = tier
+        if trainer is not None and hasattr(trainer,
+                                           "refresh_replica_boundary"):
+            trainer.refresh_replica_boundary()
         return out
 
     def flip_phase(self) -> None:

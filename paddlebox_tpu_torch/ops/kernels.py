@@ -41,7 +41,9 @@ import torch
 
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.embedding.optim import apply_updates
+# the module, not the name: embedding.optim imports ops.ftrl, which runs
+# ops/__init__ and so this module, while optim is still half-imported
+from paddlebox_tpu_torch.embedding import optim
 from paddlebox_tpu_torch.native import build as build_lib
 
 CSRC_DIR = os.path.join(build_lib.PKG_DIR, "csrc")
@@ -359,7 +361,7 @@ def scatter_accumulate_plain(table: torch.Tensor, idx: torch.Tensor,
     n_rows = table.shape[0]
     in_range = (idx >= 0) & (idx < n_rows)
     rows = table.index_select(0, torch.where(in_range, idx, 0).long())
-    new_rows = apply_updates(rows, grads, shows, clks, cfg)
+    new_rows = optim.apply_updates(rows, grads, shows, clks, cfg)
     keep = in_range if touched is None else in_range & (touched > 0)
     table[idx[keep].long()] = new_rows[keep]
     return table
@@ -579,8 +581,8 @@ def merge_update_plain(table: torch.Tensor, acc: torch.Tensor,
     ``apply_updates`` over the whole table, kept where the touch count is
     > 0 (in place); returns ``table``."""
     gw = cfg.grad_width
-    new_rows = apply_updates(table, acc[:, :gw], acc[:, gw], acc[:, gw + 1],
-                             cfg)
+    new_rows = optim.apply_updates(table, acc[:, :gw], acc[:, gw],
+                                   acc[:, gw + 1], cfg)
     touched = acc[:, gw + 2] > 0
     return table.copy_(torch.where(touched[:, None], new_rows, table))
 
@@ -685,12 +687,19 @@ def resolve_push_engine(cfg: EmbeddingConfig, n_rows: int, *,
     lanes, ``binned_kernel`` a binned_geometry (and ignores
     ``flags.binned_push``: an enable knob must not void an explicit
     force). Both kernels that update rows in place cap the width at
-    SA_MAX_WIDTH."""
+    SA_MAX_WIDTH.
+
+    Quantized tables (``cfg.storage`` int8/int16) never take the fused
+    engine, which updates f32 rows in place; under ``binned_kernel`` they
+    take the accumulator alone (``binned_merge_acc``, storage-agnostic)
+    before their dequant -> update -> requant pass, so the width cap,
+    which binds merge_update's in-place row update, does not apply
+    (``pallas_kernels.binned_acc_supported``)."""
     eng = push_engine_flag()
     width = int(table_width) if table_width is not None else cfg.row_width
     f32 = cfg.storage == "f32"
     sa_ok = premerged and f32 and scatter_accumulate_supported(n_rows, width)
-    binned_ok = (f32 and width <= SA_MAX_WIDTH
+    binned_ok = ((width <= SA_MAX_WIDTH or not f32)
                  and binned_geometry(cfg, n_rows) is not None)
     if eng == "xla_scatter":
         return "xla_scatter"

@@ -27,9 +27,10 @@ off the request path and swap it in while traffic flows.
   scores and AUC go to ``ServingObs``.
 
 Hot keys flagged by the publisher are counted per version
-(``health()["hot_cached_keys"]``); the reference pins them into a
-``ReplicaCache``, which nothing on the port's request path reads yet
-(ROADMAP, queue 1 item 9). Scoring runs on the card unless
+(``health()["hot_cached_keys"]``). The reference also pins them into a
+per-version ``ReplicaCache`` that no request reads; the port has the
+class (``embedding/replica_cache.py``) and builds none. Scoring runs on
+the card unless
 ``device="cpu"``: every Predictor the server builds gets its device.
 
 ``/healthz`` serves ``health()`` as JSON (503 before the first load).

@@ -46,16 +46,27 @@ lines of each batch (``dump_fields``: ins_id, float slots, sparse slots)
 and, at pass end, ``param <path> v,v,...`` for the dense params matching
 ``dump_param``, written on a writer thread (``utils/profiler.py``).
 
+Storage tiers (the JAX trainer's :273-289): the store may be a
+``SpillEmbeddingStore`` (``tiering.store_from_flags`` under
+``flags.table_tiering="spill"``), the table may be quantized
+(``EmbeddingConfig.storage`` int8 / int16: a ``QuantTable`` on the card,
+pushed through ``binned_merge_acc`` and the requant pass), and under
+``flags.use_replica_cache`` the trainer owns a ``TrainerReplicaCache``
+attached to its feed manager. At the end of a pass no ``BoxPS`` pass
+scope holds (``store.boundary_owner`` is None) ``train_pass`` runs the
+boundary itself: ``tiering.end_pass_rebalance`` then
+``refresh_replica_boundary``; under a BoxPS pass ``BoxPS.end_pass`` runs
+both.
+
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
 Not ported yet (ROADMAP): multi-shard routing and shard ownership,
 kstep/async dense sync, supersteps, deferred push (push overlap:
-``flush_push`` is a no-op hook), the replica cache and quantized
-staging, mid-pass snapshot saving, coordinated multi-host resume,
-telemetry (the nan trip's and the dump stream's counters and events
-included), tiering.
+``flush_push`` is a no-op hook), mid-pass snapshot saving, coordinated
+multi-host resume, telemetry (the nan trip's, the dump stream's and the
+tiers' counters and events included).
 """
 
 from __future__ import annotations
@@ -76,8 +87,9 @@ from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
 from paddlebox_tpu_torch.device import resolve_device
-from paddlebox_tpu_torch.embedding import sharded
+from paddlebox_tpu_torch.embedding import quant, sharded, tiering
 from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
+from paddlebox_tpu_torch.embedding.replica_cache import TrainerReplicaCache
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import PassWorkingSet
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
@@ -161,6 +173,17 @@ class Trainer:
         # several trainers drive one table.
         self.feed_mgr = feed_mgr or FeedPassManager(store, self.device)
         self.feed_mgr.register_pre_flush(self.flush_push)
+        # the host table's storage tier: "spill" or None (in RAM)
+        self.table_tiering = tiering.describe(store)
+        # the replica hot tier (flags.use_replica_cache): rows the tier
+        # manager ranks hottest, on the card, refreshed at every pass
+        # boundary and serving the feed manager's fresh keys. Placement
+        # only: bit-identical on or off.
+        self.replica_cache = None
+        if flags.use_replica_cache:
+            self.replica_cache = TrainerReplicaCache(store,
+                                                     device=self.device)
+            self.feed_mgr.set_replica(self.replica_cache)
 
     # ------------------------------------------------------------------
     # engine selection
@@ -218,10 +241,13 @@ class Trainer:
         return self._use_plan and self._dedup_premerge()
 
     def resolved_push_engine(self, ws: PassWorkingSet) -> str:
-        """The push engine the steps run for this working set."""
+        """The push engine the steps run for this working set (for a
+        quantized table, the engine of its accumulator)."""
+        width = (None if quant.is_quant(ws.table)
+                 else int(ws.table.shape[1]))
         return kernels.resolve_push_engine(
             self.store.cfg, ws.padded_rows, premerged=self.push_premerged(),
-            device_type=self.device.type, table_width=ws.table.shape[1])
+            device_type=self.device.type, table_width=width)
 
     # ------------------------------------------------------------------
     # host pack → device
@@ -441,7 +467,9 @@ class Trainer:
         write-back. Returns AUC stats plus loss_first/last/mean, steps,
         step_seconds (the step loop's wall time, device work included)
         and seconds (the whole pass); the boundary's own numbers are the
-        feed manager's ``last_*`` attributes.
+        feed manager's ``last_*`` attributes. Outside a BoxPS pass the
+        pass-boundary tier work runs at the end (``tiering`` in the
+        result for a spill store).
 
         ``metrics``: a MetricRegistry; every registered metric gets each
         batch's (preds, labels, cmatch, rank). ``preload_keys``: the next
@@ -519,8 +547,24 @@ class Trainer:
         out["loss_mean"] = float(np.mean(lv)) if len(lv) else float("nan")
         out["steps"] = len(lv)
         out["step_seconds"] = step_seconds
+        if self.store.boundary_owner is None:
+            # a trainer-owned pass: no BoxPS.end_pass will run the tier
+            # re-scoring and the replica refresh, so they run here, the
+            # rebalance first (the refresh reads its ranking)
+            tier = tiering.end_pass_rebalance(self.store)
+            if tier is not None:
+                out["tiering"] = tier
+            self.refresh_replica_boundary()
         out["seconds"] = time.perf_counter() - t0
         return out
+
+    def refresh_replica_boundary(self) -> int | None:
+        """Rebuild the replica hot tier from the tier manager's ranking
+        (after ``tiering.end_pass_rebalance``), for the next pass's
+        staging. None when the tier is off."""
+        if self.replica_cache is None:
+            return None
+        return self.replica_cache.refresh()
 
     @staticmethod
     def _read_loss(loss: torch.Tensor) -> float:

@@ -46,6 +46,14 @@ POINTS: tuple[str, ...] = (
     # background staging with rows mutated after it). Nothing is applied
     # yet, so the previous pass's snapshot is the recovery point.
     "feed_pass.delta_stage.pre",
+    # embedding/spill_store: a spill store is about to msync its
+    # memory-mapped rows and stream them into a base/delta payload —
+    # dying here must leave the chain at the previous committed save.
+    "tiering.save.pre_flush",
+    # embedding/spill_store.tier_end_pass: the pass-boundary re-scoring is
+    # about to demote cold cached rows; the cache is never authoritative,
+    # so a kill here must resume bit-exact.
+    "tiering.evict.pre",
     # utils/pass_ckpt.save: all planes written, snapshot MANIFEST.json not
     # yet committed — the snapshot must be invisible to resume.
     "pass_ckpt.pre_manifest",

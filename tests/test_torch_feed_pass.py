@@ -466,8 +466,12 @@ def test_helpers_and_unported_options():
         with pytest.raises(NotImplementedError, match="item 11"):
             FeedPassManager(store, device="cpu", **kw)
     mgr = FeedPassManager(store, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mgr.set_replica(object())
+    # the replica tier is ported: set_replica attaches and None detaches
+    replica = object()
+    mgr.set_replica(replica)
+    assert mgr._replica is replica
+    mgr.set_replica(None)
+    assert mgr._replica is None
     mgr.close()
     assert mgr._hook not in store._flush_hooks
 

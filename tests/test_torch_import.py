@@ -47,7 +47,11 @@ for name in ("paddlebox_tpu_torch.serving.server",
              "paddlebox_tpu_torch.inference.predictor",
              "paddlebox_tpu_torch.train.phased",
              "paddlebox_tpu_torch.metrics.auc_runner",
-             "paddlebox_tpu_torch.ops.kernels"):
+             "paddlebox_tpu_torch.ops.kernels",
+             "paddlebox_tpu_torch.embedding.quant",
+             "paddlebox_tpu_torch.embedding.spill_store",
+             "paddlebox_tpu_torch.embedding.tiering",
+             "paddlebox_tpu_torch.embedding.replica_cache"):
     assert name in walked, (name, walked)
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
