@@ -142,7 +142,33 @@ Phases, each of which exits non-zero on failure:
    bytes equal transfer_bytes, the flushed rows are the bf16 rounding
    of the card's, and they agree with phase 5's rows (TABLE_TOL; embedx
    within one bf16 step more, the build having rounded the initial
-   rows).
+   rows);
+13. the monitor's write side and mid-pass snapshots, DeepFM at full
+   width, every training pass counted between a reset just before and
+   a read just after (the sums are the kernels line's
+   phase13_launches): (a) on each layout, 16-step passes through
+   BoxPS.begin_pass -> train_pass -> end_pass with the telemetry hub
+   off, disabled (a session opened and closed) and on a JsonlSink,
+   alternating, 3 each after a warm-up: the layout's kernels 16 each in
+   every mode, the events file clean under validate_events_file, the
+   flight record's steps 16 and examples 16 x 8192, trainer.tokens the
+   tokens packed, 0 host syncs a step inside the loop with the hub on
+   (sync-debug warnings read at each step's start), and each run's
+   step-loop examples/s and host ms a batch, beside the hub's host cost
+   a span and an event, disabled and on a JsonlSink; (b) on the one-hot
+   layout,
+   mid-pass snapshots every 4 steps of a pass, printing each save's
+   seconds, bytes and stream wait; a process armed to die at
+   trainer.midpass.post_save after the step-8 snapshot, resumed in a
+   fresh process whose restored state (keys, rows, dense params, adam
+   state, metric state, cursor) is bit-equal to the killed process's
+   live state at step 8 and whose tail (binned_merge_acc and
+   merge_update 8 each) ends within LOSS_TOL / TABLE_TOL of the
+   uninterrupted pass; drain_and_snapshot after a pass raised at the top
+   of step 7, resumed the same way; (c) start_device_trace /
+   stop_device_trace (torch.profiler with CUDA activity) around one
+   one-hot pass: the Chrome trace names the kernels and the pass_begin /
+   pass_end markers.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -151,6 +177,7 @@ beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -2983,6 +3010,493 @@ def storage_phase(torch, kernels, card, ref) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the monitor's write side and mid-pass snapshots
+# ---------------------------------------------------------------------------
+
+MIDPASS_EVERY = 4          # (b): snapshots at steps 4, 8, 12, 16
+MIDPASS_KILL_STEP = 8      # the killed process dies after this snapshot
+DRAIN_STEP = 6             # the drained pass raises at the top of step 7
+
+
+def monitor_job(torch, lay, n_steps=None, seed=SEED):
+    """A fresh job on ``lay`` at full width: (store, schema, trainer, box
+    with an "auc" metric, dataset of ``n_steps`` batches). The keys and
+    records depend only on the layout, so another process rebuilds the
+    same job."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    n_steps = n_steps or lay.steps
+    rng = np.random.default_rng(SEED + 13)
+    keys = np.unique(rng.integers(1, 1 << 50, lay.n_keys + 4096,
+                                  dtype=np.uint64))[:lay.n_keys]
+    store, schema, tr = make_trainer(torch, lay, B, None, seed=seed)
+    box = BoxPS(store)
+    box.init_metric("auc")
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, n_steps * B, keys,
+                              np.random.default_rng(SEED + 14),
+                              lay.max_len)
+    return store, schema, tr, box, ds
+
+
+class StopAfter:
+    """A dataset whose batch stream raises after ``n`` batches: the error
+    reaches the step loop from the pack thread at the top of step n+1."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def unique_keys(self):
+        return self.ds.unique_keys()
+
+    def batches(self, batch_size=None, drop_last=True):
+        for i, pb in enumerate(self.ds.batches(batch_size, drop_last)):
+            if i == self.n:
+                raise RuntimeError(f"input stream broke at batch {i}")
+            yield pb
+
+
+def live_state(tr, box) -> dict:
+    """The job's state read straight off the card: the working set's
+    rows (D2H of the device table), the dense params and optimizer
+    state, the metric state and the step."""
+    from paddlebox_tpu_torch.embedding.working_set import fetch_rows
+    ws = tr.last_ws
+    rows, _ = fetch_rows(ws.table, np.arange(1, ws.num_keys + 1),
+                         tr.store.cfg)
+    return dict(keys=ws.sorted_keys.copy(), rows=rows,
+                dense=flat_dense(tr), metrics=metric_state(box),
+                step=tr.global_step)
+
+
+def save_state(path: str, st: dict, extra: dict | None = None) -> None:
+    arrays = {"keys": st["keys"], "rows": st["rows"]}
+    arrays.update({"dense/" + k: v for k, v in st["dense"].items()})
+    arrays.update({"metric/" + k: v for k, v in st["metrics"].items()})
+    np.savez(path, **arrays)
+    with open(path + ".json", "w") as f:
+        json.dump({"step": int(st["step"]), **(extra or {})}, f)
+
+
+def load_state(path: str) -> tuple[dict, dict]:
+    with np.load(path + ".npz") as z:
+        st = dict(keys=z["keys"], rows=z["rows"],
+                  dense={k[6:]: z[k] for k in z.files
+                         if k.startswith("dense/")},
+                  metrics={k[7:]: z[k] for k in z.files
+                           if k.startswith("metric/")})
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    st["step"] = meta["step"]
+    return st, meta
+
+
+def same_state(got: dict, want: dict) -> bool:
+    """Bit-equality of two states, the store as a key -> row map."""
+    go, wo = np.argsort(got["keys"]), np.argsort(want["keys"])
+    return (np.array_equal(got["keys"][go], want["keys"][wo])
+            and np.array_equal(got["rows"][go], want["rows"][wo])
+            and sorted(got["dense"]) == sorted(want["dense"])
+            and all(got["dense"][k].dtype == v.dtype
+                    and np.array_equal(got["dense"][k], v)
+                    for k, v in want["dense"].items())
+            and sorted(got["metrics"]) == sorted(want["metrics"])
+            and all(np.array_equal(got["metrics"][k], v)
+                    for k, v in want["metrics"].items())
+            and int(got["step"]) == int(want["step"]))
+
+
+def midpass_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --midpass-worker kill ROOT`` trains the phase-13
+    one-hot pass with mid-pass snapshots every MIDPASS_EVERY steps; the
+    environment arms trainer.midpass.post_save, so it dies there, after
+    writing its live state at the MIDPASS_KILL_STEP snapshot (read off
+    the card once the snapshot committed) to ROOT.live;
+    ``... resume ROOT OUT`` resumes ROOT's newest snapshot in a fresh
+    job, writes the restored state to OUT, finishes the pass with
+    skip_steps = the cursor's mid_steps and writes the final rows, loss
+    and the tail's launches to OUT.final."""
+    import torch
+    from paddlebox_tpu_torch.ops import kernels
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    mode, root = argv[0], argv[1]
+    store, _, tr, box, ds = monitor_job(torch, ONEHOT, seed=SEED + 7)
+    ckpt = PassCheckpointer(root, base_every=2)
+    if mode == "kill":
+        tr.enable_midpass_snapshots(ckpt, MIDPASS_EVERY, box,
+                                    metrics=box.metrics)
+        inner = tr._snapshot_open_pass
+
+        def capture(*a, **kw):
+            info = inner(*a, **kw)
+            if info["mid_steps"] == MIDPASS_KILL_STEP:
+                save_state(root + ".live", live_state(tr, box))
+            return info
+
+        tr._snapshot_open_pass = capture
+        box.set_date(20261017)
+        box.begin_pass()
+        tr.train_pass(ds, metrics=box.metrics)
+        print("midpass worker: the pass ended without the kill")
+        return 1
+    out_path = argv[2]
+    cursor = tr.resume(ckpt, box=box)
+    keys = np.sort(ds.unique_keys())
+    restored = dict(keys=keys, rows=store.get_rows(keys),
+                    dense=flat_dense(tr), metrics=metric_state(box),
+                    step=tr.global_step)
+    save_state(out_path, restored, {
+        "cursor": {k: cursor[k] for k in ("pass_id", "mid_steps",
+                                          "global_step")},
+        "resume_s": ckpt.last_resume["seconds"],
+        "resume_bytes": ckpt.last_resume["bytes"],
+        "on_card": next(tr.model.parameters()).device.type == "cuda"})
+    box.begin_pass()
+    reset_counts(kernels)
+    out = tr.train_pass(ds, metrics=box.metrics,
+                        skip_steps=cursor["mid_steps"])
+    launches = launch_counts(kernels)
+    box.end_pass()
+    final = dict(keys=keys, rows=store.get_rows(keys), dense=flat_dense(tr),
+                 metrics=metric_state(box), step=tr.global_step)
+    save_state(out_path + ".final", final, {
+        "launches": launches, "steps": out["steps"],
+        "loss_last": out["loss_last"]})
+    return 0
+
+
+def run_worker(args: list[str], env_extra: dict | None = None):
+    env = dict(os.environ)
+    env.pop("PBTPU_FAULTPOINT", None)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--midpass-worker", *args],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+
+
+def pass_loop_syncs(torch, tr, box, ds) -> float:
+    """Host syncs a step makes inside train_pass's loop, spans, timers,
+    counters and the hub's sinks included: the sync-debug warnings over
+    a whole pass, read at each train_step's start, from step 2's to step
+    16's, per step."""
+    import warnings
+    marks = []
+    inner = tr.train_step
+
+    def marked(*a, **kw):
+        marks.append(len(caught))
+        return inner(*a, **kw)
+
+    tr.train_step = marked
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            box.begin_pass()
+            tr.train_pass(ds, metrics=box.metrics)
+            box.end_pass()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del tr.train_step
+    check(len(marks) == 16, f"sync probe saw {len(marks)} steps")
+    return (marks[-1] - marks[1]) / (len(marks) - 2)
+
+
+def hub_modes(torch, kernels, card, lay, total: dict) -> None:
+    """(a) on one layout: 16-step passes through BoxPS with the hub off
+    (never enabled), disabled (a session opened and closed) and on with a
+    JsonlSink, alternating, 3 each after a warm-up pass."""
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.monitor import flight
+    h = monitor.hub()
+    h.disable()
+    store, schema, tr, box, ds = monitor_job(torch, lay)
+    box.set_date(20261017)
+    n_tok = 16 * B * tr.layout.total_len
+    runs: dict[str, list] = {"off": [], "disabled": [], "jsonl": []}
+    with tempfile.TemporaryDirectory() as d:
+        for i, mode in enumerate(["warm-up"] + ["off", "disabled",
+                                                "jsonl"] * 3):
+            path = os.path.join(d, f"events-{i}.jsonl")
+            if mode == "disabled":
+                h.enable(monitor.MemorySink())
+                h.disable()
+            elif mode == "jsonl":
+                h.enable(monitor.JsonlSink(path))
+            stage0 = tr.timers.snapshot()
+            box.begin_pass()
+            reset_counts(kernels)
+            out = tr.train_pass(ds, metrics=box.metrics)
+            launches = launch_counts(kernels)
+            rec = box.end_pass()["flight_record"]
+            h.disable()
+            add_counts(total, launches)
+            expect_launches(f"(a) {lay.name} {mode} pass", launches,
+                            {k: 16 for k in lay.kernels})
+            check(out["steps"] == 16, f"(a) {mode}: {out['steps']} steps")
+            if mode == "warm-up":
+                continue
+            tr_ms = (tr.timers.total["translate"] - stage0["translate"]) \
+                / 16 * 1e3
+            rd_ms = (tr.timers.total["read"] - stage0["read"]) / 16 * 1e3
+            runs[mode].append((16 * B / out["step_seconds"], tr_ms, rd_ms))
+            if mode != "jsonl":
+                check(not os.path.exists(path), "a sink wrote while off")
+                continue
+            res = flight.validate_events_file(path)
+            check(res["errors"] == [], f"(a) events file: {res['errors'][:5]}")
+            fr = res["flight_records"]
+            check(len(fr) == 1 and flight.validate_flight_record(rec) == []
+                  and fr[0]["pass_id"] == rec["pass_id"],
+                  f"(a) flight records {len(fr)}")
+            fr = fr[0]
+            check(fr["steps"] == 16 and fr["examples"] == 16 * B,
+                  f"(a) flight record steps {fr['steps']} examples "
+                  f"{fr['examples']}")
+            got = fr["stats_delta"].get("trainer.tokens")
+            check(got == n_tok, f"(a) trainer.tokens {got}, packed {n_tok}")
+            names = collections.Counter(
+                r["name"] for r in map(json.loads, open(path))
+                if r["type"] in ("span", "event", "lifecycle"))
+            check(names["train_step"] == 16 and names["stage/translate"] == 16,
+                  f"(a) span counts {dict(names)}")
+        h.enable(monitor.JsonlSink(os.path.join(d, "sync-probe.jsonl")))
+        try:
+            syncs = pass_loop_syncs(torch, tr, box, ds)
+        finally:
+            h.disable()
+    check(syncs == 0, f"(a) {lay.name}: {syncs} host syncs a step with the "
+          f"hub on a JsonlSink")
+    print(f"  (a) {lay.name} ({card}): 16-step passes, launches "
+          f"{ {k: 16 for k in lay.kernels} } in every mode, flight record "
+          f"steps 16 examples {16 * B}, trainer.tokens {n_tok}, "
+          f"validate_events_file 0 problems, host syncs/step with the hub "
+          f"on {syncs:g}")
+    for mode, rs in runs.items():
+        eps = [r[0] for r in rs]
+        print(f"  (a) {lay.name}, hub {mode} ({card}): step-loop ex/s "
+              f"{', '.join(f'{x:.1f}' for x in eps)} (spread "
+              f"{min(eps):.1f}-{max(eps):.1f}) | host translate ms/batch "
+              f"{', '.join(f'{r[1]:.2f}' for r in rs)} | step-thread read "
+              f"wait ms/step {', '.join(f'{r[2]:.2f}' for r in rs)}")
+    del store, tr, box, ds
+    torch.cuda.empty_cache()
+
+
+def midpass_snapshots(torch, kernels, card, total: dict, d: str) -> None:
+    """(b) mid-pass snapshots every MIDPASS_EVERY steps on the one-hot
+    layout: an uninterrupted pass, a process killed after the step-8
+    snapshot and resumed in another (its restored state held bit-equal
+    to the killed process's live state at that step, the finished pass
+    to the uninterrupted one within LOSS_TOL / TABLE_TOL), and
+    drain_and_snapshot after a pass raised at step 7, resumed the same
+    way."""
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    lay = ONEHOT
+    root_u = os.path.join(d, "uninterrupted")
+    store, _, tr, box, ds = monitor_job(torch, lay, seed=SEED + 7)
+    ckpt = PassCheckpointer(root_u, base_every=2)
+    tr.enable_midpass_snapshots(ckpt, MIDPASS_EVERY, box,
+                                metrics=box.metrics)
+    box.set_date(20261017)
+    box.begin_pass()
+    reset_counts(kernels)
+    out_u = tr.train_pass(ds, metrics=box.metrics)
+    launches = launch_counts(kernels)
+    box.end_pass()
+    add_counts(total, launches)
+    expect_launches("(b) uninterrupted pass", launches,
+                    {k: 16 for k in lay.kernels})
+    keys = np.sort(ds.unique_keys())
+    final_u = store.get_rows(keys)
+    saves = tr.midpass_saves
+    check([s["mid_steps"] for s in saves] == [4, 8, 12, 16],
+          f"(b) mid-pass saves at {[s['mid_steps'] for s in saves]}")
+    for s in saves:
+        print(f"  (b) mid-pass save at step {s['mid_steps']} ({card}): "
+              f"{os.path.basename(s['snapshot'])} {s['bytes']} bytes in "
+              f"{s['seconds']:.3f} s, stream wait {s['stream_wait_s'] * 1e3:.3f}"
+              f" ms | step loop {out_u['step_seconds']:.3f} s for 16 steps "
+              f"with the saves")
+
+    def resume_and_hold(root, want, skip, label):
+        out = os.path.join(d, f"resumed-{label}")
+        t0 = time.perf_counter()
+        r = run_worker(["resume", root, out])
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"(b) {label} resume worker failed "
+              f"({r.returncode}): {r.stdout[-1500:]}{r.stderr[-3000:]}")
+        restored, meta = load_state(out)
+        cur = meta["cursor"]
+        check(cur["pass_id"] == 0 and cur["mid_steps"] == skip
+              and cur["global_step"] == skip and meta["on_card"],
+              f"(b) {label}: cursor {cur}")
+        check(same_state(restored, want),
+              f"(b) {label}: the restored state differs from the live one "
+              f"at step {skip}")
+        final, fmeta = load_state(out + ".final")
+        expect_launches(f"(b) {label} resumed tail", fmeta["launches"],
+                        {k: 16 - skip for k in lay.kernels})
+        add_counts(total, fmeta["launches"])
+        check(fmeta["steps"] == 16 - skip, f"(b) {label}: tail ran "
+              f"{fmeta['steps']} steps")
+        check(np.array_equal(final["keys"], keys), f"(b) {label}: keys")
+        np.testing.assert_allclose(final["rows"], final_u, **TABLE_TOL)
+        np.testing.assert_allclose(fmeta["loss_last"], out_u["loss_last"],
+                                   **LOSS_TOL)
+        print(f"  (b) {label} ({card}): resumed in a fresh process "
+              f"({wall:.1f} s wall) from {meta['resume_bytes']} bytes in "
+              f"{meta['resume_s']:.3f} s; keys, rows, dense params, adam "
+              f"state, metric state and cursor bit-equal to the live state "
+              f"at step {skip} ok; tail of {16 - skip} steps launched "
+              f"{fmeta['launches']}; loss last {fmeta['loss_last']:.6f} vs "
+              f"{out_u['loss_last']:.6f}, rows within TABLE_TOL ok")
+
+    root_k = os.path.join(d, "killed")
+    r = run_worker(["kill", root_k], {
+        "PBTPU_FAULTPOINT": "trainer.midpass.post_save",
+        "PBTPU_FAULTPOINT_AFTER": str(MIDPASS_KILL_STEP // MIDPASS_EVERY
+                                      - 1)})
+    check(r.returncode == 137 and "FAULTPOINT KILL trainer.midpass.post_save"
+          in r.stderr, f"(b) kill worker exited {r.returncode}: "
+          f"{r.stdout[-1500:]}{r.stderr[-3000:]}")
+    names = sorted(n for n in os.listdir(root_k) if n.startswith("pass-"))
+    check(names == ["pass-00000.mid00004", "pass-00000.mid00008"],
+          f"(b) the killed run left {names}")
+    live, _ = load_state(root_k + ".live")
+    check(live["step"] == MIDPASS_KILL_STEP, "(b) the killed run's live "
+          f"state is from step {live['step']}")
+    resume_and_hold(root_k, live, MIDPASS_KILL_STEP, "killed at step 8")
+    del store, tr, box
+    torch.cuda.empty_cache()
+
+    # drain_and_snapshot after the pass raised at the top of step 7
+    root_d = os.path.join(d, "drained")
+    store, _, tr, box, ds = monitor_job(torch, lay, seed=SEED + 7)
+    ckpt = PassCheckpointer(root_d, base_every=2)
+    box.set_date(20261017)
+    box.begin_pass()
+    reset_counts(kernels)
+    try:
+        tr.train_pass(StopAfter(ds, DRAIN_STEP), metrics=box.metrics)
+        raise SmokeFailure("(b) the drained pass did not raise")
+    except RuntimeError as e:
+        check("input stream broke" in str(e), f"(b) drained pass: {e!r}")
+    launches = launch_counts(kernels)
+    add_counts(total, launches)
+    expect_launches("(b) drained pass", launches,
+                    {k: DRAIN_STEP for k in lay.kernels})
+    at_drain = live_state(tr, box)
+    snap = tr.drain_and_snapshot(ckpt, box)
+    info = tr.midpass_saves[-1]
+    box.abort_pass("input stream broke")
+    check(snap is not None and os.path.basename(snap)
+          == f"pass-00000.mid{DRAIN_STEP:05d}", f"(b) drain snapshot {snap}")
+    print(f"  (b) drain_and_snapshot after the raise at step "
+          f"{DRAIN_STEP + 1} ({card}): {os.path.basename(snap)} "
+          f"{info['bytes']} bytes in {info['seconds']:.3f} s, stream wait "
+          f"{info['stream_wait_s'] * 1e3:.3f} ms")
+    del store, tr, box
+    torch.cuda.empty_cache()
+    resume_and_hold(root_d, at_drain, DRAIN_STEP, "drained at step 6")
+
+
+def device_trace(torch, kernels, card, total: dict, d: str) -> None:
+    """(c) start_device_trace / stop_device_trace around one one-hot
+    pass: the Chrome trace names the CUDA kernels and the pass markers."""
+    from paddlebox_tpu_torch.utils import profiler
+    store, _, tr, box, ds = monitor_job(torch, ONEHOT)
+    box.set_date(20261017)
+    logdir = os.path.join(d, "device-trace")
+    t0 = time.perf_counter()
+    profiler.start_device_trace(logdir)
+    box.begin_pass()
+    reset_counts(kernels)
+    tr.train_pass(ds, metrics=box.metrics)
+    launches = launch_counts(kernels)
+    box.end_pass()
+    path = profiler.stop_device_trace()
+    wall = time.perf_counter() - t0
+    add_counts(total, launches)
+    expect_launches("(c) traced pass", launches,
+                    {k: 16 for k in ONEHOT.kernels})
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in evs]
+    kern = [n for n in names if "binned_merge_acc_kernel" in n]
+    mu = [n for n in names if "merge_update_kernel" in n]
+    check(len(kern) >= 16 and len(mu) >= 16, f"(c) the trace holds "
+          f"{len(kern)} binned_merge_acc and {len(mu)} merge_update kernels")
+    check("pass_begin" in names and "pass_end" in names,
+          "(c) the trace lacks the pass_begin / pass_end markers")
+    print(f"  (c) device trace ({card}): {os.path.getsize(path)} bytes, "
+          f"{len(evs)} events, {len(kern)} binned_merge_acc_kernel and "
+          f"{len(mu)} merge_update_kernel launches, pass_begin and "
+          f"pass_end markers ok ({wall:.1f} s traced pass)")
+
+
+def hub_cost(card: str, d: str) -> None:
+    """The hub's host cost a record on this machine: a span scope and an
+    event, 20,000 each inside a pass scope, with the hub disabled and on
+    a JsonlSink (queue large enough to drop nothing), and what a step's
+    6 records (5 spans and the pack thread's stage/translate) cost."""
+    from paddlebox_tpu_torch import monitor
+    h = monitor.hub()
+    n = 20000
+
+    def per_call() -> tuple[float, float]:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with monitor.span("train_step"):
+                pass
+        t1 = time.perf_counter()
+        for i in range(n):
+            monitor.event("pack_producer_done", batches=i)
+        return (t1 - t0) / n, (time.perf_counter() - t1) / n
+
+    h.begin_pass(0, owner="probe")
+    try:
+        off = per_call()
+        sink = monitor.JsonlSink(os.path.join(d, "cost.jsonl"),
+                                 queue_size=4 * n)
+        h.enable(sink)
+        on = per_call()
+    finally:
+        h.disable()
+        h.abort_pass("probe")
+    check(sink.dropped == 0 and sink.error is None and sink.written == 2 * n,
+          f"hub cost probe: {sink.written} written, {sink.dropped} dropped")
+    print(f"  hub cost ({card}): disabled span {off[0] * 1e6:.3f} us, event "
+          f"{off[1] * 1e6:.3f} us | JsonlSink span {on[0] * 1e6:.3f} us, "
+          f"event {on[1] * 1e6:.3f} us | a step's 6 records "
+          f"{6 * on[0] * 1e3:.4f} ms on, {6 * off[0] * 1e3:.4f} ms "
+          f"disabled")
+
+
+def monitor_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 13. Returns the launches of every kernel over the phase's
+    training passes."""
+    print(f"== the monitor's write side and mid-pass snapshots ({card}): "
+          f"DeepFM, {B} x {S} slots")
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        hub_cost(card, d)
+    for lay in (ONEHOT, MULTI):
+        hub_modes(torch, kernels, card, lay, total)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        midpass_snapshots(torch, kernels, card, total, d)
+        t2 = time.perf_counter()
+        device_trace(torch, kernels, card, total, d)
+    print(f"launches in phase 13: {total} | seconds: hub modes "
+          f"{t1 - t0:.1f}, mid-pass {t2 - t1:.1f}, device trace "
+          f"{time.perf_counter() - t2:.1f}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3011,13 +3525,15 @@ def main() -> int:
     zoo_phase(torch, kernels, card)
     serving = serving_phase(torch, kernels, card)
     storage = storage_phase(torch, kernels, card, onehot_pass)
+    monitored = monitor_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
         r["phase12_launches"] = storage.get(r["name"], 0)
+        r["phase13_launches"] = monitored.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "phase11_launches", "phase12_launches")
+            "phase11_launches", "phase12_launches", "phase13_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -3027,4 +3543,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--midpass-worker"]:
+        sys.exit(midpass_worker(sys.argv[2:]))
     sys.exit(main())

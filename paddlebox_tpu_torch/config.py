@@ -89,6 +89,27 @@ class Flags:
     # madvise(WILLNEED) readahead of the spill rows a working-set build is
     # about to fault in, before it reads them
     spill_prefetch: bool = True
+    # mid-pass snapshot cadence (steps) of Trainer.enable_midpass_snapshots
+    # when called without every_steps; 0 = pass-boundary snapshots only
+    ckpt_midpass_every_steps: int = 0
+    # RecordEvent span ring capacity of utils.profiler: at most this many
+    # spans are kept, oldest dropped first (profiler.dropped_spans counts
+    # them); 0 = unbounded
+    profiler_max_events: int = 200_000
+    # JsonlSink bounded queue: a slow or failed writer drops events
+    # (counted) instead of ever blocking the training thread
+    telemetry_queue_size: int = 8192
+    # JsonlSink size-based rotation: past this many MB the writer opens
+    # the next numbered segment (events.jsonl -> events.00001.jsonl);
+    # 0 = one unbounded file
+    telemetry_rotate_mb: int = 0
+    # the monitor's read side, off as in the JAX package: the live doctor
+    # and the world trace (host records and the per-pass device capture)
+    # are not ported yet, and the hub refuses them when set (ROADMAP
+    # queue 1 item 7)
+    doctor_live: bool = False
+    trace: bool = False
+    trace_device: bool = False
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):

@@ -11,11 +11,12 @@ loads the next pass on a background thread while this one trains
 (feature ablation), ``merge_by_ins_id`` / ``merge_by_search_id`` and
 ``prepare_train`` / ``shard_batches``.
 
-Each load leaves its numbers in ``last_load_stats`` (the JAX package
-sends them to its monitor, which is not ported yet). Cross-host
-shuffling (the TCP shuffle service, its routing modes, ``member_shards``
-and ``reroute_records``) is not ported yet and raises
-(ROADMAP, queue 1 item 11); ``load_into_memory(global_shuffle=True)``
+Each load leaves its numbers in ``last_load_stats`` and counts
+``dataset.records_loaded`` / ``dataset.feasigns_loaded`` in the monitor,
+as the JAX package does. Cross-host shuffling (the TCP shuffle service,
+its routing modes, ``member_shards`` and ``reroute_records``) is not
+ported yet and raises (ROADMAP, queue 1 item 6);
+``load_into_memory(global_shuffle=True)``
 on one host is the same local permutation the JAX package draws when it
 has no service.
 """
@@ -37,9 +38,10 @@ from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import (PackedBatch,
                                                   SlotRecordBatch,
                                                   batch_iterator)
+from paddlebox_tpu_torch.monitor import counter_add as stat_add
 
 _TCP_SHUFFLE = ("the cross-host TCP shuffle (data/shuffle.py) is not "
-                "ported yet (ROADMAP, queue 1 item 11)")
+                "ported yet (ROADMAP, queue 1 item 6)")
 
 
 def parse_threads_per_file(n_file_threads: int) -> int:
@@ -151,10 +153,14 @@ class SlotDataset:
         if unroll is not None and batch.num > 0:
             batch = unroll(batch)
         self.records = batch
+        feasigns = int(sum(len(v) for v in batch.sparse_values))
+        # STAT_ADD counters, like data_feed's feasign stats
+        stat_add("dataset.records_loaded", batch.num)
+        stat_add("dataset.feasigns_loaded", float(feasigns))
         self.last_load_stats = {
             "files": len(self.filelist),
             "records": batch.num,
-            "feasigns": int(sum(len(v) for v in batch.sparse_values)),
+            "feasigns": feasigns,
             "seconds": time.perf_counter() - t0,
             "file_threads": n_threads,
             "parse_threads": parse_threads,
@@ -258,6 +264,7 @@ class SlotDataset:
         kept_starts, kept_sizes = starts[keep], sizes[keep]
         if not len(kept_starts):
             self.records = SlotRecordBatch.empty(self.schema)
+            stat_add("dataset.merge_by_ins_id_dropped", dropped)
             return dropped
         # one ragged gather, then offsets sampled at group boundaries
         # (offsets are cumulative, so a group's span is the offsets at
@@ -274,6 +281,7 @@ class SlotDataset:
             float_values=firsts.float_values,
             ins_id=firsts.ins_id, search_id=firsts.search_id,
             rank=firsts.rank, cmatch=firsts.cmatch)
+        stat_add("dataset.merge_by_ins_id_dropped", dropped)
         return dropped
 
     def merge_by_search_id(self) -> np.ndarray:

@@ -15,10 +15,11 @@ skips each malformed line, counts it and warns on the first, and raises
 only when every line is malformed. That re-parse is the malformed-input
 contract, not a stand-in for a missing library.
 
-Counts go to a caller-owned :class:`ParseStats` (the JAX package sends
-them to its monitor as ``reader.parse_errors``; the port has no monitor
-yet): which backend parsed each buffer, how many native parses were
-rejected, and how many lines were skipped.
+Counts go to a caller-owned :class:`ParseStats`: which backend parsed
+each buffer, how many native parses were rejected, and how many lines
+were skipped. Each skipped line also counts ``reader.parse_errors`` in
+the monitor, and the first five of a parse call emit a
+``reader_malformed_line`` event naming the line, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -117,9 +118,14 @@ def parse_multislot_buffer(buf: bytes, schema: DataFeedSchema,
 
 def _note_malformed_line(lineno: int, line: str, err: Exception,
                          n_bad: int, stats: ParseStats | None) -> None:
-    """Every skip counts; the first of a parse call warns, naming the
-    line."""
+    """Every skip counts; the first few of a parse call carry the line's
+    identity, and the first warns, naming the line."""
+    from paddlebox_tpu_torch import monitor
     _add(stats, "parse_errors")
+    monitor.counter_add("reader.parse_errors")
+    if n_bad <= 5:    # identity for the head; the counter carries the rest
+        monitor.event("reader_malformed_line", lineno=lineno,
+                      error=str(err)[:200], line=line[:120])
     if n_bad == 1:
         warnings.warn(f"malformed MultiSlot line {lineno} (skipped): "
                       f"{line[:120]!r} ({err}); counted in "

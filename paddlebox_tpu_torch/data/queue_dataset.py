@@ -13,7 +13,9 @@ QueueDataset feeds ``train.heter.HeterTrainer`` (the table stays in the
 host store; no pass working set), as in the reference, where
 QueueDataset is the CPU-trainer mode.
 
-Each finished stream leaves its numbers in ``last_stream_stats``.
+Each finished stream leaves its numbers in ``last_stream_stats``; the
+reader threads count ``queue_dataset_examples`` in the monitor, as the
+JAX package's do, and are spawned with the caller's pass context.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from paddlebox_tpu_torch.data.parser import ParseStats
 from paddlebox_tpu_torch.data.reader import ParserPlugin, read_file
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SlotRecordBatch
+from paddlebox_tpu_torch.monitor import context as mon_ctx
+from paddlebox_tpu_torch.monitor import counter_add as stat_add
 
 _STOP = object()
 
@@ -101,6 +105,7 @@ class QueueDataset:
                                       parse_threads=parse_threads)
                     with it_lock:
                         records[0] += chunk.num
+                    stat_add("queue_dataset_examples", chunk.num)
                     if not _put(chunk):
                         return
             except BaseException as e:  # raised on the consumer side
@@ -110,11 +115,8 @@ class QueueDataset:
                 # consumer drains until it has every thread's
                 _put(_STOP) or q.put(_STOP)
 
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12): the
-        # reader threads emit no telemetry
-        threads = [threading.Thread(target=worker, name="pbt-queue-reader",
-                                    daemon=True) for _ in range(n)]
+        threads = [mon_ctx.spawn(worker, name="pbt-queue-reader")
+                   for _ in range(n)]
         for t in threads:
             t.start()
         done = 0

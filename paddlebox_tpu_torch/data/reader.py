@@ -14,7 +14,7 @@ modes of SlotPaddleBoxDataFeed, plus pre-tokenized archives.
 Remote paths (a ``scheme://`` other than ``file://``) raise
 ``RemoteFSNotPorted``: remote filesystems, and the pipe feed thread that
 streams a remote file into a command's stdin, are not ported yet
-(ROADMAP, queue 1 item 8).
+(ROADMAP, queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -45,10 +45,16 @@ The working set keeps the port's row rule, ``max(min_rows, K + 1)``
 rows; ``bucket_size`` sizes only the staged H2D plane, as the
 reference's does, and the patch plane is not padded.
 
+Telemetry, under the reference's names: the ``feed_pass.*`` row and
+byte counters (fresh, reused, stale, patched, retired, flushed rows;
+H2D and D2H bytes) and boundary gauges land in each pass's flight
+record, and the ``feed_pass_staged`` / ``feed_pass_flush`` events are
+emitted from the thread that did the work (the feed thread is spawned
+through ``monitor.context``, so they carry the pass's tags). The
+``last_*`` attributes carry the same numbers for the last boundary.
+
 Not carried (each raises ``NotImplementedError`` naming its ROADMAP
-item): a device mesh and per-host shard ownership (queue 1 item 11).
-The reference's telemetry counters wait for the port's monitor (queue 1
-item 12); the ``last_*`` attributes carry the numbers.
+item): a device mesh and per-host shard ownership (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -69,6 +75,10 @@ from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
                                                        embedx_compressed,
                                                        fetch_rows,
                                                        upload_rows)
+from paddlebox_tpu_torch.monitor import context as mon_ctx
+from paddlebox_tpu_torch.monitor import counter_add as stat_add
+from paddlebox_tpu_torch.monitor import event as mon_event
+from paddlebox_tpu_torch.monitor import gauge_set as stat_set
 from paddlebox_tpu_torch.native.key_index import sorted_unique
 from paddlebox_tpu_torch.utils import faultpoint
 
@@ -108,11 +118,11 @@ class FeedPassManager:
         if mesh is not None:
             raise NotImplementedError(
                 "FeedPassManager(mesh=...): multi-device tables are not "
-                "ported yet (ROADMAP, queue 1 item 11)")
+                "ported yet (ROADMAP, queue 1 item 6)")
         if ownership is not None:
             raise NotImplementedError(
                 "FeedPassManager(ownership=...): per-host shard ownership "
-                "is not ported yet (ROADMAP, queue 1 item 11)")
+                "is not ported yet (ROADMAP, queue 1 item 6)")
         self.store = store
         self.device = resolve_device(device)
         self.min_rows = min_rows
@@ -251,11 +261,9 @@ class FeedPassManager:
             except BaseException as e:    # re-raised at the join
                 self._feed_error = e
 
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12): the
-        # feed thread emits no telemetry
-        self._thread = threading.Thread(target=run, name="pbt-feed-pass",
-                                        daemon=True)
+        # spawned with the caller's context: the staging's events carry
+        # the pass that preloaded it
+        self._thread = mon_ctx.spawn(run, name="pbt-feed-pass")
         self._thread.start()
 
     def wait_feed_pass_done(self) -> None:
@@ -354,6 +362,11 @@ class FeedPassManager:
         timing = {"build": t1 - t0, "h2d": time.perf_counter() - t1,
                   "spill_fault_in": (tiering.fault_in_seconds(self.store)
                                      - fault0)}
+        # emitted from the feed thread when staging ran there
+        mon_event("feed_pass_staged", n_fresh=int(n_fresh),
+                  n_keys=int(len(keys)),
+                  replica_hits=int(served.n if served is not None else 0),
+                  h2d_bytes=int(nbytes))
         return _Staging(keys=keys, pos_prev=pos, fresh_dev=fresh_dev,
                         n_fresh=n_fresh, n_stale=n_stale, h2d_bytes=nbytes,
                         prev=prev, store_gen=gen, marker=marker,
@@ -459,6 +472,7 @@ class FeedPassManager:
             plane[sel, :new.shape[1]] = new
         if carried is not None:
             carried[idx] = False       # the store value is authoritative
+        stat_add("feed_pass.patched_rows", len(pk))
         return len(pk), nbytes
 
     def _writeback_retiring(self, prev: PassWorkingSet,
@@ -489,6 +503,7 @@ class FeedPassManager:
             # must be told its copies of these keys are old
             self._replica.note_written(rkeys)
         self._unsynced[retiring] = False
+        stat_add("feed_pass.retired_rows", len(retiring))
         return nbytes
 
     def flush(self) -> int:
@@ -538,6 +553,10 @@ class FeedPassManager:
             self._replica.note_written(fkeys)
         self._unsynced[:] = False
         self.last_d2h_bytes += nbytes
+        stat_add("feed_pass.d2h_bytes", nbytes)
+        stat_add("feed_pass.flushed_rows", len(row_ids))
+        mon_event("feed_pass_flush", rows=int(len(row_ids)),
+                  d2h_bytes=int(nbytes))
         return nbytes
 
     def _take_staging(self, keys: np.ndarray, test_mode: bool,
@@ -618,6 +637,7 @@ class FeedPassManager:
                 self._replica.note_written(ws.sorted_keys)
             self.last_d2h_bytes = nbytes
             self.last_end_seconds = time.perf_counter() - t0
+            stat_add("feed_pass.d2h_bytes", nbytes)
             return nbytes
         if ws is not self._current:
             self._retain(ws)
@@ -627,6 +647,7 @@ class FeedPassManager:
         self.last_d2h_bytes = 0
         # the begin-side boundary number stays as it is
         self.last_end_seconds = time.perf_counter() - t0
+        stat_set("feed_pass.last_dirty_rows", int(ws.touched.sum()))
         return 0
 
     def set_replica(self, replica) -> None:
@@ -641,7 +662,7 @@ class FeedPassManager:
         if ownership is not None:
             raise NotImplementedError(
                 "per-host shard ownership is not ported yet (ROADMAP, "
-                "queue 1 item 11)")
+                "queue 1 item 6)")
 
     def register_pre_flush(self, method) -> None:
         """Run a bound method at the start of flush(), before any row
@@ -700,3 +721,24 @@ class FeedPassManager:
         self.last_stale_rows = stale
         self.last_boundary_split = {k: float((split or {}).get(k, 0.0))
                                     for k in _SPLIT_KEYS}
+        # counters, so each pass's flight record carries the fresh/reused
+        # balance; the gauges mirror the last boundary
+        stat_add("feed_pass.h2d_bytes", h2d)
+        stat_add("feed_pass.d2h_bytes", d2h)
+        stat_add("feed_pass.fresh_rows", fresh)
+        if reused:
+            stat_add("feed_pass.reused_rows", reused)
+        if stale:
+            stat_add("feed_pass.stale_rows", stale)
+        stat_set("feed_pass.last_fresh_rows", fresh)
+        stat_set("feed_pass.last_reused_rows", reused)
+        stat_set("feed_pass.last_patched_rows", patched)
+        stat_set("feed_pass.last_stale_rows", stale)
+        stat_set("feed_pass.boundary_seconds",
+                 round(self.last_boundary_seconds, 6))
+        stat_set("feed_pass.boundary_build_s",
+                 round(self.last_boundary_split["build"], 6))
+        stat_set("feed_pass.boundary_h2d_s",
+                 round(self.last_boundary_split["h2d"], 6))
+        stat_set("feed_pass.boundary_spill_fault_in_s",
+                 round(self.last_boundary_split["spill_fault_in"], 6))

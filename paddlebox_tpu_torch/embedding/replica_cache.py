@@ -170,6 +170,7 @@ class TrainerReplicaCache:
         self._marker = None          # store mutation marker at refresh
         self._plane: torch.Tensor | None = None
         self.replica_hits = 0        # cumulative
+        self._stat_hits = 0          # batched → tiering.replica_hits
         self.refreshes = 0
 
     def __len__(self) -> int:
@@ -179,9 +180,13 @@ class TrainerReplicaCache:
 
     def refresh(self) -> int:
         """Rebuild the replica from the tier's current ranking; returns
-        its row count. An untiered store has no ranking: the replica
-        stays empty."""
+        its row count. Flushes the batched hit count first
+        (``tiering.replica_hits``), so the hits a pass's staging recorded
+        land in that pass's flight record; sets the
+        ``tiering.replica_rows`` gauge and emits ``replica_refresh``. An
+        untiered store has no ranking: the replica stays empty."""
         from paddlebox_tpu_torch.embedding import tiering as tiering_lib
+        from paddlebox_tpu_torch.monitor import counter_add, event, gauge_set
         marker_fn = getattr(self.store, "mutation_marker", None)
         # the marker is taken BEFORE the harvest: a mutation landing
         # mid-harvest is re-checked by the next serve() — conservative
@@ -219,12 +224,18 @@ class TrainerReplicaCache:
             rows = np.zeros((0, self._row_width), np.float32)
             plane = None
         with self._lock:
+            flush, self._stat_hits = self._stat_hits, 0
             self._keys, self._rows = keys, rows
             self._valid = np.ones(len(keys), bool)
             self._marker = marker if len(keys) else None
             self._plane = plane
+        if flush:
+            counter_add("tiering.replica_hits", flush)
         self.refreshes += 1
-        return len(keys)
+        n = len(keys)
+        gauge_set("tiering.replica_rows", n)
+        event("replica_refresh", rows=int(n), hits_flushed=int(flush))
+        return n
 
     # ---- staging path (feed thread) -----------------------------------
 
@@ -269,6 +280,7 @@ class TrainerReplicaCache:
             if not n:
                 return None
             self.replica_hits += n
+            self._stat_hits += n
             out = _ReplicaServe()
             out.hit = hit
             out.n = n

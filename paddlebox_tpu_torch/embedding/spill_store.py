@@ -29,9 +29,12 @@ chains load in either package and in either store class. The key
 index, dirty and tombstone tracking, manifests, load, shrink and flush
 hooks are inherited; the two stores give bit-equal rows under the same
 operations. The counters ``cache_hits``, ``cache_misses``,
-``conflict_misses`` and ``fault_in_seconds`` are attributes; the
-reference's ``spill.*`` / ``tiering.*`` telemetry waits for the port's
-monitor (ROADMAP queue 1 item 12).
+``conflict_misses`` and ``fault_in_seconds`` are attributes; each pass
+boundary (``tier_end_pass``) also flushes the pass's counts into the
+monitor under the reference's names (``tiering.admitted`` /
+``evicted`` / ``conflict_misses``, ``spill.cache_hits`` / ``cache_misses``
+/ ``prefetched_rows``, the ``tiering.hot_rows`` / ``spill_bytes``
+gauges), so they land in that pass's flight record.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from paddlebox_tpu_torch.config import flags as config_flags
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.tiering import TierManager
+from paddlebox_tpu_torch.monitor import counter_add, gauge_set
 from paddlebox_tpu_torch.utils import faultpoint
 
 # rows per chunk of a streamed base/delta payload: bounds the resident
@@ -117,7 +121,9 @@ class SpillEmbeddingStore(HostEmbeddingStore):
         # a boundary for the spill_fault_in share of its split
         self.fault_in_seconds = 0.0
         # this pass's hit / miss / conflict counts, handed back and reset
-        # by tier_end_pass (the autotune's window)
+        # by tier_end_pass (the autotune's window), and the rows this
+        # pass's prefetches advised
+        self._stat_prefetched = 0
         self._stat_hits = 0
         self._stat_misses = 0
         self._stat_conflicts = 0
@@ -290,6 +296,7 @@ class SpillEmbeddingStore(HostEmbeddingStore):
             except (OSError, ValueError):
                 break                     # advisory only — never fatal
             n += len(run)
+        self._stat_prefetched += n
         return n
 
     def resize_cache(self, cache_rows: int,
@@ -358,12 +365,27 @@ class SpillEmbeddingStore(HostEmbeddingStore):
         if demoted:
             self.tier.total_evicted += demoted
             stats["evicted"] += demoted
+        if stats["admitted"]:
+            counter_add("tiering.admitted", stats["admitted"])
+        if stats["evicted"]:
+            counter_add("tiering.evicted", stats["evicted"])
         hot = int((self._ctags >= 0).sum())
+        gauge_set("tiering.hot_rows", hot)
+        gauge_set("tiering.spill_bytes", self.spill_file_bytes)
         # the pass window the cache-budget autotune reads
         stats["pass_hits"] = int(self._stat_hits)
         stats["pass_misses"] = int(self._stat_misses)
         stats["pass_conflicts"] = int(self._stat_conflicts)
+        if self._stat_conflicts:
+            counter_add("tiering.conflict_misses", self._stat_conflicts)
+        if self._stat_hits:
+            counter_add("spill.cache_hits", self._stat_hits)
+        if self._stat_misses:
+            counter_add("spill.cache_misses", self._stat_misses)
+        if self._stat_prefetched:
+            counter_add("spill.prefetched_rows", self._stat_prefetched)
         self._stat_hits = self._stat_misses = self._stat_conflicts = 0
+        self._stat_prefetched = 0
         stats["hot_rows"] = hot
         stats["spill_bytes"] = int(self.spill_file_bytes)
         stats["cache_rows"] = int(self._cache_slots)

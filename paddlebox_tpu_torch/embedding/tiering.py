@@ -18,11 +18,13 @@ into host DRAM, and device memory sees only the pass working set
 
 Chains keep their format: spill stores stream base and delta payloads
 from the memory map, and the crash windows are the fault points
-``tiering.save.pre_flush`` and ``tiering.evict.pre``. The sharded store
-(one spill store per shard) waits for multi-GPU work (ROADMAP queue 1
-item 11); the reference's ``tiering.*`` counters and gauges wait for
-the port's monitor (item 12), so ``end_pass_rebalance`` returns its
-counts and ``spill_stats`` carries the totals.
+``tiering.save.pre_flush`` and ``tiering.evict.pre``. The
+``tiering.*`` / ``spill.*`` counters and gauges flush into the monitor at
+each pass boundary, before the flight record commits, so they land in
+that pass's ``stats_delta``; ``end_pass_rebalance`` also returns its
+counts and ``spill_stats`` carries the totals. The sharded store (one
+spill store per shard) waits for multi-GPU work (ROADMAP queue 1 item
+6).
 """
 
 from __future__ import annotations
@@ -231,11 +233,11 @@ def store_from_flags(cfg: EmbeddingConfig, n_shards: int = 1,
     """Build the host table the flags describe: ``flags.table_tiering``
     picks the storage tier. One shard only: the hash-partitioned
     ``ShardedEmbeddingStore`` is multi-GPU work (ROADMAP queue 1 item
-    11), so ``n_shards > 1`` raises."""
+    6), so ``n_shards > 1`` raises."""
     if int(n_shards) > 1:
         raise NotImplementedError(
             f"store_from_flags(n_shards={n_shards}): ShardedEmbeddingStore "
-            f"is not ported yet (ROADMAP, queue 1 item 11)")
+            f"is not ported yet (ROADMAP, queue 1 item 6)")
     return shard_store_factory()(cfg, initial_capacity, 0)
 
 
@@ -283,11 +285,13 @@ def end_pass_rebalance(store) -> dict | None:
     cold cached rows, and return the pass's tier counts
     (``tier_end_pass``). Under ``flags.spill_cache_autotune`` the same
     counts re-budget the cache (``autotune_cache_rows``), and the dict
-    carries ``cache_rows`` and ``cache_resized``. None for an untiered
-    store."""
+    carries ``cache_rows`` and ``cache_resized`` (also the
+    ``tiering.cache_rows`` gauge and the flight record's
+    ``spill_cache_rows``). None for an untiered store."""
     subs = _spill_subs(store)
     if not subs:
         return None
+    from paddlebox_tpu_torch.monitor import gauge_set, hub
     agg: dict[str, int] = {}
     resized = 0
     for sub in subs:
@@ -300,6 +304,9 @@ def end_pass_rebalance(store) -> dict | None:
             agg[k] = agg.get(k, 0) + int(v)
     if flags.spill_cache_autotune:
         agg["cache_resized"] = resized
+        gauge_set("tiering.cache_rows", agg["cache_rows"])
+        # the chosen budget rides this pass's flight record
+        hub().record_train(spill_cache_rows=int(agg["cache_rows"]))
     return agg
 
 

@@ -28,13 +28,17 @@ snapshot and the publish: ``tiering.end_pass_rebalance`` re-scores a
 spill store's RAM tier (its counts under ``"tiering"``), then
 ``trainer.refresh_replica_boundary`` rebuilds the replica tier from that
 ranking. While a BoxPS pass is open its store's ``boundary_owner`` is
-the BoxPS, so ``Trainer.train_pass`` leaves that work to ``end_pass``
-(the JAX package asks its monitor hub whether a pass scope is open).
+the BoxPS, so ``Trainer.train_pass`` leaves that work to ``end_pass``.
 
-Not ported yet (ROADMAP): multi-host pass barriers and heartbeats
-(``attach_collectives``), and the telemetry pass scope; the
-exchange-wire and self-healing boundary hooks serve subsystems the port
-does not have yet.
+Telemetry: ``begin_pass`` opens the hub's pass scope, so everything
+until ``end_pass`` — trainer steps, worker threads, checkpoint commits —
+is tagged with the pass; ``end_pass`` commits the pass's flight record
+last and returns it under ``"flight_record"``; ``abort_pass`` closes the
+scope without one; ``flip_phase`` emits ``flip_phase``.
+
+Not ported yet (ROADMAP queue 1 item 6): multi-host pass barriers and
+heartbeats (``attach_collectives``); the exchange-wire and self-healing
+boundary hooks serve subsystems the port does not have yet.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import time
 import warnings
 from typing import Any
 
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.embedding import tiering
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.metrics.metric import MetricRegistry
@@ -76,10 +81,26 @@ class BoxPS:
     def begin_pass(self) -> None:
         if self.in_pass:
             raise RuntimeError("begin_pass while a pass is open")
+        # the telemetry pass scope first: it refuses unported read-side
+        # flags before any pass state moves
+        monitor.hub().begin_pass(self.pass_id + 1, phase=self.phase)
         self.in_pass = True
         self.store.boundary_owner = self
         self.pass_id += 1
         self._pass_t0 = time.time()
+
+    def abort_pass(self, reason: str = "") -> None:
+        """Close an open pass without the end-of-pass snapshot: the pass
+        raised, and its work is drained (``Trainer.drain_and_snapshot``)
+        or dropped. The telemetry scope is aborted, so no flight record
+        commits for a half-trained pass. No-op when no pass is open."""
+        if not self.in_pass:
+            return
+        self.in_pass = False
+        self.store.boundary_owner = None
+        monitor.hub().abort_pass(reason=reason or "pass aborted")
+        monitor.event("pass_aborted", pass_id=int(self.pass_id),
+                      reason=reason[:200])
 
     def end_pass(self, need_save_delta: bool = False,
                  delta_path: str | None = None,
@@ -124,6 +145,10 @@ class BoxPS:
                     pass_id=self.pass_id)
             except Exception as e:   # noqa: BLE001 — degrade, don't die
                 out["publish"] = {"error": repr(e)}
+                monitor.counter_add("serving.publish_failures")
+                monitor.event("serving_publish_failed",
+                              pass_id=int(self.pass_id),
+                              error=repr(e)[:300])
                 warnings.warn(f"serving publish failed for pass "
                               f"{self.pass_id} ({e!r}); serving stays on "
                               f"its last good version")
@@ -135,11 +160,16 @@ class BoxPS:
         if trainer is not None and hasattr(trainer,
                                            "refresh_replica_boundary"):
             trainer.refresh_replica_boundary()
+        # the flight record commits last: the snapshot's, the publish's
+        # and the tiers' counters above land in this pass's stats_delta
+        out["flight_record"] = monitor.hub().end_pass(metrics=self.metrics)
         return out
 
     def flip_phase(self) -> None:
         """Join ↔ update flip; metrics follow the phase."""
         self.metrics.flip_phase()
+        monitor.context.set_phase(self.phase)
+        monitor.event("flip_phase", phase=self.phase)
 
     # ---- table hygiene ----
 

@@ -11,8 +11,9 @@ mixing requests with and without dense features is split and each
 group scored on its own. Per-request wall time (submit → result) lands in a time-windowed
 reservoir; :meth:`stats` reports recent p50/p99/max, batch sizes and
 failures. A submit racing :meth:`stop` never leaves a pending future.
-The reference's counters and request spans wait for the port's monitor
-(ROADMAP, queue 1 item 12).
+Requests and failures count as ``serving.frontend_requests`` /
+``serving.frontend_failures``; the reference's sampled request spans
+come with the world trace (ROADMAP, queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.config import flags
+from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.serving.obs import LatencyWindow
 
 
@@ -114,11 +117,7 @@ class BatchingFrontend:
         if self._thread is not None:
             return self
         self._stopping = False
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12)
-        self._thread = threading.Thread(target=self._run,
-                                        name="serving-frontend",
-                                        daemon=True)
+        self._thread = mon_ctx.spawn(self._run, name="serving-frontend")
         self._thread.start()
         return self
 
@@ -188,6 +187,7 @@ class BatchingFrontend:
             out = self.server.predict(ids, mask, dense)
         except Exception as e:   # noqa: BLE001 — fails this batch only
             self._failures += n
+            monitor.counter_add("serving.frontend_failures", n)
             for r in batch:
                 if not r.future.done():
                     r.future.set_exception(e)
@@ -200,6 +200,7 @@ class BatchingFrontend:
                 self._lat.add(ms, now=wall)
         self._batches += 1
         self._batched_reqs += n
+        monitor.counter_add("serving.frontend_requests", n)
         for i, r in enumerate(batch):
             r.future.set_result(out[i])
 

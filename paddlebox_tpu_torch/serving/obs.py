@@ -10,8 +10,8 @@
 - :class:`ServingObs`: the server's per-window bookkeeping: ``record``
   per scored batch, ``observe_labels`` when labels arrive,
   ``due`` / ``commit`` on the window cadence. ``commit`` returns the
-  ``serving_window`` record's fields; the reference's hub event and
-  doctor rules wait for the port's monitor (ROADMAP, queue 1 item 12).
+  ``serving_window`` record's fields, which the server emits as a hub
+  event; the doctor rules that read them are ROADMAP queue 1 item 7.
 
 No thread of its own: the callers hold one lock around every call.
 """

@@ -21,12 +21,14 @@ flagged for the server's replica cache. The donefile is compacted past
 ``compact_after`` entries to the newest ``keep_bases`` bases and their
 tails, pruning the dropped version directories.
 
-Remote roots (the reference stages, uploads and downloads back to
-verify) raise ``RemoteFSNotPorted`` (ROADMAP, queue 1 item 8), and the
-reference's remote-only arguments (``staging_dir``, ``verify_upload``)
-come with them. The
-reference's telemetry counters and trace links wait for the port's
-monitor (item 12); the publish-info dict carries the numbers.
+Each publish runs in a ``publish`` span and counts its seconds and
+bytes under the reference's ``serving.*`` names, with the
+``serving_publish`` event (compaction and pruning count and report
+theirs); the publish-info dict carries the same numbers. Remote roots
+(the reference stages, uploads and downloads back to verify) raise
+``RemoteFSNotPorted`` (ROADMAP, queue 1 item 5), and the reference's
+remote-only arguments (``staging_dir``, ``verify_upload``) come with
+them; the trace links come with the world trace (item 7).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.embedding.gating import GateSpec
 from paddlebox_tpu_torch.fleet.fleet_util import FleetUtil
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.inference import export as export_lib
 from paddlebox_tpu_torch.serving import artifact as art
 from paddlebox_tpu_torch.utils import checkpoint as ckpt_lib
@@ -97,7 +100,12 @@ class ServingPublisher:
         """Snapshot ``store``'s pull plane and ``dense_params`` (a
         JAX-layout tree, e.g. ``Trainer.eval_params()``) into the next
         version, verify it, announce it. Returns {version, kind, path,
-        seconds, bytes, keys, announced}."""
+        seconds, bytes, keys, announced}. Runs inside a ``publish``
+        telemetry span."""
+        with monitor.span("publish"):
+            return self._publish_impl(store, dense_params, pass_id)
+
+    def _publish_impl(self, store, dense_params, pass_id: int) -> dict:
         t0 = time.perf_counter()
         # export_serving flushes the device-held rows first
         keys, vals = store.export_serving()
@@ -150,6 +158,8 @@ class ServingPublisher:
                 self.compact_donefile()
             except OSError as e:
                 self.compaction_errors += 1
+                monitor.counter_add("serving.compaction_errors")
+                monitor.event("serving_compaction_error", error=repr(e))
                 warnings.warn(f"serving donefile compaction failed: {e!r}")
 
         self._version = version
@@ -157,9 +167,18 @@ class ServingPublisher:
             self._deltas_since_base + 1
         # the caller's arrays go back to the live store: keep copies
         self._last_pub = (keys.copy(), vals.copy())
+        seconds = time.perf_counter() - t0
         nbytes = sum(e["bytes"] for e in manifest["files"].values())
+        monitor.counter_add("serving.publishes")
+        monitor.counter_add(f"serving.publish_{kind}s")
+        monitor.counter_add("serving.publish_seconds", seconds)
+        monitor.counter_add("serving.publish_bytes", nbytes)
+        monitor.event("serving_publish", type="lifecycle", version=version,
+                      kind=kind, pass_id=int(pass_id), seconds=seconds,
+                      bytes=int(nbytes), announced=bool(announced),
+                      keys=int(manifest["num_keys"]))
         return {"version": version, "kind": kind, "path": target,
-                "seconds": time.perf_counter() - t0, "bytes": int(nbytes),
+                "seconds": seconds, "bytes": int(nbytes),
                 "keys": int(manifest["num_keys"]),
                 "announced": bool(announced)}
 
@@ -187,6 +206,11 @@ class ServingPublisher:
             return 0
         self._fleet.rewrite_donefile(DONEFILE, kept)
         self._entry_count = len(kept)
+        monitor.counter_add("serving.donefile_compactions")
+        monitor.counter_add("serving.donefile_entries_dropped",
+                            len(dropped))
+        monitor.event("serving_donefile_compacted", type="lifecycle",
+                      kept=len(kept), dropped=len(dropped))
         if self.prune_artifacts:
             kept_names = {art.version_name(int(e["version"]))
                           for e in kept if "version" in e}
@@ -202,7 +226,10 @@ class ServingPublisher:
                 # the rest of the prune goes on
                 try:
                     self._fs.rm(target)
+                    monitor.counter_add("serving.artifacts_pruned")
                 except OSError as err:
+                    monitor.event("serving_artifact_prune_error",
+                                  path=target, error=repr(err))
                     warnings.warn(f"serving artifact prune of {target} "
                                   f"failed: {err!r}")
         return len(dropped)
@@ -219,6 +246,7 @@ class ServingPublisher:
         last = self.latest_announced()
         if last is not None and int(last.get("pass", -1)) >= int(pass_id):
             return None
+        monitor.counter_add("serving.publish_catchups")
         return self.publish(store, dense_params, pass_id=pass_id)
 
 

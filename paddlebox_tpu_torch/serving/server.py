@@ -33,13 +33,18 @@ class (``embedding/replica_cache.py``) and builds none. Scoring runs on
 the card unless
 ``device="cpu"``: every Predictor the server builds gets its device.
 
-``/healthz`` serves ``health()`` as JSON (503 before the first load).
-``/metrics`` — the reference's Prometheus text from its telemetry hub —
-answers 501 until the port's monitor exists (ROADMAP, queue 1 item 12),
-as do the reference's counters, events and trace links; ``health()``
-carries the numbers. Artifacts are read in place: remote roots raise
+``/healthz`` serves ``health()`` as JSON (503 before the first load);
+``/metrics`` serves the telemetry hub's Prometheus text, as the
+reference's does. Swaps, candidate loads, fallbacks, build seconds,
+request, shadow and poll failures count under the reference's
+``serving.*`` names, with the ``serving_swap`` /
+``serving_version_fallback`` / ``serving_window`` events and the
+``serving.active_version`` / ``candidate_version`` / ``pass_lag`` /
+``staleness_seconds`` gauges; ``health()`` carries the same numbers. The
+request spans and trace links come with the world trace (ROADMAP
+queue 1 item 7). Artifacts are read in place: remote roots raise
 ``RemoteFSNotPorted``, and the staging fetch with its bounded retry
-comes back with them (item 8).
+comes back with them (item 5).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding.gating import GateSpec
@@ -63,16 +69,12 @@ from paddlebox_tpu_torch.inference import export as export_lib
 from paddlebox_tpu_torch.inference.predictor import Predictor
 from paddlebox_tpu_torch.inference.serving_table import ServingTable
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
+from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.serving import artifact as art
 from paddlebox_tpu_torch.serving.obs import ServingObs
 from paddlebox_tpu_torch.serving.publisher import DONEFILE
 from paddlebox_tpu_torch.utils import fs as fs_lib
 from paddlebox_tpu_torch.utils.checkpoint import CheckpointCorruptError
-
-METRICS_NOT_PORTED = (b"/metrics: the telemetry hub's Prometheus text is "
-                      b"not ported yet (ROADMAP, queue 1 item 12: "
-                      b"monitor); read /healthz\n")
-
 
 def _entry_int(entry: dict | None, key: str) -> int | None:
     """An int field of a donefile entry, None when absent or bad."""
@@ -202,6 +204,7 @@ class ServingServer:
         # split flags turned off while a candidate is held: promote it
         if self._candidate is not None and not self._split_on():
             self.promote_candidate()
+        self._update_staleness_gauges()
         self.commit_window()                  # due-gated
         return applied
 
@@ -248,23 +251,38 @@ class ServingServer:
             t_swap = time.perf_counter()
             if self._split_on() and self._active is not None:
                 prev, self._candidate = self._candidate, model
+                role = "candidate"
+                pause_ms = (time.perf_counter() - t_swap) * 1e3
+                monitor.counter_add("serving.candidate_loads")
+                monitor.gauge_set("serving.candidate_version", version)
                 with self._lock:
                     if prev is not None:
                         self._obs_get().drop_version(prev.version)
                     self._obs_get().ensure_version(version, "candidate")
             else:
                 self._active = model       # THE swap: one rebind
-                self._last_swap_pause_ms = (time.perf_counter()
-                                            - t_swap) * 1e3
+                role = "stable"
+                pause_ms = (time.perf_counter() - t_swap) * 1e3
+                self._last_swap_pause_ms = pause_ms
                 self._swaps += 1
+                monitor.counter_add("serving.swaps")
+                monitor.gauge_set("serving.active_version", version)
             applied += 1
             active_v = version
+            monitor.event("serving_swap", type="lifecycle",
+                          version=version, kind=kind, role=role,
+                          pass_id=model.pass_id,
+                          swap_pause_ms=round(pause_ms, 3),
+                          keys=len(model.table))
         return applied
 
     def _diag(self, version: int, msg: str) -> None:
         self._last_error = msg
         if version >= 0:
             self._skipped[version] = msg
+        monitor.counter_add("serving.version_fallbacks")
+        monitor.event("serving_version_fallback", version=version,
+                      error=msg[:300])
         warnings.warn(f"serving: {msg}; continuing on the last good "
                       f"version")
 
@@ -308,6 +326,7 @@ class ServingServer:
         hot_live = (int(table._probe(hot_keys)[1].sum())
                     if len(hot_keys) else 0)
         self.last_build_seconds = time.perf_counter() - t0
+        monitor.counter_add("serving.build_seconds", self.last_build_seconds)
         return ServingModel(int(meta["version"]), int(meta["pass_id"]),
                             kind, predictor, table, hot_keys, hot_live,
                             int(entry.get("ts", meta.get("ts", 0))))
@@ -341,13 +360,22 @@ class ServingServer:
         t_swap = time.perf_counter()
         self._active = cand                # THE swap: one rebind
         self._candidate = None
-        self._last_swap_pause_ms = (time.perf_counter() - t_swap) * 1e3
+        pause_ms = (time.perf_counter() - t_swap) * 1e3
+        self._last_swap_pause_ms = pause_ms
         self._swaps += 1
+        monitor.counter_add("serving.swaps")
+        monitor.gauge_set("serving.active_version", cand.version)
         with self._lock:
             obs = self._obs_get()
             obs.ensure_version(cand.version, "stable")
             if old is not None:
                 obs.drop_version(old.version)
+        monitor.event("serving_swap", type="lifecycle",
+                      version=cand.version, kind=cand.kind,
+                      role="stable", promoted=True,
+                      pass_id=cand.pass_id,
+                      swap_pause_ms=round(pause_ms, 3),
+                      keys=len(cand.table))
         return True
 
     # ---- request path ----------------------------------------------------
@@ -399,6 +427,7 @@ class ServingServer:
         except Exception:
             with self._lock:
                 self._request_failures += 1
+            monitor.counter_add("serving.request_failures")
             raise
         if cand is not None and flags.serving_shadow:
             # shadow: the candidate scores too; its failure is counted
@@ -408,6 +437,7 @@ class ServingServer:
             except Exception:   # noqa: BLE001
                 with self._lock:
                     self._shadow_failures += 1
+                monitor.counter_add("serving.shadow_failures")
         with self._lock:
             self._served += len(np.asarray(ids))
         return out
@@ -419,6 +449,7 @@ class ServingServer:
         except Exception:
             with self._lock:
                 self._request_failures += 1
+            monitor.counter_add("serving.request_failures")
             raise
         with self._lock:
             self._served += int(pb.num)
@@ -461,9 +492,18 @@ class ServingServer:
                 replica_hot_keys=newest.hot_live if newest else 0)
         self._win_failures0 = self._request_failures
         self._win_swaps0 = self._swaps
+        monitor.event("serving_window", type="serving_record", **fields)
         return fields
 
     # ---- staleness / health ----------------------------------------------
+
+    def _update_staleness_gauges(self) -> None:
+        h = self.health()
+        if h["pass_lag"] is not None:
+            monitor.gauge_set("serving.pass_lag", h["pass_lag"])
+        if h["age_seconds"] is not None:
+            monitor.gauge_set("serving.staleness_seconds",
+                              h["age_seconds"])
 
     def health(self) -> dict:
         """What is serving, how stale it is, and whether the tail is
@@ -544,12 +584,10 @@ class ServingServer:
                     self.poll_once()
                 except Exception as e:   # noqa: BLE001
                     self._last_error = f"poll failed: {e!r}"
+                    monitor.counter_add("serving.poll_failures")
                 self._stop.wait(self.poll_s)
 
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12)
-        self._thread = threading.Thread(target=_run, name="serving-tailer",
-                                        daemon=True)
+        self._thread = mon_ctx.spawn(_run, name="serving-tailer")
         self._thread.start()
         return self
 
@@ -568,7 +606,7 @@ class ServingServer:
     def _start_health_endpoint(self, port: int) -> None:
         """A stdlib HTTP endpoint on 127.0.0.1: ``/healthz`` the
         health() JSON (200 while a model serves, 503 before the first
-        load); ``/metrics`` 501 until the port's monitor exists."""
+        load); ``/metrics`` the telemetry hub's Prometheus text."""
         server = self
 
         class _Handler(http.server.BaseHTTPRequestHandler):
@@ -578,8 +616,8 @@ class ServingServer:
                     code = 503 if server._active is None else 200
                     ctype = "application/json"
                 elif self.path.startswith("/metrics"):
-                    body, code, ctype = METRICS_NOT_PORTED, 501, \
-                        "text/plain"
+                    body = monitor.hub().prometheus_text().encode()
+                    code, ctype = 200, "text/plain; version=0.0.4"
                 else:
                     body, code, ctype = b"not found", 404, "text/plain"
                 self.send_response(code)
@@ -594,10 +632,8 @@ class ServingServer:
         self._http = http.server.ThreadingHTTPServer(("127.0.0.1", port),
                                                      _Handler)
         self.health_port = self._http.server_address[1]
-        # pblint: disable=thread-context -- no monitor.context to
-        # inherit yet (ROADMAP queue 1 item 12)
-        threading.Thread(target=self._http.serve_forever,
-                         name="serving-health", daemon=True).start()
+        mon_ctx.spawn(self._http.serve_forever,
+                      name="serving-health").start()
 
 
 def main(argv: list[str] | None = None) -> int:

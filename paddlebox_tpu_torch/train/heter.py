@@ -54,6 +54,7 @@ from paddlebox_tpu_torch.embedding import gating
 from paddlebox_tpu_torch.embedding.optim import apply_updates
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
+from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.train import optimizers
 
 
@@ -207,11 +208,7 @@ class HeterTrainer:
                     close()          # a streaming dataset reaps its readers
                 q.put(stop)
 
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12): the
-        # prefetch thread emits no telemetry
-        t = threading.Thread(target=producer, name="pbt-heter-pull",
-                             daemon=True)
+        t = mon_ctx.spawn(producer, name="pbt-heter-pull")
         t.start()
         t_loop = time.perf_counter()
         try:

@@ -58,21 +58,43 @@ boundary itself: ``tiering.end_pass_rebalance`` then
 ``refresh_replica_boundary``; under a BoxPS pass ``BoxPS.end_pass`` runs
 both.
 
+Telemetry (``monitor``): ``train_pass`` runs inside the hub's pass
+scope — BoxPS's, or its own (``open_pass_auto``) — and contributes the
+stage split of ``self.timers`` (read, translate, train, auc, drain), the
+steps, examples and seconds, and the boundary account to the pass's
+flight record (``hub.record_train``). Each step emits the
+``pack_batch``, ``h2d_stage``, ``train_step`` and ``auc_update`` spans;
+the pack thread, spawned through ``monitor.context``, counts
+``trainer.tokens`` / ``pull_bytes`` / ``push_bytes`` (and the dedup
+plan's ``trainer.plan_tokens`` / ``plan_unique_tokens``) from the host
+arrays it already holds. No counter, span or timer reads a CUDA tensor:
+with the hub on, a step still makes no host sync.
+
+Mid-pass snapshots (``enable_midpass_snapshots``): every
+``every_steps`` trained steps of a pass the loop commits a
+``pass-PPPPP.midSSSSS`` snapshot — after waiting for the steps' kernels
+on the stream that launched them (``midpass_saves`` records that wait
+with each save's seconds and bytes) — so a crash resumes through
+``train_pass(skip_steps=mid_steps)`` instead of replaying the pass.
+``drain_and_snapshot`` commits the same kind of snapshot after a pass
+raised. The dense optimizer updates the model in place, so the live
+dense state at any step is ``dense_state()``.
+
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
-Not ported yet (ROADMAP): multi-shard routing and shard ownership,
-kstep/async dense sync, supersteps, deferred push (push overlap:
-``flush_push`` is a no-op hook), mid-pass snapshot saving, coordinated
-multi-host resume, telemetry (the nan trip's, the dump stream's and the
-tiers' counters and events included).
+Not ported yet (ROADMAP queue 1): multi-shard routing, shard ownership,
+kstep/async dense sync and coordinated multi-host resume (item 6);
+deferred push (push overlap, item 4: ``flush_push`` is a no-op hook);
+supersteps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import queue
+import sys
 import threading
 import time
 import warnings
@@ -82,7 +104,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddlebox_tpu_torch import weights
+from paddlebox_tpu_torch import monitor, weights
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
@@ -93,10 +115,13 @@ from paddlebox_tpu_torch.embedding.replica_cache import TrainerReplicaCache
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import PassWorkingSet
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
+from paddlebox_tpu_torch.monitor import context as mon_ctx
+from paddlebox_tpu_torch.monitor.timers import StageTimers
 from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
 from paddlebox_tpu_torch.ops.seqpool_cvm import PooledSlots
 from paddlebox_tpu_torch.train import optimizers
+from paddlebox_tpu_torch.utils import faultpoint
 from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
 from paddlebox_tpu_torch.utils.profiler import (DumpStream, dump_tree,
                                                 find_nonfinite)
@@ -168,6 +193,27 @@ class Trainer:
                                     dtype=torch.int64, device=self.device)
         self.global_step = 0
         self.last_ws: PassWorkingSet | None = None
+        # "train"/"auc" scopes are covered by the train_step/auc_update
+        # spans: only the stages without one emit hub events themselves
+        self.timers = StageTimers(["read", "translate", "train", "auc",
+                                   "drain"],
+                                  emit_stages={"read", "translate",
+                                               "drain"})
+        # the mid-pass snapshot hook (enable_midpass_snapshots):
+        # (checkpointer, every_steps, box, metrics). midpass_cursor_extra
+        # carries caller-supplied cursor fields — the shuffle state taken
+        # before the pass's permutation draw, so a resume replays the
+        # pass order
+        self._midpass: tuple | None = None
+        self.midpass_cursor_extra: dict = {}
+        # each mid-pass save of the last pass: {snapshot, mid_steps,
+        # seconds, bytes, stream_wait_s}
+        self.midpass_saves: list[dict] = []
+        # crumbs of the last (possibly aborted) pass, which
+        # drain_and_snapshot reads after the exception landed: the steps
+        # it got through (skipped ones included) and whether it raised
+        self.last_pass_steps = 0
+        self._pass_aborted = False
         # the incremental, overlapped pass boundary: resident rows reused
         # across passes, write-back lazy. Pass a shared manager when
         # several trainers drive one table.
@@ -280,6 +326,9 @@ class Trainer:
             # the counting sort needs a block granularity even without
             # windows: one whole-table block
             o, u, s, r, e = dedup_plan(flat, n_rows, *(geom or (n_rows, 1)))
+            # the per-pass dedup rate: unique lanes against tokens
+            monitor.counter_add("trainer.plan_tokens", idx.size)
+            monitor.counter_add("trainer.plan_unique_tokens", len(u))
             return (sharded.DedupPlan(o, u, s, r, e) if geom
                     else sharded.DedupPlan(o, u, s))
         if geom is None:
@@ -312,12 +361,24 @@ class Trainer:
 
     def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch,
                    with_plan: bool = True) -> tuple:
-        idx = ws.translate(pb.ids, pb.mask)
-        labels, dense = self.split_floats(pb.floats)
-        extras = (self._extras_fn(pb, 1) if self._extras_fn is not None
-                  else ())
-        return self.pack_arrays(ws, idx, pb.mask, dense, labels, with_plan,
-                                extras)
+        with self.timers("translate"):
+            idx = ws.translate(pb.ids, pb.mask)
+            labels, dense = self.split_floats(pb.floats)
+            extras = (self._extras_fn(pb, 1) if self._extras_fn is not None
+                      else ())
+            out = self.pack_arrays(ws, idx, pb.mask, dense, labels,
+                                   with_plan, extras)
+            # embedding-plane traffic (flight-record deltas), from the
+            # host array's size: tokens * pull_width rows out, grad +
+            # show/clk lanes back
+            ecfg = self.store.cfg
+            monitor.counter_add("trainer.tokens", idx.size)
+            monitor.counter_add("trainer.pull_bytes",
+                                idx.size * 4 * ecfg.pull_width)
+            if with_plan:
+                monitor.counter_add("trainer.push_bytes",
+                                    idx.size * 4 * (ecfg.grad_width + 2))
+        return out
 
     def stage(self, host: tuple) -> tuple:
         """Host tensors from pack_arrays → the step's device tensors."""
@@ -326,17 +387,20 @@ class Trainer:
         def put(t):
             return t.to(dev, non_blocking=True)
 
-        *arrays, plan, extras = host
-        return (*(put(t) for t in arrays), sharded.map_plan(plan, put),
-                tuple(put(t) for t in extras))
+        with monitor.span("h2d_stage"):
+            *arrays, plan, extras = host
+            return (*(put(t) for t in arrays), sharded.map_plan(plan, put),
+                    tuple(put(t) for t in extras))
 
     def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int,
                    test_mode: bool = False):
         """Yield (packed batch, its staged tensors), with the pack
         (translate + plan + pin) running on a host thread
-        ``flags.prefetch_batches`` batches ahead of the step.
-        ``test_mode`` (eval) packs no push plan and pads the tail batch
-        instead of dropping it (``pb.num`` keeps the valid count)."""
+        ``flags.prefetch_batches`` batches ahead of the step; the step
+        thread's wait on it is the "read" stage (starvation = a
+        host-bound pass). ``test_mode`` (eval) packs no push plan and
+        pads the tail batch instead of dropping it (``pb.num`` keeps the
+        valid count)."""
         def source():
             for pb in dataset.batches(batch_size, drop_last=not test_mode):
                 if len(pb.floats) < batch_size:
@@ -353,23 +417,26 @@ class Trainer:
         cancel = threading.Event()
 
         def producer():
+            n_packed = 0
             try:
                 for item in source():
                     if cancel.is_set():
                         return
                     q.put(item)
+                    n_packed += 1
+                # emitted from this thread: it inherits the pass/step
+                # context (monitor.context.spawn below)
+                monitor.event("pack_producer_done", batches=n_packed)
                 q.put(done)
             except BaseException as e:  # re-raised on the consumer side
                 q.put(_PackError(e))
 
-        # pblint: disable=thread-context -- the port has no
-        # monitor.context to inherit yet (ROADMAP queue 1 item 12): the
-        # pack thread emits no telemetry
-        t = threading.Thread(target=producer, name="pbt-pack", daemon=True)
+        t = mon_ctx.spawn(producer, name="pbt-pack")
         t.start()
         try:
             while True:
-                item = q.get()
+                with self.timers("read"):
+                    item = q.get()
                 if item is done:
                     break
                 if isinstance(item, _PackError):
@@ -479,15 +546,58 @@ class Trainer:
         pass — the first ``skip_steps`` batches are packed (their rows
         stay in the working set) but not trained, since the restored
         state already holds their effect (a snapshot cursor's
-        ``mid_steps``); the stats cover the trained tail."""
+        ``mid_steps``); the stats cover the trained tail.
+
+        Telemetry: the pass runs inside the hub's pass scope (opened here
+        when no BoxPS pass has one, and then committed here too), so
+        every event and span, the pack and feed threads' included,
+        carries pass_id/step; the stage split, throughput and boundary
+        account go to the pass's flight record."""
+        hub = monitor.hub()
+        owned_pass = hub.open_pass_auto()
+        pass_t0 = time.perf_counter()
+        stage0 = self.timers.snapshot()
+        try:
+            out = self._train_pass_impl(dataset, metrics, preload_keys,
+                                        skip_steps)
+        except BaseException as e:
+            if owned_pass:
+                hub.abort_pass(reason=repr(e))
+            raise
+        fm = self.feed_mgr
+        hub.record_train(
+            stage_seconds={k: self.timers.total.get(k, 0.0)
+                           - stage0.get(k, 0.0) for k in self.timers.total},
+            steps=out["steps"],
+            examples=out["steps"] * self.cfg.global_batch_size,
+            seconds=time.perf_counter() - pass_t0,
+            loss_mean=out.get("loss_mean"), auc=out.get("auc"),
+            pull_engine=self.pull_engine,
+            push_engine=(self.resolved_push_engine(self.last_ws)
+                         if self.last_ws is not None else None),
+            boundary_seconds=round(fm.last_boundary_seconds, 6),
+            boundary_split={k: round(v, 6) for k, v
+                            in fm.last_boundary_split.items()},
+            table_tiering=self.table_tiering)
+        if owned_pass:
+            hub.end_pass(metrics=metrics)
+        return out
+
+    def _train_pass_impl(self, dataset, metrics,
+                         preload_keys: np.ndarray | None,
+                         skip_steps: int) -> dict[str, float]:
         cfg = self.cfg
         t0 = time.perf_counter()
         fm = self.feed_mgr
         ws = fm.begin_pass(dataset.unique_keys())
         self.last_ws = ws
+        self.midpass_saves = []
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
         skip = int(skip_steps)
+        # the pass's steps so far, skipped ones included: the mid-pass
+        # cadence and a snapshot's mid_steps count them
+        pass_step = 0
         # DumpField stream: the previous batch's (step, preds, labels) is
         # written each iteration, once the step after it is queued, and
         # the writer thread formats and writes
@@ -495,21 +605,30 @@ class Trainer:
                        if cfg.dump_fields_path else None)
         dump_pending: tuple | None = None
         fm.pass_opened()
+        pack_it = None
         try:
             if preload_keys is not None:
                 self.preload_pass(preload_keys)
             t_loop = time.perf_counter()
-            for pb, staged in self._pack_iter(dataset, ws,
-                                              cfg.global_batch_size):
+            pack_it = self._pack_iter(dataset, ws, cfg.global_batch_size)
+            for pb, staged in pack_it:
                 if skip > 0:
                     skip -= 1
+                    pass_step += 1
                     continue
-                loss, preds = self.train_step(ws.table, *staged)
-                labels = staged[3]
-                auc.update(preds, labels)
-                if metrics is not None:
-                    metrics.add_batch(preds, labels, cmatch=pb.cmatch,
-                                      rank=pb.rank)
+                mon_ctx.set_step(self.global_step)
+                with monitor.span("pack_batch"):
+                    idx, mask, dense, labels, plan, extras = staged
+                with self.timers("train"), monitor.span("train_step"):
+                    loss, preds = self.train_step(ws.table, idx, mask,
+                                                  dense, labels, plan,
+                                                  extras)
+                    pass_step += 1
+                with self.timers("auc"), monitor.span("auc_update"):
+                    auc.update(preds, labels)
+                    if metrics is not None:
+                        metrics.add_batch(preds, labels, cmatch=pb.cmatch,
+                                          rank=pb.rank)
                 if dump_stream is not None:
                     if dump_pending is not None:
                         dump_stream.write_fields(*dump_pending)
@@ -519,12 +638,25 @@ class Trainer:
                     self._nan_guard(loss, preds, labels)
                 losses.append(loss)
                 self.global_step += 1
+                mp = self._midpass
+                if (mp is not None and mp[1] > 0
+                        and pass_step % mp[1] == 0):
+                    self._midpass_save(ws, pass_step)
             if self.device.type == "cuda":
                 # the steps' stream only: a staging copy of the next pass
                 # on the feed manager's stream is not step time
                 torch.cuda.current_stream(self.device).synchronize()
             step_seconds = time.perf_counter() - t_loop
         finally:
+            # drain crumbs: how far this pass got and whether it raised,
+            # for drain_and_snapshot after the exception lands
+            self.last_pass_steps = pass_step
+            self._pass_aborted = sys.exc_info()[0] is not None
+            if pack_it is not None:
+                # close the pack generator now, so its producer stops
+                # before anything reads or persists the table (the
+                # exception's traceback would keep it alive otherwise)
+                pack_it.close()
             fm.pass_closed()
             if dump_stream is not None:
                 # flush the tail batch even when the pass raised (a nan
@@ -539,8 +671,9 @@ class Trainer:
                 except Exception as e:
                     warnings.warn(f"dump stream failed: {e}")
         fm.end_pass(ws, ws.table)
-        lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
-              if losses else np.zeros(0))
+        with self.timers("drain"):
+            lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
+                  if losses else np.zeros(0))
         out = auc.compute()
         out["loss_first"] = float(lv[0]) if len(lv) else float("nan")
         out["loss_last"] = float(lv[-1]) if len(lv) else float("nan")
@@ -583,6 +716,10 @@ class Trainer:
         scope = {"params": self.eval_params(), "loss": loss,
                  "preds": preds, "labels": labels}
         bad = find_nonfinite(scope)
+        # tell telemetry which paths went non-finite, before the raise
+        monitor.counter_add("trainer.nan_trips")
+        monitor.event("nan_guard", step=int(self.global_step),
+                      paths=bad[:32], n_bad=len(bad))
         dumped = None
         if self.cfg.nan_dump_dir:
             dumped = dump_tree(f"{self.cfg.nan_dump_dir}/nan_step"
@@ -664,6 +801,9 @@ class Trainer:
         out["examples"] = examples
         out["step_seconds"] = step_seconds
         out["seconds"] = time.perf_counter() - t0
+        # one card routes nothing, so nothing is ever dropped
+        monitor.event("eval_pass", auc=float(out.get("auc", float("nan"))),
+                      routed_dropped=0)
         return out
 
     # ------------------------------------------------------------------
@@ -672,7 +812,7 @@ class Trainer:
     def flush_push(self) -> int:
         """Apply a pending deferred sparse push (JAX trainer.py:2054),
         registered as the feed manager's pre-flush hook. The port pushes
-        inline (push overlap is not ported, ROADMAP queue 1 item 6), so
+        inline (push overlap is not ported, ROADMAP queue 1 item 4), so
         nothing is ever pending: returns 0."""
         return 0
 
@@ -721,5 +861,107 @@ class Trainer:
         if collectives is not None:
             raise NotImplementedError(
                 "coordinated multi-host resume (collectives=...) is not "
-                "ported yet (ROADMAP, queue 1: multi-GPU)")
+                "ported yet (ROADMAP, queue 1 item 6: multi-GPU)")
         return checkpointer.resume(self, box=box, metrics=metrics)
+
+    # ------------------------------------------------------------------
+    # mid-pass snapshots
+    # ------------------------------------------------------------------
+    def enable_midpass_snapshots(self, checkpointer,
+                                 every_steps: int | None = None,
+                                 box=None, metrics=None) -> None:
+        """Commit a crash-safe snapshot every ``every_steps`` steps inside
+        each training pass (JAX trainer.py:2131). ``every_steps``
+        defaults to ``flags.ckpt_midpass_every_steps`` (0 keeps mid-pass
+        snapshots off), so a launcher sets the cadence from the
+        environment (``PBTPU_CKPT_MIDPASS_EVERY_STEPS``). A snapshot's
+        cursor records the last completed pass (``box.pass_id - 1``),
+        ``mid_steps`` (the open pass's steps already trained, skipped
+        ones of a resumed pass included) and the shuffle state the caller
+        put in ``midpass_cursor_extra["shuffle_state"]``, so a kill
+        between pass boundaries resumes through
+        ``train_pass(skip_steps=mid_steps)``. One card, allreduce: any
+        cadence (the kstep, async and superstep boundary rules of the
+        reference have no mode to bind here)."""
+        if every_steps is None:
+            every_steps = int(flags.ckpt_midpass_every_steps)
+        if every_steps <= 0:
+            self._midpass = None
+            return
+        if box is None:
+            raise ValueError("enable_midpass_snapshots needs a BoxPS "
+                             "(the cursor's pass identity)")
+        self._midpass = (checkpointer, int(every_steps), box, metrics)
+
+    def _quiesce_steps(self) -> float:
+        """Wait for the queued steps' kernels on the stream that launched
+        them — not the whole device: the feed manager's staging stream
+        keeps copying the next pass — and return the seconds waited."""
+        if self.device.type != "cuda":
+            return 0.0
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter() - t0
+
+    def _snapshot_open_pass(self, checkpointer, box, metrics, ws,
+                            steps: int) -> dict:
+        """Save the open pass as a mid-pass snapshot at ``steps``: wait
+        for the steps' kernels, mark the pass's touched rows unsynced so
+        the checkpointer's flush materializes them, and save with the
+        live dense state. Returns {snapshot, mid_steps, seconds, bytes,
+        stream_wait_s}."""
+        t0 = time.perf_counter()
+        wait = self._quiesce_steps()
+        self.flush_push()
+        ds = self.dense_state()
+        self.feed_mgr.end_pass(ws, ws.table)
+        snap = checkpointer.save(
+            self, box=box,
+            metrics=metrics if metrics is not None else box.metrics,
+            pass_id=int(box.pass_id) - 1, mid_steps=int(steps),
+            dense_override=(ds["params"], ds["opt_state"]),
+            shuffle_state=self.midpass_cursor_extra.get("shuffle_state"))
+        last = checkpointer.last_save or {}
+        return {"snapshot": snap, "mid_steps": int(steps),
+                "seconds": time.perf_counter() - t0,
+                "bytes": int(last.get("bytes", 0)),
+                "stream_wait_s": wait}
+
+    def _midpass_save(self, ws: PassWorkingSet, pass_step: int) -> None:
+        """Commit a mid-pass snapshot from inside the step loop (JAX
+        trainer.py:2193). The feed manager's in-pass guard is lifted only
+        around the save: at this instruction no step is queued past the
+        stream wait, so the rows read D2H are this step's."""
+        ckpt, _every, box, metrics = self._midpass
+        self.feed_mgr.pass_closed()
+        try:
+            info = self._snapshot_open_pass(ckpt, box, metrics, ws,
+                                            pass_step)
+        finally:
+            self.feed_mgr.pass_opened()
+        self.midpass_saves.append(info)
+        faultpoint.hit("trainer.midpass.post_save")
+
+    def drain_and_snapshot(self, checkpointer, box, metrics=None
+                           ) -> str | None:
+        """After a pass raised inside its step loop, commit a mid-pass
+        snapshot at the step it reached (JAX trainer.py:2233), so the
+        restart keeps the steps already trained. The pass's ``finally``
+        closed the pack pipeline and left its crumbs
+        (``last_pass_steps``, the aborted mark). Returns the snapshot
+        directory, or None when there is nothing to snapshot (no open
+        BoxPS pass, a pass that did not raise, or no step taken). Close
+        the pass with ``box.abort_pass`` afterwards."""
+        if box is None or not box.in_pass or not self._pass_aborted:
+            return None
+        steps = int(self.last_pass_steps)
+        ws = self.last_ws
+        if steps <= 0 or ws is None:
+            return None
+        info = self._snapshot_open_pass(checkpointer, box, metrics, ws,
+                                        steps)
+        self.midpass_saves.append(info)
+        monitor.counter_add("resilience.drain_snapshots")
+        monitor.event("drain_snapshot", type="lifecycle",
+                      snapshot=info["snapshot"], mid_steps=steps)
+        return info["snapshot"]

@@ -5,8 +5,8 @@ Copied as they are: ``CheckpointCorruptError`` (:39), ``atomic_file``
 (:54, tmp → fsync → ``os.replace`` → directory fsync), ``crc32_file``
 (:103), ``file_entry`` (:121) and the manifest trio
 ``write_manifest`` / ``read_manifest`` / ``verify_manifest``
-(:130-193). The checksum timing counters of the reference are left out
-(telemetry is not ported yet, ROADMAP).
+(:130-193), with the checksum's ``ckpt.crc_seconds`` / ``ckpt.crc_files``
+counters.
 
 ``save_tree`` / ``load_tree`` replace the reference's jax pytree
 ``save_pytree`` / ``load_pytree`` (:209/:234) over nested dicts, lists
@@ -98,11 +98,19 @@ def _fsync_dir(d: str) -> None:
 
 
 def crc32_file(path: str, chunk: int = 1 << 20) -> int:
+    import time
+
+    from paddlebox_tpu_torch.monitor import counter_add
+    t0 = time.perf_counter()
     crc = 0
     with open(path, "rb") as f:
         while True:
             b = f.read(chunk)
             if not b:
+                # the checksum's cost is part of the checkpoint budget the
+                # flight record accounts (save and verify both land here)
+                counter_add("ckpt.crc_seconds", time.perf_counter() - t0)
+                counter_add("ckpt.crc_files")
                 return crc & 0xFFFFFFFF
             crc = zlib.crc32(b, crc)
 

@@ -17,8 +17,10 @@ a preemption) or raises :class:`FaultInjected` (an OSError).
 
 ``POINTS`` is the closed registry of the windows this package reaches,
 under the JAX package's names, so one environment arms both packages.
-The reference's telemetry of arms and trips is not copied (telemetry is
-not ported yet, ROADMAP).
+Arms and trips route through the telemetry hub as the reference's do
+(``faultpoint.armed``, ``faultpoint.trips``, ``faultpoint.trip.<name>``
+and the ``faultpoint_armed`` / ``faultpoint_trip`` events); a broken hub
+never fails ``arm`` or masks the injected fault.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ POINTS: tuple[str, ...] = (
     # utils/pass_ckpt.save: manifest committed — resume must land on THIS
     # snapshot.
     "pass_ckpt.post_manifest",
+    # train/trainer._midpass_save: a mid-pass snapshot just committed —
+    # dying here must resume from the cursor (skip the steps already
+    # trained), not replay the pass from its start.
+    "trainer.midpass.post_save",
     # serving/artifact.write_artifact: every member landed, the version's
     # MANIFEST.json not yet committed — the version never happened.
     "serving.publish.pre_manifest",
@@ -69,6 +75,10 @@ POINTS: tuple[str, ...] = (
     # serving/publisher.publish: verified, the donefile line not yet
     # appended — no server may see the version.
     "serving.publish.pre_donefile",
+    # monitor/sinks.JsonlSink._rotate: a full segment is about to close
+    # and the next one open (writer thread). A fault here latches the
+    # sink's error: telemetry stops, training does not.
+    "telemetry.rotate.pre",
 )
 
 
@@ -87,6 +97,9 @@ class _Armed:
 
 
 _armed: dict[str, _Armed] = {}
+# telemetry failures swallowed by arm()/hit(): a broken hub is counted
+# here and never fails the harness or masks the injected fault
+hub_failures = 0
 # per-point hit counters (tests assert a point is on the executed path)
 _counts: dict[str, int] = {}
 
@@ -97,6 +110,7 @@ def arm(name, action: str = "kill", after: int = 0) -> None:
     with the same ``action``/``after`` (a re-arm of a live name resets
     its hit count). ``action``: ``kill`` (os._exit(137)) or ``ioerror``
     (raise FaultInjected). ``after``: fire on hit #after+1."""
+    global hub_failures
     names = ([n.strip() for n in name.split(",") if n.strip()]
              if isinstance(name, str) else [str(n) for n in name])
     if not names:
@@ -109,6 +123,14 @@ def arm(name, action: str = "kill", after: int = 0) -> None:
         raise ValueError(f"fault action {action!r} (want kill|ioerror)")
     for n in names:
         _armed[n] = _Armed(n, action, int(after))
+    try:
+        from paddlebox_tpu_torch.monitor.hub import _HUB
+        for n in names:
+            _HUB.counter_add("faultpoint.armed")
+            _HUB.event("faultpoint_armed", point=n, action=action,
+                       after=int(after))
+    except Exception:
+        hub_failures += 1
 
 
 def disarm(name: str | None = None) -> None:
@@ -125,6 +147,7 @@ def hit_count(name: str) -> int:
 
 def hit(name: str) -> None:
     """Mark a registered crash window. No-op unless armed on this name."""
+    global hub_failures
     if not _armed:
         return
     if name not in POINTS:
@@ -136,6 +159,15 @@ def hit(name: str) -> None:
     a.hits += 1
     if a.hits <= a.after:
         return
+    # telemetry before firing (the kill path loses in-flight sinks by
+    # design: that is the crash being modeled)
+    try:
+        from paddlebox_tpu_torch.monitor.hub import _HUB
+        _HUB.counter_add("faultpoint.trips")
+        _HUB.counter_add(f"faultpoint.trip.{name}")
+        _HUB.event("faultpoint_trip", point=name, action=a.action)
+    except Exception:
+        hub_failures += 1
     if a.action == "kill":
         # stderr marker first: a harness asserts the kill came from the
         # armed point, not an incidental crash

@@ -28,8 +28,8 @@ class RemoteFSNotPorted(NotImplementedError):
         super().__init__(
             f"remote path {path!r}: remote filesystems (the reference's "
             f"CommandFS for hdfs://, afs://, ...) and the checkpoint "
-            f"mirror are not ported yet (ROADMAP, queue 1: remote fs and "
-            f"mirror); use a local root")
+            f"mirror are not ported yet (ROADMAP, queue 1 item 5: remote "
+            f"fs and mirror); use a local root")
         self.path = path
 
 

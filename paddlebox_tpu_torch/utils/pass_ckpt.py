@@ -23,14 +23,22 @@ flushes the trainer's lazily retained device rows
 (``Trainer.flush_sparse``), so the sparse member holds every pass's
 updates; ``last_save`` records that flush's seconds and bytes.
 
+A mid-pass snapshot (``save(mid_steps > 0)``, written by the trainer's
+``enable_midpass_snapshots`` hook or ``drain_and_snapshot``) is named
+``pass-PPPPP.midSSSSS``: ``pass_id`` is the last completed pass, the
+cursor's ``mid_steps`` the steps of the open pass already trained, and
+``dense_override`` carries the live dense state. Its cursor feeds
+``Trainer.train_pass(skip_steps=mid_steps)``.
+
 The directory layout and every file are the reference's, so a snapshot
-root written by either package resumes in the other. Not ported yet
-(ROADMAP): remote roots and the mirror (:291-478, :742 — a remote URI
-raises ``RemoteFSNotPorted``), and mid-pass snapshot saving (a snapshot
-of the JAX package with ``mid_steps`` > 0 does resume: its cursor feeds
-``Trainer.train_pass(skip_steps=...)``). The reference's telemetry
-events are left out; ``last_save`` / ``last_resume`` keep the seconds and
-bytes it counts.
+root written by either package, mid-pass ones included, resumes in the
+other. Each save and resume counts its seconds and bytes in the monitor
+(``ckpt.*``), emits ``checkpoint_save`` / ``checkpoint_resume`` (and
+``checkpoint_torn_fallback``, ``checkpoint_timeline_reset``), and marks
+a ``checkpoint_commit`` instant in the chrome trace; ``last_save`` /
+``last_resume`` keep the same numbers with the flush's. Not ported yet
+(ROADMAP queue 1 item 5): remote roots and the mirror (:291-478, :742 —
+a remote URI raises ``RemoteFSNotPorted``).
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ import time
 import warnings
 from typing import Any
 
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.config import flags as config_flags
 from paddlebox_tpu_torch.utils import checkpoint as ckpt_lib
 from paddlebox_tpu_torch.utils import faultpoint
 from paddlebox_tpu_torch.utils import fs as fs_lib
+from paddlebox_tpu_torch.utils import profiler
 from paddlebox_tpu_torch.utils.checkpoint import CheckpointCorruptError
 
 _PASS_RE = re.compile(r"^pass-(\d+)(?:\.mid(\d+))?$")
@@ -116,17 +126,20 @@ class PassCheckpointer:
 
     def save(self, trainer, box=None, metrics=None,
              pass_id: int | None = None, mid_steps: int = 0,
+             dense_override: tuple | None = None,
              shuffle_state: dict | None = None) -> str:
         """Snapshot the complete post-pass state; returns the snapshot
         directory. Members land in dependency order (sparse chain → dense
         → metrics), manifest last: a kill anywhere before the manifest
         commit leaves this snapshot invisible and the previous one
-        intact."""
-        if mid_steps:
-            raise NotImplementedError(
-                "mid-pass snapshot saving (mid_steps > 0) is not ported yet "
-                "(ROADMAP, queue 1: mid-pass snapshots); a JAX mid-pass "
-                "snapshot resumes through train_pass(skip_steps=...)")
+        intact.
+
+        ``mid_steps`` > 0 marks a mid-pass snapshot: ``pass_id`` is then
+        the last completed pass and the cursor records how many steps of
+        the open pass are trained. ``dense_override`` = (params,
+        opt_state) NumPy trees in the JAX layout replaces
+        ``trainer.dense_state()`` (the trainer's mid-pass hook passes
+        the live state). ``shuffle_state`` rides the cursor."""
         t_save0 = time.perf_counter()
         if pass_id is None:
             if box is None:
@@ -168,11 +181,14 @@ class PassCheckpointer:
         chain_files = store.chain_file_entries(self._chain_path(chain_name),
                                                save_seq)
 
-        snap = self.snap_dir(pass_id)
+        snap = self.snap_dir(pass_id, mid_steps)
         os.makedirs(snap, exist_ok=True)
         files: dict[str, dict] = {}
         dense_f = os.path.join(snap, "dense.npz")
-        ckpt_lib.save_tree(trainer.dense_state(), dense_f)
+        dense_tree = (trainer.dense_state() if dense_override is None
+                      else {"params": dense_override[0],
+                            "opt_state": dense_override[1]})
+        ckpt_lib.save_tree(dense_tree, dense_f)
         files["dense.npz"] = ckpt_lib.file_entry(dense_f)
         if metrics is not None and metrics.names():
             met_f = os.path.join(snap, "metrics.npz")
@@ -184,23 +200,41 @@ class PassCheckpointer:
             "global_step": int(trainer.global_step),
             "date": None if box is None else box.date,
             "phase": None if metrics is None else int(metrics.phase),
-            "mid_steps": 0,
+            "mid_steps": int(mid_steps),
             "shuffle_state": shuffle_state,
         }
-        parent = self.snap_name(pass_id - 1) if pass_id > 1 else None
+        if mid_steps:
+            parent = self.snap_name(pass_id)          # the completed pass
+        else:
+            parent = self.snap_name(pass_id - 1) if pass_id > 1 else None
         faultpoint.hit("pass_ckpt.pre_manifest")
         ckpt_lib.write_manifest(
             snap, files, cursor=cursor, save_seq=save_seq,
             chain_dir=chain_name, chain_files=chain_files,
             parent_snapshot=parent)
         faultpoint.hit("pass_ckpt.post_manifest")
+        seconds = time.perf_counter() - t_save0
         sparse_member = ("base.npz" if rotate
                          else f"delta-{save_seq:05d}.npz")
         sparse_bytes = chain_files[sparse_member]["bytes"]
+        nbytes = sum(e["bytes"] for e in files.values()) + sparse_bytes
+        monitor.counter_add("ckpt.saves")
+        monitor.counter_add("ckpt.save_seconds", seconds)
+        monitor.counter_add("ckpt.bytes", nbytes)
+        if rotate:
+            monitor.counter_add("ckpt.base_rotations")
+        if mid_steps:
+            monitor.counter_add("ckpt.midpass_saves")
+        monitor.event("checkpoint_save", type="lifecycle",
+                      snapshot=os.path.basename(snap), seconds=seconds,
+                      bytes=int(nbytes), rotated=bool(rotate),
+                      chain=chain_name, save_seq=int(save_seq),
+                      mid_steps=int(mid_steps))
+        profiler.record_instant("checkpoint_commit",
+                                {"snapshot": os.path.basename(snap)})
         self.last_save = {
             "snapshot": os.path.basename(snap), "rotated": bool(rotate),
-            "seconds": time.perf_counter() - t_save0,
-            "bytes": sum(e["bytes"] for e in files.values()) + sparse_bytes,
+            "seconds": seconds, "bytes": nbytes,
             "sparse_member": sparse_member, "sparse_seconds": sparse_seconds,
             "sparse_bytes": sparse_bytes, "flush_seconds": flush_seconds,
             "flush_bytes": int(flush_bytes)}
@@ -264,6 +298,12 @@ class PassCheckpointer:
             try:
                 return pass_id, snap, self._verify_snapshot(snap)
             except CheckpointCorruptError as e:
+                # a torn snapshot shows in the flight record and the
+                # exposition, not only in this warning
+                monitor.counter_add("ckpt.torn_fallbacks")
+                monitor.event("checkpoint_torn_fallback", type="lifecycle",
+                              snapshot=os.path.basename(snap),
+                              error=str(e)[:300])
                 warnings.warn(
                     f"snapshot {snap} failed verification ({e}); "
                     f"falling back to the previous one")
@@ -339,9 +379,17 @@ class PassCheckpointer:
                               int(_CHAIN_RE.match(chain_name).group(1)))
         self._deltas_in_chain = seq
         self._expect_count = trainer.store.save_count
+        seconds = time.perf_counter() - t_res0
+        monitor.counter_add("ckpt.resumes")
+        monitor.counter_add("ckpt.resume_seconds", seconds)
+        monitor.event("checkpoint_resume", type="lifecycle",
+                      snapshot=os.path.basename(snap), seconds=seconds,
+                      resumed_pass=int(cursor["pass_id"]),
+                      mid_steps=int(cursor["mid_steps"]),
+                      chain=chain_name, save_seq=seq, elected=at is not None)
         self.last_resume = {
             "snapshot": os.path.basename(snap),
-            "seconds": time.perf_counter() - t_res0,
+            "seconds": seconds,
             "bytes": (sum(e["bytes"] for e in manifest["files"].values())
                       + sum(e["bytes"] for e in
                             manifest.get("chain_files", {}).values()))}
@@ -350,9 +398,13 @@ class PassCheckpointer:
     def _discard_newer_than(self, at: tuple[int, int]) -> None:
         """Remove snapshots newer than ``at``: they belong to an abandoned
         timeline and must never win a later newest-first walk."""
-        for p, m, s in self._list_snaps():
-            if (p, m) > at:
-                shutil.rmtree(s, ignore_errors=True)
+        dropped = [s for p, m, s in self._list_snaps() if (p, m) > at]
+        for s in dropped:
+            shutil.rmtree(s, ignore_errors=True)
+        if dropped:
+            monitor.event("checkpoint_timeline_reset", type="lifecycle",
+                          elected=list(at),
+                          dropped=[os.path.basename(s) for s in dropped])
 
     # ---- retention -------------------------------------------------------
 

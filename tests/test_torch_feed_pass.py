@@ -236,6 +236,11 @@ def _drive(pkg, incremental, preload, flush_first=False):
         _edit(pkg, mgr, ws, keys, nxt)
         if preload:
             mgr.begin_feed_pass(nxt)
+            # join the feed thread before the mutation, as the JAX test
+            # does: otherwise the staging's inserts race the mutation and
+            # the fresh/stale/patched counts depend on thread timing
+            # (test_staging_races_store_mutations covers that order)
+            mgr.wait_feed_pass_done()
         kind = MUTATIONS[p % len(MUTATIONS)]
         if flush_first:
             mgr.flush()
@@ -463,7 +468,7 @@ def test_helpers_and_unported_options():
     assert nbytes == transfer_bytes(cfg, 2) == 2 * cfg.row_width * 4
     store = _store("port")
     for kw in (dict(mesh=object()), dict(ownership=object())):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             FeedPassManager(store, device="cpu", **kw)
     mgr = FeedPassManager(store, device="cpu")
     # the replica tier is ported: set_replica attaches and None detaches

@@ -520,14 +520,14 @@ def test_remote_paths_raise_not_ported(tmp_path):
 
 def test_tcp_shuffle_parts_raise_not_ported():
     schema, _ = schemas()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         SlotDataset(schema, shuffle_service=object())
     ds = SlotDataset(schema)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         ds.load_into_memory(routing="ins_id")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         ds.member_shards(2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         ds.reroute_records(None, 2)
 
 

@@ -1,30 +1,52 @@
 """The port's lint gate: pblint over ``paddlebox_tpu_torch`` finds no
 unwaived finding, the way tests/test_lint_clean.py holds the JAX package.
 
-The CLI runs in a subprocess with ``PBTPU_NO_JAX=1``, exactly as over
-``paddlebox_tpu``; each waiver in the port carries its reason (a waiver
-without one is itself a ``bad-waiver`` finding).
+The linter runs in a subprocess with ``PBTPU_NO_JAX=1`` over a
+``Project`` built through pblint's Python API: the package is the port
+(so its ``paddlebox_tpu_torch.config`` flag reads and
+``paddlebox_tpu_torch.utils.faultpoint`` sites are the ones resolved)
+and the port's own ``monitor/context.py`` is the sanctioned thread
+wrapper (its ``spawn`` is how the port starts threads, so no
+``thread-context`` waiver is left), while the flag, faultpoint and
+event/span name registries stay the JAX package's, so every literal
+``monitor.event`` / ``span`` name and faultpoint name in the port is held
+to them. Each waiver in the port carries its reason (a waiver without
+one is itself a ``bad-waiver`` finding).
 """
 
+import json
 import os
-import re
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_LINT = r"""
+import json, sys
+from paddlebox_tpu.analysis.core import Linter, Project
+project = Project(root=sys.argv[1], package="paddlebox_tpu_torch",
+                  thread_context_module="paddlebox_tpu_torch/monitor/context.py")
+res = Linter(project).lint(["paddlebox_tpu_torch"])
+print(json.dumps({
+    "files": res.files_linted,
+    "findings": [f.render() for f in res.findings],
+    "waived": [[f.rule, f.file, f.line] for f, _ in res.waived]}))
+"""
+
 
 def test_port_is_lint_clean():
     proc = subprocess.run(
-        [sys.executable, "-m", "paddlebox_tpu.analysis.lint",
-         "paddlebox_tpu_torch"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PBTPU_NO_JAX": "1"})
-    assert proc.returncode == 0, (
+        [sys.executable, "-c", _LINT, REPO], cwd=REPO, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PBTPU_NO_JAX": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["files"] > 50, out
+    assert out["findings"] == [], (
         "pblint found unwaived findings in the port:\n"
-        + proc.stdout + proc.stderr)
-    m = re.search(r"(\d+) finding\(s\), (\d+) waived", proc.stdout)
-    assert m is not None, proc.stdout
-    assert m.group(1) == "0", proc.stdout
-    # the waivers are real: the restored markers suppress their findings
-    assert int(m.group(2)) >= 6, proc.stdout
+        + "\n".join(out["findings"]))
+    # the waivers are real (their markers suppress findings), and none is
+    # a thread-context one: every port thread spawns through
+    # monitor.context
+    rules = [w[0] for w in out["waived"]]
+    assert "thread-context" not in rules, out["waived"]
+    assert len(rules) == 7, out["waived"]

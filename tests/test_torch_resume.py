@@ -12,7 +12,8 @@ does, across packages:
   rtol 1e-3 / atol 2e-5, mlp rtol 2e-3 / atol 2e-5);
 - a torn newest snapshot falls back to the previous one, and a save
   killed at ``pass_ckpt.pre_manifest`` is invisible to resume;
-- a JAX mid-pass snapshot resumes in the port through ``skip_steps``;
+- a JAX mid-pass snapshot resumes in the port through ``skip_steps``
+  (tests/test_torch_midpass.py covers the port's own mid-pass saves);
 - ``eval_pass`` against the JAX package's, the store neither grown nor
   dirtied;
 - a foreign save on the store makes the next snapshot a base;
@@ -341,8 +342,15 @@ def test_port_resumes_a_jax_midpass_snapshot(tmp_path):
     cursor = tr.resume(_ckpt("port", root), box=box)
     assert cursor["pass_id"] == 1 and cursor["mid_steps"] == 3
     assert tr.global_step == STEPS + 3
-    with pytest.raises(NotImplementedError, match="mid-pass"):
-        PassCheckpointer(str(tmp_path / "x")).save(tr, box=box, mid_steps=3)
+    # the port writes mid-pass snapshots too: the resumed state saved
+    # again lands under the same name and cursor
+    again = PassCheckpointer(str(tmp_path / "x")).save(tr, box=box,
+                                                       mid_steps=3)
+    assert os.path.basename(again) == "pass-00001.mid00003"
+    with open(os.path.join(again, "MANIFEST.json")) as f:
+        again_cursor = json.load(f)["cursor"]
+    assert again_cursor["pass_id"] == 1 and again_cursor["mid_steps"] == 3
+    assert again_cursor["global_step"] == STEPS + 3
     ds = _dataset("port", tr, 2)
     box.begin_pass()
     out = tr.train_pass(ds, metrics=box.metrics,

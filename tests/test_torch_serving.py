@@ -14,7 +14,7 @@ JAX package's:
   staleness, cold-start seek with fallback past a rotted base, a
   CRC-corrupt version skipped (``degraded``) and the recovery on the next
   base, version-mismatch rejection, fetch retry with the staging copy
-  removed, ``/healthz`` (port 0) and ``/metrics`` answering 501;
+  removed, ``/healthz`` (port 0) and ``/metrics`` serving Prometheus text;
 - hot-swap under concurrent load from 4 threads with 0 failures, every
   result one published version's scores;
 - ``BatchingFrontend``: scores equal to a direct ``predict``, the
@@ -361,12 +361,17 @@ def test_health_endpoint_http(job):
             h = json.loads(r.read())
         assert h["status"] == "ok" and h["active_version"] == 1
         assert h["versions"]["1"]["role"] == "stable"
-        # /metrics waits for the port's monitor: 501, naming it, never an
-        # empty success
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(base + "/metrics", timeout=10)
-        assert ei.value.code == 501
-        assert b"item 12" in ei.value.read()
+        # /metrics serves the telemetry hub's Prometheus text, with the
+        # swap that just happened counted and the active version gauged
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith("text/plain")
+            text = r.read().decode()
+        lines = text.splitlines()
+        assert "# TYPE pbtpu_serving_swaps counter" in lines
+        assert "# TYPE pbtpu_serving_active_version gauge" in lines
+        assert "pbtpu_serving_active_version 1" in lines
+        assert "# TYPE pbtpu_serving_publish_failures counter" in lines
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(base + "/nope", timeout=10)
         assert ei.value.code == 404

@@ -237,7 +237,7 @@ def test_autotune_rebalance_and_flags(tmp_path, monkeypatch):
     assert s["cache_misses"] == 64 and s["assoc"] == 4
     assert tiering.spill_stats(HostEmbeddingStore(cfg)) is None
     assert tiering.fault_in_seconds(st) > 0.0
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tiering.store_from_flags(cfg, n_shards=2)
     monkeypatch.setattr(flags, "table_tiering", "ssd")
     with pytest.raises(ValueError, match="table_tiering"):
