@@ -168,7 +168,34 @@ Phases, each of which exits non-zero on failure:
    of step 7, resumed the same way; (c) start_device_trace /
    stop_device_trace (torch.profiler with CUDA activity) around one
    one-hot pass: the Chrome trace names the kernels and the pass_begin /
-   pass_end markers.
+   pass_end markers;
+14. the step's dispatch modes and remote roots, DeepFM at full width,
+   every training pass counted between a reset just before and a read
+   just after (the sums are the kernels line's phase14_launches): (a) on
+   each layout, push overlap off and on (flags.push_overlap, read when
+   the Trainer is built), a warm-up pass each then 3 alternating 16-step
+   passes each: the layout's kernels 16 each and push_applies 16 (on) /
+   0 (off) a pass, the two runs' losses and rows within LOSS_TOL /
+   TABLE_TOL, then a profiled pass (device kernels' busy ms/step, idle
+   share against the step loop) and a sync-probed pass (0 host syncs a
+   step) of each, printing each run's step-loop examples/s and the
+   spread; (b) the same for steps_per_dispatch 4 against 1, then a k=4
+   job with mid-pass snapshots every 4 steps killed after the step-8
+   snapshot and resumed in a fresh process at that dispatch boundary
+   (restored state bit-equal to the killed process's live state, the
+   tail launching 8 of each one-hot kernel, the finished pass within
+   LOSS_TOL / TABLE_TOL of the uninterrupted one); (c) a stand-in hadoop
+   CLI that this script writes, registered with init_afs_api for afs://:
+   phase 5's one-hot records as a remote filelist loaded directly and
+   through pipe_command "cat", both packing to byte-identical batches
+   against the local load; three checkpointed one-hot passes to a
+   remote PassCheckpointer root (each pass's local commit and upload),
+   pass 2 resumed in a fresh process from an empty staging dir bit-equal
+   to the writer's live state; a remote FleetUtil day model saved and
+   loaded bit-equal; a remote serving root published to and served by a
+   ServingServer staging its fetch on the card, scoring as the local
+   root's server does. Prints the seconds and bytes of every upload,
+   download and resume.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -867,7 +894,7 @@ def check_text_parse(schema, records) -> None:
 
 
 def make_trainer(torch, lay, n_batch, device, seed=SEED, storage="f32",
-                 store_fn=None):
+                 store_fn=None, steps_per_dispatch=1):
     """``store_fn(cfg)`` builds the host table (a HostEmbeddingStore by
     default)."""
     from paddlebox_tpu_torch.data import DataFeedSchema
@@ -882,7 +909,8 @@ def make_trainer(torch, lay, n_batch, device, seed=SEED, storage="f32",
                                 batch_size=n_batch, max_len=lay.max_len)
     tr = Trainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN), store,
                  schema, TrainerConfig(global_batch_size=n_batch,
-                                       auc_buckets=1 << 16),
+                                       auc_buckets=1 << 16,
+                                       steps_per_dispatch=steps_per_dispatch),
                  seed=seed, device=device)
     return store, schema, tr
 
@@ -3019,7 +3047,7 @@ MIDPASS_KILL_STEP = 8      # the killed process dies after this snapshot
 DRAIN_STEP = 6             # the drained pass raises at the top of step 7
 
 
-def monitor_job(torch, lay, n_steps=None, seed=SEED):
+def monitor_job(torch, lay, n_steps=None, seed=SEED, steps_per_dispatch=1):
     """A fresh job on ``lay`` at full width: (store, schema, trainer, box
     with an "auc" metric, dataset of ``n_steps`` batches). The keys and
     records depend only on the layout, so another process rebuilds the
@@ -3030,7 +3058,8 @@ def monitor_job(torch, lay, n_steps=None, seed=SEED):
     rng = np.random.default_rng(SEED + 13)
     keys = np.unique(rng.integers(1, 1 << 50, lay.n_keys + 4096,
                                   dtype=np.uint64))[:lay.n_keys]
-    store, schema, tr = make_trainer(torch, lay, B, None, seed=seed)
+    store, schema, tr = make_trainer(torch, lay, B, None, seed=seed,
+                                     steps_per_dispatch=steps_per_dispatch)
     box = BoxPS(store)
     box.init_metric("auc")
     ds = SlotDataset(schema)
@@ -3121,7 +3150,10 @@ def midpass_worker(argv: list[str]) -> int:
     from paddlebox_tpu_torch.ops import kernels
     from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
     mode, root = argv[0], argv[1]
-    store, _, tr, box, ds = monitor_job(torch, ONEHOT, seed=SEED + 7)
+    # phase 14 (b) runs the same job as a superstep
+    k = int(os.environ.get("CHIP_SMOKE_STEPS_PER_DISPATCH", "1"))
+    store, _, tr, box, ds = monitor_job(torch, ONEHOT, seed=SEED + 7,
+                                        steps_per_dispatch=k)
     ckpt = PassCheckpointer(root, base_every=2)
     if mode == "kill":
         tr.enable_midpass_snapshots(ckpt, MIDPASS_EVERY, box,
@@ -3285,6 +3317,48 @@ def hub_modes(torch, kernels, card, lay, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def hold_resumed(d, root, want, skip, label, ref, total, card,
+                 env_extra=None, tag="(b)") -> None:
+    """Resume ``root``'s newest snapshot in a fresh process (a midpass
+    worker), hold its restored state bit-equal to ``want`` (the live
+    state at step ``skip``) and its finished pass against the
+    uninterrupted one, ``ref`` = (keys, final rows, pass result), within
+    LOSS_TOL / TABLE_TOL."""
+    lay = ONEHOT
+    keys, final_u, out_u = ref
+    out = os.path.join(d, f"resumed-{label.replace(' ', '-')}")
+    t0 = time.perf_counter()
+    r = run_worker(["resume", root, out], env_extra)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{tag} {label} resume worker failed "
+          f"({r.returncode}): {r.stdout[-1500:]}{r.stderr[-3000:]}")
+    restored, meta = load_state(out)
+    cur = meta["cursor"]
+    check(cur["pass_id"] == 0 and cur["mid_steps"] == skip
+          and cur["global_step"] == skip and meta["on_card"],
+          f"{tag} {label}: cursor {cur}")
+    check(same_state(restored, want),
+          f"{tag} {label}: the restored state differs from the live one "
+          f"at step {skip}")
+    final, fmeta = load_state(out + ".final")
+    expect_launches(f"{tag} {label} resumed tail", fmeta["launches"],
+                    {k: 16 - skip for k in lay.kernels})
+    add_counts(total, fmeta["launches"])
+    check(fmeta["steps"] == 16 - skip, f"{tag} {label}: tail ran "
+          f"{fmeta['steps']} steps")
+    check(np.array_equal(final["keys"], keys), f"{tag} {label}: keys")
+    np.testing.assert_allclose(final["rows"], final_u, **TABLE_TOL)
+    np.testing.assert_allclose(fmeta["loss_last"], out_u["loss_last"],
+                               **LOSS_TOL)
+    print(f"  {tag} {label} ({card}): resumed in a fresh process "
+          f"({wall:.1f} s wall) from {meta['resume_bytes']} bytes in "
+          f"{meta['resume_s']:.3f} s; keys, rows, dense params, adam "
+          f"state, metric state and cursor bit-equal to the live state "
+          f"at step {skip} ok; tail of {16 - skip} steps launched "
+          f"{fmeta['launches']}; loss last {fmeta['loss_last']:.6f} vs "
+          f"{out_u['loss_last']:.6f}, rows within TABLE_TOL ok")
+
+
 def midpass_snapshots(torch, kernels, card, total: dict, d: str) -> None:
     """(b) mid-pass snapshots every MIDPASS_EVERY steps on the one-hot
     layout: an uninterrupted pass, a process killed after the step-8
@@ -3321,39 +3395,6 @@ def midpass_snapshots(torch, kernels, card, total: dict, d: str) -> None:
               f" ms | step loop {out_u['step_seconds']:.3f} s for 16 steps "
               f"with the saves")
 
-    def resume_and_hold(root, want, skip, label):
-        out = os.path.join(d, f"resumed-{label}")
-        t0 = time.perf_counter()
-        r = run_worker(["resume", root, out])
-        wall = time.perf_counter() - t0
-        check(r.returncode == 0, f"(b) {label} resume worker failed "
-              f"({r.returncode}): {r.stdout[-1500:]}{r.stderr[-3000:]}")
-        restored, meta = load_state(out)
-        cur = meta["cursor"]
-        check(cur["pass_id"] == 0 and cur["mid_steps"] == skip
-              and cur["global_step"] == skip and meta["on_card"],
-              f"(b) {label}: cursor {cur}")
-        check(same_state(restored, want),
-              f"(b) {label}: the restored state differs from the live one "
-              f"at step {skip}")
-        final, fmeta = load_state(out + ".final")
-        expect_launches(f"(b) {label} resumed tail", fmeta["launches"],
-                        {k: 16 - skip for k in lay.kernels})
-        add_counts(total, fmeta["launches"])
-        check(fmeta["steps"] == 16 - skip, f"(b) {label}: tail ran "
-              f"{fmeta['steps']} steps")
-        check(np.array_equal(final["keys"], keys), f"(b) {label}: keys")
-        np.testing.assert_allclose(final["rows"], final_u, **TABLE_TOL)
-        np.testing.assert_allclose(fmeta["loss_last"], out_u["loss_last"],
-                                   **LOSS_TOL)
-        print(f"  (b) {label} ({card}): resumed in a fresh process "
-              f"({wall:.1f} s wall) from {meta['resume_bytes']} bytes in "
-              f"{meta['resume_s']:.3f} s; keys, rows, dense params, adam "
-              f"state, metric state and cursor bit-equal to the live state "
-              f"at step {skip} ok; tail of {16 - skip} steps launched "
-              f"{fmeta['launches']}; loss last {fmeta['loss_last']:.6f} vs "
-              f"{out_u['loss_last']:.6f}, rows within TABLE_TOL ok")
-
     root_k = os.path.join(d, "killed")
     r = run_worker(["kill", root_k], {
         "PBTPU_FAULTPOINT": "trainer.midpass.post_save",
@@ -3368,7 +3409,8 @@ def midpass_snapshots(torch, kernels, card, total: dict, d: str) -> None:
     live, _ = load_state(root_k + ".live")
     check(live["step"] == MIDPASS_KILL_STEP, "(b) the killed run's live "
           f"state is from step {live['step']}")
-    resume_and_hold(root_k, live, MIDPASS_KILL_STEP, "killed at step 8")
+    hold_resumed(d, root_k, live, MIDPASS_KILL_STEP, "killed at step 8",
+                 (keys, final_u, out_u), total, card)
     del store, tr, box
     torch.cuda.empty_cache()
 
@@ -3400,7 +3442,8 @@ def midpass_snapshots(torch, kernels, card, total: dict, d: str) -> None:
           f"{info['stream_wait_s'] * 1e3:.3f} ms")
     del store, tr, box
     torch.cuda.empty_cache()
-    resume_and_hold(root_d, at_drain, DRAIN_STEP, "drained at step 6")
+    hold_resumed(d, root_d, at_drain, DRAIN_STEP, "drained at step 6",
+                 (keys, final_u, out_u), total, card)
 
 
 def device_trace(torch, kernels, card, total: dict, d: str) -> None:
@@ -3496,6 +3539,455 @@ def monitor_phase(torch, kernels, card) -> dict[str, int]:
           f"{time.perf_counter() - t2:.1f}")
     return total
 
+# ---------------------------------------------------------------------------
+# phase 14: the step's dispatch modes and remote roots
+# ---------------------------------------------------------------------------
+
+SUPERSTEP_K = 4
+HADOOP_CLI = """#!{python}
+# A stand-in for the hadoop fs client: {scheme}:// paths map onto one local
+# directory. It speaks the commands init_afs_api composes.
+import os, shutil, sys
+ROOT = {root!r}
+args = [a for a in sys.argv[1:] if not a.startswith("-D")]
+assert args[0] == "fs", args
+op, rest = args[1], [a for a in args[2:] if a not in ("-f", "-p", "-r",
+                                                      "-e")]
+def local(p):
+    return os.path.join(ROOT, p.split("://", 1)[1])
+if op == "-cat":
+    with open(local(rest[0]), "rb") as f:
+        shutil.copyfileobj(f, sys.stdout.buffer)
+elif op == "-ls":
+    for n in sorted(os.listdir(local(rest[0]))):
+        print(rest[0].rstrip("/") + "/" + n)
+elif op == "-put":
+    src, dst = rest[0], local(rest[1])
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    if os.path.isdir(src):
+        shutil.copytree(src, dst)
+    else:
+        shutil.copyfile(src, dst)
+elif op == "-get":
+    src, dst = local(rest[0]), rest[1]
+    if os.path.isdir(src):
+        shutil.copytree(src, dst)
+    else:
+        shutil.copyfile(src, dst)
+elif op == "-mkdir":
+    os.makedirs(local(rest[0]), exist_ok=True)
+elif op == "-test":
+    sys.exit(0 if os.path.exists(local(rest[0])) else 1)
+elif op == "-rm":
+    p = local(rest[0])
+    if os.path.isdir(p):
+        shutil.rmtree(p)
+    elif os.path.exists(p):
+        os.remove(p)
+else:
+    sys.exit(2)
+"""
+
+
+def write_hadoop_cli(d: str, root: str, scheme: str = "afs") -> str:
+    path = os.path.join(d, "hadoop")
+    with open(path, "w") as f:
+        f.write(HADOOP_CLI.format(python=sys.executable, root=root,
+                                  scheme=scheme))
+    os.chmod(path, 0o755)
+    return path
+
+
+def tree_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(p, f))
+               for p, _, fs in os.walk(path) for f in fs)
+
+
+def dispatch_job(torch, lay, overlap: str = "auto", k: int = 1):
+    """monitor_job built under flags.push_overlap=``overlap`` (read when
+    the Trainer is built) at steps_per_dispatch ``k``."""
+    from paddlebox_tpu_torch.config import flags
+    old = flags.push_overlap
+    flags.push_overlap = overlap
+    try:
+        return monitor_job(torch, lay, steps_per_dispatch=k)
+    finally:
+        flags.push_overlap = old
+
+
+def profiled_pass(torch, kernels, tr, box, ds, total: dict
+                  ) -> tuple[float, dict]:
+    """One counted pass under torch.profiler: the device kernels' busy
+    ms a step (every CUDA kernel of the pass, the boundary's included;
+    copies and memsets left out) and the pass's launches."""
+    from torch.profiler import ProfilerActivity, profile
+    box.set_date(20261017)
+    box.begin_pass()
+    reset_counts(kernels)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = tr.train_pass(ds, metrics=box.metrics)
+        torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    box.end_pass()
+    add_counts(total, launches)
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith(("Memcpy", "Memset")))
+    return dev / 1e3 / out["steps"], launches
+
+
+def mode_ab(torch, kernels, card, lay, total: dict, tag: str,
+            modes: dict, applies: dict) -> None:
+    """Two dispatch modes of one job (``modes``: label -> (push_overlap,
+    steps_per_dispatch)), alternating after a warm-up pass each, 3 passes
+    each: the layout's kernels 16 each a pass, ``applies[label]``
+    deferred applies a pass, the two runs' losses and final rows within
+    LOSS_TOL / TABLE_TOL (the kernels' f32 atomics reorder sums), then a
+    profiled pass (device busy ms/step) and a sync-probed pass (host
+    syncs a step) of each."""
+    jobs = {m: dispatch_job(torch, lay, *modes[m]) for m in modes}
+    for m, (overlap, k) in modes.items():
+        tr = jobs[m][2]
+        check(tr.push_overlap == (applies[m] > 0)
+              and tr.cfg.steps_per_dispatch == k,
+              f"{tag} {m}: push_overlap {tr.push_overlap}, "
+              f"steps_per_dispatch {tr.cfg.steps_per_dispatch}")
+    want = {k: 16 for k in lay.kernels}
+    runs: dict = {m: [] for m in modes}
+    losses: dict = {m: [] for m in modes}
+    for i, m in enumerate(list(modes) * 4):
+        _, _, tr, box, ds = jobs[m]
+        a0 = tr.push_applies
+        out, launches, _ = counted_pass(kernels, tr, ds, total, box=box)
+        expect_launches(f"{tag} {lay.name} {m} pass", launches, want)
+        check(out["steps"] == 16 and tr.push_applies - a0 == applies[m],
+              f"{tag} {m}: steps {out['steps']}, push applies "
+              f"{tr.push_applies - a0}")
+        losses[m].append(out["loss_mean"])
+        if i >= len(modes):
+            runs[m].append(16 * B / out["step_seconds"])
+    a, b = list(modes)
+    np.testing.assert_allclose(losses[a], losses[b], **LOSS_TOL)
+    keys = np.sort(jobs[a][4].unique_keys())
+    rows = {m: jobs[m][0].get_rows(keys) for m in modes}
+    np.testing.assert_allclose(rows[b], rows[a], **TABLE_TOL)
+    err = float(np.abs(rows[b] - rows[a]).max())
+    for m in modes:
+        _, _, tr, box, ds = jobs[m]
+        busy, launches = profiled_pass(torch, kernels, tr, box, ds, total)
+        expect_launches(f"{tag} {m} profiled pass", launches, want)
+        reset_counts(kernels)
+        syncs = pass_loop_syncs(torch, tr, box, ds)
+        add_counts(total, launch_counts(kernels))
+        check(syncs == 0, f"{tag} {lay.name} {m}: {syncs} host syncs a "
+              f"step")
+        eps = runs[m]
+        loop_ms = 16 * B / float(np.median(eps)) / 16 * 1e3
+        print(f"  {tag} {lay.name}, {m} ({card}): step-loop ex/s "
+              f"{', '.join(f'{x:.1f}' for x in eps)} (spread "
+              f"{min(eps):.1f}-{max(eps):.1f}) | device busy {busy:.3f} "
+              f"ms/step (kernels, profiled pass) against "
+              f"{loop_ms:.3f} ms/step of loop: idle share "
+              f"{max(0.0, 1 - busy / loop_ms):.3f} | push_applies "
+              f"{applies[m]} a pass | launches {want} a pass | host syncs "
+              f"a step {syncs:g} | loss means "
+              f"{', '.join(f'{x:.6f}' for x in losses[m])}")
+    print(f"  {tag} {lay.name}: {a} and {b} agree, loss within LOSS_TOL, "
+          f"rows within TABLE_TOL (max abs diff {err:.3g}) ok")
+    del jobs
+    torch.cuda.empty_cache()
+
+
+def superstep_midpass(torch, kernels, card, total: dict, d: str) -> None:
+    """(b) mid-pass snapshots every MIDPASS_EVERY steps of a k=4
+    superstep job: an uninterrupted pass, then a process killed after
+    the step-8 snapshot and resumed in another at the dispatch
+    boundary."""
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    lay = ONEHOT
+    env = {"CHIP_SMOKE_STEPS_PER_DISPATCH": str(SUPERSTEP_K)}
+    store, _, tr, box, ds = monitor_job(torch, lay, seed=SEED + 7,
+                                        steps_per_dispatch=SUPERSTEP_K)
+    ckpt = PassCheckpointer(os.path.join(d, "ss-uninterrupted"),
+                            base_every=2)
+    tr.enable_midpass_snapshots(ckpt, MIDPASS_EVERY, box,
+                                metrics=box.metrics)
+    box.set_date(20261017)
+    box.begin_pass()
+    reset_counts(kernels)
+    out_u = tr.train_pass(ds, metrics=box.metrics)
+    launches = launch_counts(kernels)
+    box.end_pass()
+    add_counts(total, launches)
+    expect_launches("(b) superstep mid-pass pass", launches,
+                    {k: 16 for k in lay.kernels})
+    check([s["mid_steps"] for s in tr.midpass_saves] == [4, 8, 12, 16],
+          f"(b) superstep mid-pass saves at "
+          f"{[s['mid_steps'] for s in tr.midpass_saves]}")
+    keys = np.sort(ds.unique_keys())
+    final_u = store.get_rows(keys)
+    del store, tr, box
+    torch.cuda.empty_cache()
+    root_k = os.path.join(d, "ss-killed")
+    r = run_worker(["kill", root_k], {
+        **env, "PBTPU_FAULTPOINT": "trainer.midpass.post_save",
+        "PBTPU_FAULTPOINT_AFTER": str(MIDPASS_KILL_STEP // MIDPASS_EVERY
+                                      - 1)})
+    check(r.returncode == 137 and "FAULTPOINT KILL trainer.midpass.post_save"
+          in r.stderr, f"(b) superstep kill worker exited {r.returncode}: "
+          f"{r.stdout[-1500:]}{r.stderr[-3000:]}")
+    live, _ = load_state(root_k + ".live")
+    check(live["step"] == MIDPASS_KILL_STEP, "(b) the killed superstep "
+          f"run's live state is from step {live['step']}")
+    hold_resumed(d, root_k, live, MIDPASS_KILL_STEP,
+                 f"k={SUPERSTEP_K} killed at step 8",
+                 (keys, final_u, out_u), total, card, env_extra=env)
+
+
+def remote_worker(argv: list[str]) -> int:
+    """``chip_smoke.py --remote-worker CLI OUT``: register the stand-in
+    CLI for afs:// through init_afs_api, resume afs://smoke/ckpt into a
+    fresh one-hot job from an empty staging dir, and write the restored
+    state, the resume's and the download's seconds and bytes to OUT."""
+    import torch
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.utils import fs as fs_lib
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    cli, out_path = argv
+    fs_lib.init_afs_api("afs://smoke", hadoop_bin=cli, schemes=("afs",))
+    store, _, tr = make_trainer(torch, ONEHOT, B, None, seed=SEED + 21)
+    box = BoxPS(store)
+    box.init_metric("auc")
+    with tempfile.TemporaryDirectory() as stage:
+        ckpt = PassCheckpointer("afs://smoke/ckpt", base_every=2,
+                                staging_dir=stage)
+        cursor = tr.resume(ckpt, box=box)
+    keys = store.keys()
+    res = ckpt.last_resume
+    save_state(out_path, dict(keys=keys, rows=store.get_rows(keys),
+                              dense=flat_dense(tr),
+                              metrics=metric_state(box),
+                              step=tr.global_step), {
+        "cursor": {k: cursor[k] for k in ("pass_id", "mid_steps",
+                                          "global_step")},
+        "resume_s": res["seconds"], "resume_bytes": res["bytes"],
+        "download": res["remote_download"],
+        "on_card": next(tr.model.parameters()).device.type == "cuda"})
+    return 0
+
+
+def remote_roots(torch, kernels, card, total: dict) -> None:
+    """(c) every remote root through a stand-in hadoop CLI registered with
+    init_afs_api."""
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS, FleetUtil
+    from paddlebox_tpu_torch.serving import ServingPublisher, ServingServer
+    from paddlebox_tpu_torch.utils import fs as fs_lib
+    from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
+    lay = ONEHOT
+    with tempfile.TemporaryDirectory() as d:
+        remote = os.path.join(d, "remote")
+        cli = write_hadoop_cli(d, remote)
+        fs = fs_lib.init_afs_api("afs://smoke", hadoop_bin=cli,
+                                 schemes=("afs",))
+        # 1. phase 5's one-hot records from a remote filelist
+        keys, rng = draw_keys(lay.n_keys)
+        schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                    batch_size=B, max_len=lay.max_len)
+        records = make_records(schema, lay.steps * B, keys, rng,
+                               lay.max_len)
+        local_dir = os.path.join(d, "local")
+        os.makedirs(local_dir)
+        plain, files, _, _ = write_ingest_files(local_dir, records)
+        t0 = time.perf_counter()
+        fs.makedirs("afs://smoke/data")
+        for f in sorted(set(plain) | set(files)):
+            fs.put(f, "afs://smoke/data/" + os.path.basename(f))
+        up_s = time.perf_counter() - t0
+        up_b = tree_bytes(os.path.join(remote, "smoke", "data"))
+
+        def load(paths, pipe=None):
+            ds = SlotDataset(schema)
+            ds.with_ins_id = True
+            ds.set_filelist(paths)
+            ds.set_pipe_command(pipe)
+            t0 = time.perf_counter()
+            ds.load_into_memory(global_shuffle=False)
+            return ds, time.perf_counter() - t0
+
+        remote_of = ["afs://smoke/data/" + os.path.basename(f)
+                     for f in files]
+        from paddlebox_tpu_torch.native import slot_parser
+        # the native parser builds at first use: not a load's time
+        check(slot_parser.available(), "(c) the native parser did not build")
+        ds_local, t_local = load(files)
+        ds_remote, t_remote = load(remote_of)
+        ds_pipe, t_pipe = load(["afs://smoke/data/" + os.path.basename(f)
+                                for f in plain], "cat")
+        want = batch_bytes(ds_local, B)
+        check(len(want) == lay.steps, f"(c) {len(want)} local batches")
+        check(batch_bytes(ds_remote, B) == want,
+              "(c) the remote filelist packs to other batches")
+        check(batch_bytes(ds_pipe, B) == want,
+              "(c) the remote filelist through pipe_command cat packs to "
+              "other batches")
+        print(f"  (c) remote filelist ({card}, host numbers): upload "
+              f"{len(set(plain) | set(files))} files {up_b} bytes in "
+              f"{up_s:.3f} s | load local {t_local:.3f} s, remote "
+              f"{t_remote:.3f} s, remote through pipe_command cat "
+              f"{t_pipe:.3f} s | {lay.steps} batches of {B} byte-identical "
+              f"to the local load ok")
+
+        # 2. three checkpointed passes to a remote PassCheckpointer root
+        store, _, tr = make_trainer(torch, lay, B, None, seed=SEED + 20)
+        box = BoxPS(store)
+        box.init_metric("auc")
+        ckpt = PassCheckpointer("afs://smoke/ckpt", base_every=2,
+                                staging_dir=os.path.join(d, "stage"))
+        want_l = {k: lay.steps for k in lay.kernels}
+        for p in (1, 2, 3):
+            out, launches, _ = counted_pass(
+                kernels, tr, ds_remote, total, box=box,
+                checkpointer=ckpt, dataset=ds_remote)
+            expect_launches(f"(c) remote-root pass {p}", launches, want_l)
+            sv = ckpt.last_save
+            up = sv["remote_upload"]
+            print(f"  (c) pass {p} to afs://smoke/ckpt ({card}): loss "
+                  f"{out['loss_mean']:.6f} | local commit "
+                  f"{sv['snapshot']} {sv['bytes']} bytes in "
+                  f"{sv['seconds']:.3f} s | upload {up['bytes']} bytes in "
+                  f"{up['seconds']:.3f} s ({'base' if sv['rotated'] else 'delta'}"
+                  f" chain member)")
+            if p == 2:
+                # 3. resume pass 2 in a fresh process, empty staging dir
+                k2 = store.keys()
+                live2 = dict(keys=k2, rows=store.get_rows(k2),
+                             dense=flat_dense(tr), metrics=metric_state(box),
+                             step=tr.global_step)
+                out_path = os.path.join(d, "remote-resumed")
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--remote-worker", cli, out_path],
+                    capture_output=True, text=True, timeout=600)
+                wall = time.perf_counter() - t0
+                check(r.returncode == 0, f"(c) remote resume worker failed "
+                      f"({r.returncode}): {r.stdout[-1500:]}"
+                      f"{r.stderr[-3000:]}")
+                restored, meta = load_state(out_path)
+                check(meta["cursor"]["pass_id"] == 2 and meta["on_card"]
+                      and meta["cursor"]["global_step"] == 2 * lay.steps,
+                      f"(c) remote resume cursor {meta['cursor']}")
+                check(same_state(restored, live2), "(c) the remote resume "
+                      "differs from the writer's live state after pass 2")
+                dl = meta["download"]
+                print(f"  (c) resume of pass 2 in a fresh process from an "
+                      f"empty staging dir ({card}): {wall:.1f} s wall | "
+                      f"download {dl['bytes']} bytes of "
+                      f"{len(dl['snapshots'])} snapshots in "
+                      f"{dl['seconds']:.3f} s | resume {meta['resume_bytes']}"
+                      f" bytes in {meta['resume_s']:.3f} s | keys, rows, "
+                      f"dense params, adam state, metric state and cursor "
+                      f"bit-equal to the live state ok")
+        lines = fs.read_lines("afs://smoke/ckpt/snapshots.donefile")
+        check([json.loads(x)["pass"] for x in lines] == [1, 2, 3],
+              "(c) the remote donefile does not name passes 1-3")
+
+        # 4. a remote FleetUtil day model
+        fleet = FleetUtil("afs://smoke/models")
+        t0 = time.perf_counter()
+        fleet.save_model(store, tr.eval_params(), day=20261017)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_store, got_dense, day = FleetUtil(
+            "afs://smoke/models").load_model(tr.eval_params())
+        load_s = time.perf_counter() - t0
+        ks = store.keys()
+        check(day == 20261017 and np.array_equal(
+            got_store.get_rows(ks), store.get_rows(ks)),
+              "(c) the remote day model's rows differ")
+        check(all(np.array_equal(a, b) for (_, a), (_, b) in zip(
+            flat_tree(got_dense), flat_tree(tr.eval_params()))),
+              "(c) the remote day model's dense params differ")
+        print(f"  (c) FleetUtil day model at afs://smoke/models ({card}): "
+              f"save {tree_bytes(os.path.join(remote, 'smoke', 'models'))} "
+              f"bytes in "
+              f"{save_s:.3f} s | load {load_s:.3f} s | rows and dense "
+              f"params bit-equal ok")
+
+        # 5. publish to a remote serving root; a staged server serves it
+        pubs = {"remote": ServingPublisher(
+                    "afs://smoke/serve", tr.model, schema, quant="int8",
+                    staging_dir=os.path.join(d, "pub-stage")),
+                "local": ServingPublisher(os.path.join(d, "serve"),
+                                          tr.model, schema, quant="int8")}
+        infos = {m: p.publish(store, tr.eval_params(), pass_id=3)
+                 for m, p in pubs.items()}
+        srvs = {"remote": ServingServer(
+                    "afs://smoke/serve",
+                    staging_dir=os.path.join(d, "srv-stage")),
+                "local": ServingServer(os.path.join(d, "serve"))}
+        polls = {}
+        for m, srv in srvs.items():
+            t0 = time.perf_counter()
+            check(srv.poll_once() == 1, f"(c) {m} server applied nothing")
+            polls[m] = time.perf_counter() - t0
+        pb = next(ds_remote.batches(B))
+        ids, mask, dense = request_arrays(tr, pb)
+        got = srvs["remote"].predict(ids, mask, dense)
+        ref = srvs["local"].predict(ids, mask, dense)
+        check(srvs["remote"].active.predictor.device.type == "cuda",
+              "(c) the remote root's server does not score on the card")
+        check(np.array_equal(got, ref), "(c) the remote root's server "
+              f"scores differ from the local root's (max abs "
+              f"{np.abs(got - ref).max():.3g})")
+        info = infos["remote"]
+        print(f"  (c) publish v{info['version']} to afs://smoke/serve "
+              f"({card}): {info['bytes']} bytes, {info['seconds']:.3f} s "
+              f"(upload {info['upload_seconds']:.3f} s, verify download "
+              f"{info['verify_seconds']:.3f} s) | staged poll "
+              f"{polls['remote']:.3f} s against the local root's "
+              f"{polls['local']:.3f} s | {B} scores equal to the local "
+              f"root's ok")
+        fs_lib._REGISTRY.pop("afs", None)
+    del store, tr, box
+    torch.cuda.empty_cache()
+
+
+def flat_tree(tree):
+    from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
+    return [(p, np.asarray(x)) for p, x in flatten_tree(tree)]
+
+
+def dispatch_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 14. Returns the launches of every kernel over the phase's
+    training passes."""
+    print(f"== the step's dispatch modes and remote roots ({card}): "
+          f"DeepFM, {B} x {S} slots")
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    for lay in (ONEHOT, MULTI):
+        mode_ab(torch, kernels, card, lay, total, "(a)",
+                {"overlap off": ("off", 1), "overlap on": ("on", 1)},
+                {"overlap off": 0, "overlap on": 16})
+    t1 = time.perf_counter()
+    for lay in (ONEHOT, MULTI):
+        mode_ab(torch, kernels, card, lay, total, "(b)",
+                {"k=1": ("auto", 1), f"k={SUPERSTEP_K}": ("auto",
+                                                         SUPERSTEP_K)},
+                {"k=1": 16, f"k={SUPERSTEP_K}": 0})
+    with tempfile.TemporaryDirectory() as d:
+        superstep_midpass(torch, kernels, card, total, d)
+    t2 = time.perf_counter()
+    remote_roots(torch, kernels, card, total)
+    print(f"launches in phase 14: {total} | seconds: push overlap "
+          f"{t1 - t0:.1f}, supersteps {t2 - t1:.1f}, remote roots "
+          f"{time.perf_counter() - t2:.1f}")
+    return total
+
 
 def main() -> int:
     import torch
@@ -3526,14 +4018,17 @@ def main() -> int:
     serving = serving_phase(torch, kernels, card)
     storage = storage_phase(torch, kernels, card, onehot_pass)
     monitored = monitor_phase(torch, kernels, card)
+    dispatched = dispatch_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
         r["phase12_launches"] = storage.get(r["name"], 0)
         r["phase13_launches"] = monitored.get(r["name"], 0)
+        r["phase14_launches"] = dispatched.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "phase11_launches", "phase12_launches", "phase13_launches")
+            "phase11_launches", "phase12_launches", "phase13_launches",
+            "phase14_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -3545,4 +4040,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--midpass-worker"]:
         sys.exit(midpass_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--remote-worker"]:
+        sys.exit(remote_worker(sys.argv[2:]))
     sys.exit(main())

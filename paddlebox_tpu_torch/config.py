@@ -28,6 +28,14 @@ class Flags:
     # fused gather-pool pull: "auto" | "on" | "off" (see
     # train.trainer.Trainer._select_pull_engine)
     fused_gather_pool: str = "auto"
+    # deferred sparse push (train.trainer.Trainer._select_push_overlap):
+    # each step's push operands are staged and applied just before the
+    # next step (and at every pass boundary, eval, save and flush), so
+    # the push leaves the loss path; the apply lands in stream order
+    # before the next pull, which keeps it the same computation as the
+    # inline push. "auto" = on at steps_per_dispatch == 1, off above it;
+    # "on" / "off" force ("on" with steps_per_dispatch > 1 raises)
+    push_overlap: str = "auto"
     # push merge-engine override: "auto" or one of ops.kernels.PUSH_ENGINES
     # (legacy "kernel"/"scatter"/"fused" spellings normalize)
     push_engine: str = "auto"
@@ -38,6 +46,13 @@ class Flags:
     # PassCheckpointer retention: snapshots kept (at least 2, so a torn
     # newest one has a predecessor to fall back to)
     ckpt_keep_last_n: int = 3
+    # CommandFS resilience (utils/fs.py): put/get/ls/rm and mkdir -p
+    # retry with exponential backoff (the first sleep doubles each
+    # attempt); append and test never retry; every non-streaming command
+    # is bounded by the timeout (0 = none)
+    fs_retry_attempts: int = 3
+    fs_retry_backoff_s: float = 0.2
+    fs_command_timeout_s: float = 0.0
     # a fresh sparse base chain every N passes (bounds the delta replay at
     # resume and lets retention reclaim old chains); deltas between
     ckpt_base_every: int = 8

@@ -11,48 +11,53 @@ modes of SlotPaddleBoxDataFeed, plus pre-tokenized archives.
 - otherwise the file's own bytes are MultiSlot text (gzip when the name
   ends in ``.gz``).
 
-Remote paths (a ``scheme://`` other than ``file://``) raise
-``RemoteFSNotPorted``: remote filesystems, and the pipe feed thread that
-streams a remote file into a command's stdin, are not ported yet
-(ROADMAP, queue 1 item 5).
+A remote path (a ``scheme://`` registered with ``utils.fs``, e.g. through
+``init_afs_api``) reads through its filesystem in every mode: text
+streams over the filesystem's ``cat``; a ``.pbar`` archive is fetched to
+a temp dir first (npz wants a seekable file); under a ``pipe_command``
+a feed thread streams the remote bytes into the command's stdin while
+this thread reads its stdout, so neither pipe buffer filling can
+deadlock the pair (the reference's HDFS reads ride the pipe the same
+way).
 """
 
 from __future__ import annotations
 
 import gzip
 import importlib
+import os
 import shlex
+import shutil
 import subprocess
+import tempfile
 from typing import Callable, Iterable, Iterator
 
+from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.data.archive import read_archive
 from paddlebox_tpu_torch.data.parser import ParseStats, parse_multislot_buffer
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import SlotRecordBatch
+from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.utils import fs as fs_lib
 
 ParserPlugin = Callable[[Iterable[str], DataFeedSchema], SlotRecordBatch]
 
 
-def _local(path: str) -> str:
-    """The local path of ``path`` (``file://`` stripped); a remote path
-    raises RemoteFSNotPorted."""
-    if fs_lib.is_remote(path):
-        raise fs_lib.RemoteFSNotPorted(path)
-    return fs_lib.resolve(path)[1]
-
-
 def open_lines(path: str) -> Iterator[str]:
-    """Stream the text lines of a local file (gzip when ``.gz``)."""
-    local = _local(path)
-    if path.endswith(".gz"):
-        with gzip.open(local, "rt", encoding="utf-8",
-                       errors="replace") as f:
-            yield from f
-        return
-    with open(local, "rb") as raw:
-        for line in raw:
-            yield line.decode("utf-8", errors="replace")
+    """Stream the text lines of a local or remote file (gzip when
+    ``.gz``)."""
+    fs, p = fs_lib.resolve(path)
+    raw = fs.open_read(p)
+    try:
+        if path.endswith(".gz"):
+            with gzip.open(raw, "rt", encoding="utf-8",
+                           errors="replace") as f:
+                yield from f
+        else:
+            for line in raw:
+                yield line.decode("utf-8", errors="replace")
+    finally:
+        raw.close()
 
 
 def load_parser_plugin(spec: str) -> ParserPlugin:
@@ -75,27 +80,102 @@ def read_file(path: str, schema: DataFeedSchema,
     ingestion mode. ``stats`` collects the parse counters;
     ``parse_threads`` is the native parser's thread count (0 = one per
     hardware thread)."""
+    remote = bool(path) and fs_lib.is_remote(path)
     if path.endswith(".pbar"):
-        return read_archive(_local(path), schema)
+        fs, p = fs_lib.resolve(path)
+        if not remote:
+            return read_archive(p, schema)
+        with tempfile.TemporaryDirectory(prefix="pbt_pbar_") as d:
+            local = os.path.join(d, os.path.basename(p))
+            fs.get(p, local)
+            return read_archive(local, schema)
     if pipe_command:
-        # quoted: a path with spaces or shell metacharacters stays one
-        # redirect target
-        cmd = (f"{pipe_command} < {shlex.quote(_local(path))}" if path
-               else pipe_command)
-        proc = subprocess.Popen(cmd, shell=True, stdout=subprocess.PIPE)
-        try:
-            buf = proc.stdout.read()
-        finally:
-            proc.stdout.close()
-            ret = proc.wait()
-        if ret != 0:
-            raise RuntimeError(f"pipe_command {pipe_command!r} exited {ret}")
+        buf = (_pipe_remote(path, pipe_command) if remote
+               else _pipe_local(path, pipe_command))
         return parse_multislot_buffer(buf, schema, with_ins_id=with_ins_id,
                                       stats=stats, n_threads=parse_threads)
     if parser_plugin is not None:
         return parser_plugin(open_lines(path), schema)
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(_local(path), "rb") as f:
-        buf = f.read()
+    fs, p = fs_lib.resolve(path)
+    if remote:
+        with fs.open_read(p) as f:
+            buf = f.read()
+        if path.endswith(".gz"):
+            buf = gzip.decompress(buf)
+    else:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(p, "rb") as f:
+            buf = f.read()
     return parse_multislot_buffer(buf, schema, with_ins_id=with_ins_id,
                                   stats=stats, n_threads=parse_threads)
+
+
+def _pipe_local(path: str, pipe_command: str) -> bytes:
+    """``{cmd} < {path}`` in a shell (the path quoted: spaces or shell
+    metacharacters stay one redirect target); its stdout."""
+    cmd = (f"{pipe_command} < {shlex.quote(fs_lib.resolve(path)[1])}"
+           if path else pipe_command)
+    proc = subprocess.Popen(cmd, shell=True, stdout=subprocess.PIPE)
+    try:
+        buf = proc.stdout.read()
+    finally:
+        proc.stdout.close()
+        ret = proc.wait()
+    if ret != 0:
+        raise RuntimeError(f"pipe_command {pipe_command!r} exited {ret}")
+    return buf
+
+
+def _pipe_remote(path: str, pipe_command: str) -> bytes:
+    """A remote file streamed into ``pipe_command``'s stdin by a feed
+    thread while this thread reads its stdout: writing all of stdin
+    before reading stdout deadlocks once either pipe buffer fills. A
+    consumer that exits early (a sampling ``head``) is not an error; a
+    failed read of the remote file is, after the command ends."""
+    fs, p = fs_lib.resolve(path)
+    src = fs.open_read(p)
+    proc = subprocess.Popen(pipe_command, shell=True, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE)
+    feed_err: list = []
+
+    def feed():
+        try:
+            try:
+                shutil.copyfileobj(src, proc.stdin)
+            # pblint: disable=silent-except -- the consumer exited early
+            # (a sampling command closes the pipe after enough bytes):
+            # by design not an error, nothing to count
+            except BrokenPipeError:
+                pass
+            except BaseException as e:      # surfaced after the read
+                feed_err.append(e)
+        finally:
+            try:
+                proc.stdin.close()
+            except Exception as e:
+                # a teardown failure of the pipe is not fatal (it may be
+                # broken already) but never invisible
+                monitor.counter_add("reader.close_errors")
+                monitor.event("reader_close_error", path=path,
+                              error=repr(e)[:200])
+            try:
+                # the remote cat's exit status: a truncated read must not
+                # parse as a short success
+                src.close()
+            except Exception as e:
+                feed_err.append(e)
+
+    feeder = mon_ctx.spawn(feed, name="pbt-pipe-feed")
+    feeder.start()
+    try:
+        buf = proc.stdout.read()
+    finally:
+        proc.stdout.close()
+        ret = proc.wait()
+        feeder.join()
+    if feed_err:
+        raise RuntimeError(f"remote read of {path} into pipe_command "
+                           f"{pipe_command!r} failed") from feed_err[0]
+    if ret != 0:
+        raise RuntimeError(f"pipe_command {pipe_command!r} exited {ret}")
+    return buf

@@ -15,7 +15,9 @@ batches carry int32 indices (0 = the all-zero null/padding row).
 - ``plan_premerge`` — segment-sum per-token push payloads onto one lane
   per unique row, over the host dedup plan;
 - ``push`` — merge duplicates and apply the in-table optimizer through
-  the engine ``ops.kernels.resolve_push_engine`` picks. A quantized
+  the engine ``ops.kernels.resolve_push_engine`` picks;
+  ``deferred_push_operands`` / ``apply_deferred`` split the same push
+  across a step and its deferred apply (``flags.push_overlap``). A quantized
   table takes the accumulator alone from the engine (``binned_merge_acc``
   on the card for narrow rows) and then the dequant -> f32 update ->
   requant pass over its touched rows, which the reference runs in XLA
@@ -197,6 +199,13 @@ def quant_update(table: quant.QuantTable, acc: torch.Tensor,
     table.qx.copy_(torch.where(touched, new.qx, table.qx))
 
 
+def _lane_windows(plan: DedupPlan):
+    """The binned engine's windows over a dedup plan's unique lanes (the
+    lanes are sorted by row, so the windows index them directly), or
+    None."""
+    return None if plan.rstart is None else (None, plan.rstart, plan.end)
+
+
 def push(table, idx: torch.Tensor, grads: torch.Tensor,
          shows: torch.Tensor, clks: torch.Tensor, cfg: EmbeddingConfig,
          plan: BlockPlan | DedupPlan | None = None) -> str:
@@ -215,14 +224,57 @@ def push(table, idx: torch.Tensor, grads: torch.Tensor,
     Untouched rows keep their exact bits (stateful optimizers would
     otherwise decay state on every row); the null row only ever receives
     zero grads and increments, a fixed point of every optimizer."""
-    premerged = isinstance(plan, DedupPlan)
-    windows = plan if isinstance(plan, BlockPlan) else None
-    if premerged:
+    if isinstance(plan, DedupPlan):
         idx, grads, shows, clks = plan_premerge(idx, grads, shows, clks,
                                                 plan)
-        if plan.rstart is not None:
-            # the lanes are sorted by row: the windows index them directly
-            windows = (None, plan.rstart, plan.end)
+        return _merge_update(table, idx, grads, shows, clks, cfg,
+                             premerged=True, windows=_lane_windows(plan))
+    return _merge_update(table, idx, grads, shows, clks, cfg,
+                         premerged=False,
+                         windows=plan if isinstance(plan, BlockPlan)
+                         else None)
+
+
+def deferred_push_operands(idx: torch.Tensor, grads: torch.Tensor,
+                           shows: torch.Tensor, clks: torch.Tensor, plan
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """A step's push operands for a deferred apply (JAX
+    ``sharded.py:254``), in place of the push. A dedup plan premerges
+    here, where backward produced the cotangent (off the loss path), and
+    the operands are the unique lanes' (merged grads, shows, clks);
+    otherwise they are (per-token grads, empty, empty) and the apply
+    recomputes the increments from the staged mask and labels. Either
+    way :func:`apply_deferred` then runs the very push the inline step
+    runs."""
+    if isinstance(plan, DedupPlan):
+        _, mg, ms, mc = plan_premerge(idx, grads, shows, clks, plan)
+        return mg, ms, mc
+    empty = grads.new_zeros(0)
+    return grads, empty, empty
+
+
+def apply_deferred(table, idx: torch.Tensor, mask: torch.Tensor,
+                   labels: torch.Tensor, plan, ops: tuple,
+                   cfg: EmbeddingConfig) -> str:
+    """The deferred push: ``deferred_push_operands``' output replayed
+    through the same engine ``push`` picks (the quantized table's
+    accumulator and requant pass included), on the staged batch tensors
+    of the step that made it. Returns the engine that ran."""
+    g0, g1, g2 = ops
+    if isinstance(plan, DedupPlan):
+        return _merge_update(table, plan.uniq, g0, g1, g2, cfg,
+                             premerged=True, windows=_lane_windows(plan))
+    maskf = mask.to(torch.float32)
+    return push(table, idx.reshape(-1), g0, maskf.reshape(-1),
+                (maskf * labels[:, None]).reshape(-1), cfg, plan=plan)
+
+
+def _merge_update(table, idx: torch.Tensor, grads: torch.Tensor,
+                  shows: torch.Tensor, clks: torch.Tensor,
+                  cfg: EmbeddingConfig, premerged: bool, windows) -> str:
+    """The engine half of ``push``: premerged lanes or raw tokens into
+    the table through the resolved engine."""
     if quant.is_quant(table):
         n_rows = quant.table_rows(table)
         engine = kernels.resolve_push_engine(

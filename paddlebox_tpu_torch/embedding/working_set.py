@@ -29,6 +29,10 @@ optimizer state stay f32), converted on the host with ``torch.bfloat16``
 (round to nearest even, as the reference's ``ml_dtypes`` cast). The
 byte counts returned are those of the arrays that crossed, which equal
 ``transfer_bytes``.
+
+``PushOperandStager`` holds the deferred sparse push's operands
+(``flags.push_overlap``, JAX ``working_set.py:231``) between a step and
+its apply.
 """
 
 from __future__ import annotations
@@ -166,6 +170,53 @@ def fetch_rows(table, row_idx: np.ndarray,
         return _get_compressed(rows, cfg)
     rows = rows.cpu().numpy()
     return rows, rows.nbytes
+
+
+class PushOperandStager:
+    """Double-buffered staging for the deferred sparse push
+    (``flags.push_overlap``).
+
+    Two slots rotate: the pending slot holds step N's push operands (its
+    staged batch tensors and the step's premerged or per-token grads)
+    until the trainer launches the apply; the retired slot keeps step
+    N-1's referenced for one more rotation, while its apply may still be
+    queued on the card. The pending slot is also the staleness bound: a
+    second ``put`` before the pending apply was taken would let the
+    table lag more than one step, and raises instead of queueing."""
+
+    __slots__ = ("_pending", "_retired")
+
+    def __init__(self):
+        self._pending = None
+        self._retired = None
+
+    def put(self, item) -> None:
+        if self._pending is not None:
+            raise RuntimeError(
+                "deferred push staleness bound exceeded: a second step's "
+                "operands were queued while one apply is still pending — "
+                "launch the pending apply first (one-step bound)")
+        self._pending = item
+
+    def take(self):
+        """Pop the pending operands (None if none); they move to the
+        retired slot for one more rotation."""
+        item, self._pending = self._pending, None
+        if item is not None:
+            self._retired = item
+        return item
+
+    def pending(self) -> int:
+        return int(self._pending is not None)
+
+    def live(self) -> int:
+        """Slots holding operands (<= 2 by construction)."""
+        return (int(self._pending is not None)
+                + int(self._retired is not None))
+
+    def clear(self) -> None:
+        self._pending = None
+        self._retired = None
 
 
 class PassWorkingSet:

@@ -24,16 +24,22 @@ tails, pruning the dropped version directories.
 Each publish runs in a ``publish`` span and counts its seconds and
 bytes under the reference's ``serving.*`` names, with the
 ``serving_publish`` event (compaction and pruning count and report
-theirs); the publish-info dict carries the same numbers. Remote roots
-(the reference stages, uploads and downloads back to verify) raise
-``RemoteFSNotPorted`` (ROADMAP, queue 1 item 5), and the reference's
-remote-only arguments (``staging_dir``, ``verify_upload``) come with
-them; the trace links come with the world trace (item 7).
+theirs); the publish-info dict carries the same numbers. A remote root
+(``hdfs://...``, any scheme registered with ``utils.fs``) stages each
+version under ``staging_dir`` (a temp dir by default), uploads it with
+``put_replacing`` inside the ``serving.publish.pre_upload`` window and,
+with ``verify_upload`` (the default), downloads it back and re-hashes it
+against its manifest before the donefile line; ``seconds`` /
+``upload_seconds`` / ``verify_seconds`` in the publish info split the
+time. The trace links come with the world trace (ROADMAP queue 1
+item 7).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import time
 import warnings
 from typing import Any
@@ -53,21 +59,25 @@ DONEFILE = "serving_model.donefile"
 
 
 class ServingPublisher:
-    """Owns one local serving output root and a monotonic version
+    """Owns one serving output root (a local dir or a remote URI) and a
+    monotonic version
     sequence continued from its donefile. Drive it per pass through
     ``BoxPS.end_pass(publisher=…, trainer=…)`` or call :meth:`publish`."""
 
     def __init__(self, root: str, model: Any, schema: Any, *,
                  publish_base_every: int | None = None,
                  quant: str = "int8", hot_top_k: int = 1024,
-                 label_slot: str = "label",
+                 label_slot: str = "label", verify_upload: bool = True,
+                 staging_dir: str | None = None,
                  compact_after: int = 256, keep_bases: int = 2,
                  prune_artifacts: bool = True):
         if quant not in ("f32", "int8", "int16"):
             raise ValueError(f"quant must be f32|int8|int16, got {quant!r}")
-        if fs_lib.is_remote(root):
-            raise fs_lib.RemoteFSNotPorted(root)
-        self._fs, self.root = fs_lib.resolve(root)
+        self._remote = fs_lib.is_remote(root)
+        self._fs, resolved = fs_lib.resolve(root)
+        self.root = root.rstrip("/") if self._remote else resolved
+        self.verify_upload = bool(verify_upload)
+        self._staging = staging_dir
         # donefile discipline (append after commit, idempotent replay,
         # malformed lines skipped) is FleetUtil's
         self._fleet = FleetUtil(self.root)
@@ -130,19 +140,45 @@ class ServingPublisher:
             meta_kw.update(keys=ch_keys, vals=ch_rows, removed=removed)
             parent = self._version
 
-        target = os.path.join(self.root, name)
-        manifest = art.write_artifact(
-            target, version=version, pass_id=int(pass_id), kind=kind,
-            parent_version=parent,
-            model_meta=export_lib.model_meta(
-                self.model, self.schema,
-                vals.shape[1] if len(vals) else store.cfg.pull_width,
-                self.label_slot),
-            dense_params=dense_params, gate=GateSpec.from_cfg(store.cfg),
-            ts=int(time.time()), **meta_kw)
-        faultpoint.hit("serving.publish.pre_upload")
-        # the verification the donefile contract requires
-        ckpt_lib.verify_manifest(target)
+        target = self._artifact_target(name)
+        tmp_stage = None
+        if self._remote:
+            if self._staging:
+                os.makedirs(self._staging, exist_ok=True)
+                stage_root = self._staging
+            else:
+                tmp_stage = tempfile.mkdtemp(prefix="pbt_serve_pub_")
+                stage_root = tmp_stage
+            local_dir = os.path.join(stage_root, name)
+        else:
+            local_dir = target
+        upload_s = verify_s = 0.0
+        try:
+            manifest = art.write_artifact(
+                local_dir, version=version, pass_id=int(pass_id),
+                kind=kind, parent_version=parent,
+                model_meta=export_lib.model_meta(
+                    self.model, self.schema,
+                    vals.shape[1] if len(vals) else store.cfg.pull_width,
+                    self.label_slot),
+                dense_params=dense_params,
+                gate=GateSpec.from_cfg(store.cfg), ts=int(time.time()),
+                **meta_kw)
+            faultpoint.hit("serving.publish.pre_upload")
+            if self._remote:
+                t_up = time.perf_counter()
+                self._fs.makedirs(self.root)
+                fs_lib.put_replacing(self._fs, local_dir, target)
+                upload_s = time.perf_counter() - t_up
+            t_ver = time.perf_counter()
+            # the verification the donefile contract requires
+            self._verify_published(target, manifest)
+            verify_s = time.perf_counter() - t_ver
+        finally:
+            if self._remote:
+                # the staged copy is consumed by the upload (a kept
+                # staging_dir must not grow one version a publish)
+                shutil.rmtree(tmp_stage or local_dir, ignore_errors=True)
         faultpoint.hit("serving.publish.pre_donefile")
         entry = {"version": version, "pass": int(pass_id), "kind": kind,
                  "parent": parent, "path": target, "ts": int(time.time())}
@@ -156,7 +192,7 @@ class ServingPublisher:
                 and self._entry_count > self.compact_after):
             try:
                 self.compact_donefile()
-            except OSError as e:
+            except (OSError, RuntimeError) as e:
                 self.compaction_errors += 1
                 monitor.counter_add("serving.compaction_errors")
                 monitor.event("serving_compaction_error", error=repr(e))
@@ -179,8 +215,36 @@ class ServingPublisher:
                       keys=int(manifest["num_keys"]))
         return {"version": version, "kind": kind, "path": target,
                 "seconds": seconds, "bytes": int(nbytes),
+                "upload_seconds": upload_s, "verify_seconds": verify_s,
                 "keys": int(manifest["num_keys"]),
                 "announced": bool(announced)}
+
+    def _artifact_target(self, name: str) -> str:
+        return (f"{self.root}/{name}" if self._remote
+                else os.path.join(self.root, name))
+
+    def _verify_published(self, target: str, manifest: dict) -> None:
+        """Re-hash what landed at ``target`` against the committed
+        manifest: in place on a local root; a remote root downloads the
+        artifact back (``verify_upload=False`` trusts the transport; the
+        server still verifies every fetch)."""
+        if not self._remote:
+            ckpt_lib.verify_manifest(target)
+            return
+        if not self.verify_upload:
+            return
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="pbt_pub_verify_") as tmp:
+            local = os.path.join(tmp, "check")
+            self._fs.get(target, local)
+            got = ckpt_lib.verify_manifest(local)
+            if int(got.get("version", -1)) != int(manifest["version"]):
+                raise ckpt_lib.CheckpointCorruptError(
+                    target, f"uploaded artifact claims version "
+                            f"{got.get('version')} != published "
+                            f"{manifest['version']}")
+        monitor.counter_add("serving.upload_verify_seconds",
+                            time.perf_counter() - t0)
 
     def latest_announced(self) -> dict | None:
         return self._fleet.latest(DONEFILE)
@@ -221,13 +285,14 @@ class ServingPublisher:
                     continue            # a foreign or malformed entry
                 if name in kept_names:
                     continue
-                target = os.path.join(self.root, name)
-                # retention is hygiene: a failed prune is reported and
+                target = self._artifact_target(name)
+                # retention is hygiene: a failed prune (OSError locally,
+                # RuntimeError from a remote CommandFS) is reported and
                 # the rest of the prune goes on
                 try:
                     self._fs.rm(target)
                     monitor.counter_add("serving.artifacts_pruned")
-                except OSError as err:
+                except (OSError, RuntimeError) as err:
                     monitor.event("serving_artifact_prune_error",
                                   path=target, error=repr(err))
                     warnings.warn(f"serving artifact prune of {target} "

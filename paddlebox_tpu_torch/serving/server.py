@@ -42,9 +42,14 @@ request, shadow and poll failures count under the reference's
 ``serving.active_version`` / ``candidate_version`` / ``pass_lag`` /
 ``staleness_seconds`` gauges; ``health()`` carries the same numbers. The
 request spans and trace links come with the world trace (ROADMAP
-queue 1 item 7). Artifacts are read in place: remote roots raise
-``RemoteFSNotPorted``, and the staging fetch with its bounded retry
-comes back with them (item 5).
+queue 1 item 7). A local root's artifacts are read in place. A remote
+root (``hdfs://...``, any scheme registered with ``utils.fs``) stages
+each announced version under ``staging_dir`` (a temp dir by default):
+``fetch_attempts`` tries with exponential backoff from
+``fetch_backoff_s`` (``serving.fetch_retries``), the partial download
+removed before each retry; a version that exhausts them is diagnosed
+like a corrupt one and the last good version keeps serving. The staged
+copy is removed once the version is built.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from __future__ import annotations
 import http.server
 import json
 import os
+import shutil
+import tempfile
 import threading
 import time
 import warnings
@@ -113,20 +120,25 @@ class ServingModel:
 
 
 class ServingServer:
-    """Tails one local serving root's donefile and serves the newest
+    """Tails one serving root's (local or remote) donefile and serves the newest
     verified version. Step it with :meth:`poll_once` or run the tailer
     with :meth:`start`; score through :meth:`predict` /
     :meth:`predict_batch` (or a BatchingFrontend on top)."""
 
     def __init__(self, root: str, *, poll_s: float = 1.0,
+                 staging_dir: str | None = None,
+                 fetch_attempts: int = 3, fetch_backoff_s: float = 0.25,
                  stale_pass_lag: int = 2, stale_after_s: float = 600.0,
                  health_port: int | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if fs_lib.is_remote(root):
-            raise fs_lib.RemoteFSNotPorted(root)
-        _, self.root = fs_lib.resolve(root)   # file:// → local path
+        self._remote = fs_lib.is_remote(root)
+        self._fs, resolved = fs_lib.resolve(root)   # file:// → local path
+        self.root = root.rstrip("/") if self._remote else resolved
         self._fleet = FleetUtil(self.root)   # torn-line-safe discovery
+        self._staging = staging_dir
+        self.fetch_attempts = max(1, int(fetch_attempts))
+        self.fetch_backoff_s = float(fetch_backoff_s)
         self.poll_s = float(poll_s)
         self.stale_pass_lag = int(stale_pass_lag)
         self.stale_after_s = float(stale_after_s)
@@ -240,14 +252,20 @@ class ServingServer:
                                f" — waiting for the next base")
                     continue
             self._building = True
+            staged = None
             try:
-                model = self._build(self._read(path), e)
+                loaded, staged = self._fetch(path)
+                model = self._build(loaded, e)
             except Exception as err:   # noqa: BLE001 — keep serving
                 self._diag(version, f"{kind} v{version} at {path}: "
                                     f"{err!r}")
                 continue
             finally:
                 self._building = False
+                # the build consumed the staged download: a long-running
+                # remote tailer must not keep one artifact a publish
+                if staged is not None:
+                    shutil.rmtree(staged, ignore_errors=True)
             t_swap = time.perf_counter()
             if self._split_on() and self._active is not None:
                 prev, self._candidate = self._candidate, model
@@ -286,12 +304,42 @@ class ServingServer:
         warnings.warn(f"serving: {msg}; continuing on the last good "
                       f"version")
 
-    @staticmethod
-    def _read(path: str) -> dict:
-        """A CRC-verified view of one artifact, read in place."""
-        if not os.path.isdir(path):
-            raise FileNotFoundError(f"artifact directory {path} is missing")
-        return art.read_artifact(path, verify=True)
+    def _fetch(self, path: str) -> tuple[dict, str | None]:
+        """A CRC-verified view of one artifact, and the staged copy to
+        remove once it is built (None when read in place). A remote
+        artifact gets ``fetch_attempts`` tries with exponential backoff;
+        the partial download is removed before each retry and on
+        exhaustion, which raises."""
+        if not self._remote:
+            if not os.path.isdir(path):
+                raise FileNotFoundError(
+                    f"artifact directory {path} is missing")
+            return art.read_artifact(path, verify=True), None
+        if self._staging is None:
+            # one per server: two servers staging the same version name
+            # into one fixed dir would clobber each other mid-read
+            self._staging = tempfile.mkdtemp(prefix="pbt_serving_stage_")
+        os.makedirs(self._staging, exist_ok=True)
+        local = os.path.join(self._staging,
+                             os.path.basename(path.rstrip("/")))
+        backoff = self.fetch_backoff_s
+        last: Exception | None = None
+        for attempt in range(self.fetch_attempts):
+            if attempt:
+                time.sleep(backoff)
+                backoff *= 2.0
+                monitor.counter_add("serving.fetch_retries")
+            shutil.rmtree(local, ignore_errors=True)
+            try:
+                self._fs.get(path, local)
+                return art.read_artifact(local, verify=True), local
+            except (RuntimeError, OSError, ValueError,
+                    CheckpointCorruptError) as err:
+                last = err
+        shutil.rmtree(local, ignore_errors=True)
+        raise RuntimeError(
+            f"artifact {path} failed to fetch/verify after "
+            f"{self.fetch_attempts} attempts: {last}") from last
 
     def _build(self, loaded: dict, entry: dict) -> ServingModel:
         """The next ServingModel, off the request path. Base → a fresh

@@ -80,14 +80,36 @@ with each save's seconds and bytes) — so a crash resumes through
 raised. The dense optimizer updates the model in place, so the live
 dense state at any step is ``dense_state()``.
 
+Dispatch modes, the reference's two other ways to run the same step
+(they exclude each other, ``_select_push_overlap``):
+
+- push overlap (``flags.push_overlap``; "auto" turns it on at
+  ``steps_per_dispatch == 1``, as the reference does for its one-device
+  step): a step returns its push operands to a ``PushOperandStager``
+  instead of pushing (``sharded.deferred_push_operands``), and the apply
+  (``sharded.apply_deferred``, the inline step's very push) launches
+  just before the next step, on the step's own stream, in a
+  ``push_apply`` span counted by ``trainer.push_applies``. The pending
+  apply lands at pass end (in the loop's ``finally``, so also after a
+  batch raised), before ``eval_pass``, before every sparse flush
+  (``flush_push`` is the feed manager's pre-flush hook, so saves,
+  exports and ``get_rows`` land it) and before each mid-pass snapshot.
+  Stream order puts the apply before the next pull, so overlap on is the
+  same computation as overlap off;
+- supersteps (``TrainerConfig.steps_per_dispatch = k``): the pack thread
+  groups k batches and stacks each fixed-shape array (idx, mask, dense,
+  labels, the model's extras) into one pinned ``(k, ...)`` buffer, one
+  H2D copy each (the push plans, ragged across batches, stay per batch);
+  the loop runs the k steps back to back with no host sync, and a tail
+  shorter than k trains as single steps. A resume's ``skip_steps`` and a
+  mid-pass cadence must be multiples of k.
+
 Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
 Not ported yet (ROADMAP queue 1): multi-shard routing, shard ownership,
-kstep/async dense sync and coordinated multi-host resume (item 6);
-deferred push (push overlap, item 4: ``flush_push`` is a no-op hook);
-supersteps.
+kstep/async dense sync and coordinated multi-host resume (item 6).
 """
 
 from __future__ import annotations
@@ -113,7 +135,8 @@ from paddlebox_tpu_torch.embedding import quant, sharded, tiering
 from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
 from paddlebox_tpu_torch.embedding.replica_cache import TrainerReplicaCache
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
-from paddlebox_tpu_torch.embedding.working_set import PassWorkingSet
+from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
+                                                        PushOperandStager)
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
 from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.monitor.timers import StageTimers
@@ -144,6 +167,11 @@ class TrainerConfig:
     # leaves are written to the stream at the end of each pass.
     dump_fields: tuple = ()
     dump_param: tuple = ()
+    # batches trained per dispatch (a superstep): the pack thread stacks
+    # this many batches into one pinned buffer per array, one H2D copy
+    # each, and the loop runs them back to back; the same computation as
+    # k single steps. A tail shorter than k trains as single steps
+    steps_per_dispatch: int = 1
 
 
 class _PackError:
@@ -174,6 +202,9 @@ class Trainer:
         model.init(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
+        if int(self.cfg.steps_per_dispatch) < 1:
+            raise ValueError(f"steps_per_dispatch="
+                             f"{self.cfg.steps_per_dispatch} must be >= 1")
         self.dense_opt = optimizers.make(
             self.cfg.dense_optimizer, self.cfg.dense_lr, self.params,
             **self.cfg.dense_optimizer_kwargs)
@@ -214,6 +245,13 @@ class Trainer:
         # it got through (skipped ones included) and whether it raised
         self.last_pass_steps = 0
         self._pass_aborted = False
+        # the deferred sparse push (flags.push_overlap): the pending
+        # step's operands, the working set they apply to while a pass is
+        # open or a push is pending, and the applies launched
+        self.push_overlap = self._select_push_overlap()
+        self._push_stager = PushOperandStager()
+        self._overlap_ws: PassWorkingSet | None = None
+        self.push_applies = 0
         # the incremental, overlapped pass boundary: resident rows reused
         # across passes, write-back lazy. Pass a shared manager when
         # several trainers drive one table.
@@ -265,6 +303,24 @@ class Trainer:
         multi_hot = lay.total_len > lay.num_slots
         wide = cfg.total_dim >= 64
         return "fused_gather_pool" if (multi_hot or wide) else "gather_seqpool"
+
+    def _select_push_overlap(self) -> bool:
+        """Whether training runs the deferred sparse push
+        (``flags.push_overlap``, read when the Trainer is built; JAX
+        trainer.py:835). "auto" = on at ``steps_per_dispatch == 1`` (the
+        superstep runs its k steps' pushes inline), "on" / "off" force;
+        "on" with a superstep raises."""
+        po = flags.push_overlap
+        if po not in ("auto", "on", "off"):
+            raise ValueError(f"push_overlap={po!r}")
+        if po == "off":
+            return False
+        ok = self.cfg.steps_per_dispatch == 1
+        if po == "on" and not ok:
+            raise ValueError(
+                "flags.push_overlap='on' needs steps_per_dispatch=1 (the "
+                "deferred apply is sequenced between single steps)")
+        return ok
 
     def _dedup_premerge(self) -> bool:
         """Whether the host plan carries the dedup pre-merge
@@ -338,12 +394,14 @@ class Trainer:
     def pack_arrays(self, ws: PassWorkingSet, idx: np.ndarray,
                     mask: np.ndarray, dense: np.ndarray,
                     labels: np.ndarray, with_plan: bool = True,
-                    extras: tuple = ()) -> tuple:
+                    extras: tuple = (), pin: bool = True) -> tuple:
         """Host tensors for one step: (idx, mask, dense, labels, plan,
         extras); plan is host_plan's (None without ``with_plan``: eval
         never pushes), extras the model's batch_extras arrays (a tuple,
         empty for most models). Pinned when the step runs on the card,
-        so the copy can overlap compute."""
+        so the copy can overlap compute; ``pin=False`` leaves the
+        fixed-shape arrays unpinned (a superstep stacks them into one
+        pinned buffer instead)."""
         arrays = (np.ascontiguousarray(idx, np.int32),
                   np.ascontiguousarray(mask, bool),
                   np.ascontiguousarray(dense, np.float32),
@@ -354,20 +412,65 @@ class Trainer:
             self.host_plan(ws, idx) if with_plan else None,
             torch.from_numpy)
         if self.device.type == "cuda":
-            host = [t.pin_memory() for t in host]
-            ext = [t.pin_memory() for t in ext]
             plan = sharded.map_plan(plan, torch.Tensor.pin_memory)
-        return (*host, plan, tuple(ext))
+        out = (*host, plan, tuple(ext))
+        return self._pin_host(out) if pin else out
+
+    def _pin_host(self, host: tuple) -> tuple:
+        """A pack's fixed-shape tensors pinned (on the card only)."""
+        if self.device.type != "cuda":
+            return host
+        *arrays, plan, extras = host
+        return (*(t.pin_memory() for t in arrays), plan,
+                tuple(t.pin_memory() for t in extras))
+
+    def _stack_host(self, hosts: list[tuple]) -> tuple:
+        """k packs → one superstep's host tensors: each fixed-shape array
+        (idx, mask, dense, labels, every extra) stacked into one (k, ...)
+        buffer, pinned on the card, and the k push plans as a list (their
+        unique-lane arrays are ragged across batches)."""
+        pin = self.device.type == "cuda"
+
+        def stack(cols):
+            out = torch.empty((len(cols), *cols[0].shape),
+                              dtype=cols[0].dtype, pin_memory=pin)
+            return torch.stack(cols, out=out)
+
+        n_arrays = len(hosts[0]) - 2
+        arrays = [stack([h[j] for h in hosts]) for j in range(n_arrays)]
+        extras = []
+        for j in range(len(hosts[0][-1])):
+            cols = [h[-1][j] for h in hosts]
+            if cols[0].dim() < 1 or cols[0].shape[0] != hosts[0][0].shape[0]:
+                # the extras protocol's arrays are batch-leading; anything
+                # else cannot be sliced per step out of the stacked buffer
+                raise ValueError(
+                    "steps_per_dispatch>1 requires every model batch_extras "
+                    f"array to be batch-leading; got shape "
+                    f"{tuple(cols[0].shape)}")
+            extras.append(stack(cols))
+        return (*arrays, [h[-2] for h in hosts], tuple(extras))
+
+    @staticmethod
+    def _step_args(staged: tuple, stacked: bool, i: int) -> tuple:
+        """Step ``i``'s tensors out of a staged pack: the pack itself for a
+        single step, the i-th slice of every stacked array (no copy, no
+        sync) and the i-th plan for a superstep."""
+        if not stacked:
+            return staged
+        *arrays, plans, extras = staged
+        return (*(a[i] for a in arrays), plans[i],
+                tuple(e[i] for e in extras))
 
     def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch,
-                   with_plan: bool = True) -> tuple:
+                   with_plan: bool = True, pin: bool = True) -> tuple:
         with self.timers("translate"):
             idx = ws.translate(pb.ids, pb.mask)
             labels, dense = self.split_floats(pb.floats)
             extras = (self._extras_fn(pb, 1) if self._extras_fn is not None
                       else ())
             out = self.pack_arrays(ws, idx, pb.mask, dense, labels,
-                                   with_plan, extras)
+                                   with_plan, extras, pin=pin)
             # embedding-plane traffic (flight-record deltas), from the
             # host array's size: tokens * pull_width rows out, grad +
             # show/clk lanes back
@@ -381,7 +484,8 @@ class Trainer:
         return out
 
     def stage(self, host: tuple) -> tuple:
-        """Host tensors from pack_arrays → the step's device tensors."""
+        """Host tensors from pack_arrays (or a superstep's _stack_host)
+        → the step's device tensors: one H2D copy a tensor."""
         dev = self.device
 
         def put(t):
@@ -389,28 +493,46 @@ class Trainer:
 
         with monitor.span("h2d_stage"):
             *arrays, plan, extras = host
-            return (*(put(t) for t in arrays), sharded.map_plan(plan, put),
+            plan = ([sharded.map_plan(p, put) for p in plan]
+                    if isinstance(plan, list)
+                    else sharded.map_plan(plan, put))
+            return (*(put(t) for t in arrays), plan,
                     tuple(put(t) for t in extras))
 
     def _pack_iter(self, dataset, ws: PassWorkingSet, batch_size: int,
-                   test_mode: bool = False):
-        """Yield (packed batch, its staged tensors), with the pack
-        (translate + plan + pin) running on a host thread
-        ``flags.prefetch_batches`` batches ahead of the step; the step
+                   test_mode: bool = False, group: int = 1):
+        """Yield (packed batches, their staged tensors, stacked), with the
+        pack (translate + plan + pin) running on a host thread
+        ``flags.prefetch_batches`` items ahead of the step; the step
         thread's wait on it is the "read" stage (starvation = a
-        host-bound pass). ``test_mode`` (eval) packs no push plan and
-        pads the tail batch instead of dropping it (``pb.num`` keeps the
-        valid count)."""
+        host-bound pass). ``group=k`` > 1 yields full groups of k batches
+        stacked into one superstep (``stacked`` True; see _stack_host),
+        then the tail as single batches. ``test_mode`` (eval) packs no
+        push plan and pads the tail batch instead of dropping it
+        (``pb.num`` keeps the valid count)."""
+        with_plan = not test_mode
+
         def source():
+            buf: list = []
             for pb in dataset.batches(batch_size, drop_last=not test_mode):
                 if len(pb.floats) < batch_size:
                     pb = pb.pad_to(batch_size)
-                yield pb, self._pack_host(ws, pb, with_plan=not test_mode)
+                if group <= 1:
+                    yield [pb], self._pack_host(ws, pb, with_plan), False
+                    continue
+                buf.append((pb, self._pack_host(ws, pb, with_plan,
+                                                pin=False)))
+                if len(buf) == group:
+                    yield ([p for p, _ in buf],
+                           self._stack_host([h for _, h in buf]), True)
+                    buf = []
+            for pb, host in buf:          # the tail: single steps
+                yield [pb], self._pin_host(host), False
 
         depth = flags.prefetch_batches
         if depth <= 0:
-            for pb, host in source():
-                yield pb, self.stage(host)
+            for pbs, host, stacked in source():
+                yield pbs, self.stage(host), stacked
             return
         q: Any = queue.Queue(maxsize=depth)
         done = object()
@@ -441,7 +563,7 @@ class Trainer:
                     break
                 if isinstance(item, _PackError):
                     raise item.exc
-                yield item[0], self.stage(item[1])
+                yield item[0], self.stage(item[1]), item[2]
         finally:
             # an abandoned consumer: stop the producer after its current
             # batch, and drain so a blocked put() wakes to see the event
@@ -476,11 +598,14 @@ class Trainer:
 
     def train_step(self, table: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor, dense: torch.Tensor,
-                   labels: torch.Tensor, plan=None, extras: tuple = ()
+                   labels: torch.Tensor, plan=None, extras: tuple = (),
+                   defer: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One training step on device tensors. Updates ``table`` and the
-        dense params in place; returns (loss, preds) without a host
-        sync."""
+        """One training step on device tensors. Updates the dense params
+        in place and ``table`` too, unless ``defer``: the push operands
+        then go to the push stager and the table changes when
+        ``_dispatch_pending_apply`` launches them. Returns (loss, preds)
+        without a host sync."""
         lay = self.layout
         S, T = lay.num_slots, lay.total_len
         ecfg = self.store.cfg
@@ -504,8 +629,13 @@ class Trainer:
         maskf = mask.to(torch.float32)
         show_inc = maskf.reshape(-1)
         clk_inc = (maskf * labels[:, None]).reshape(-1)
-        sharded.push(table, idx.reshape(-1), sgrad, show_inc, clk_inc, ecfg,
-                     plan=plan)
+        if defer:
+            ops = sharded.deferred_push_operands(idx.reshape(-1), sgrad,
+                                                 show_inc, clk_inc, plan)
+            self._push_stager.put((idx, mask, labels, plan, ops))
+        else:
+            sharded.push(table, idx.reshape(-1), sgrad, show_inc, clk_inc,
+                         ecfg, plan=plan)
         self.dense_opt.step(gp)
         return loss.detach(), torch.sigmoid(logits.detach())
 
@@ -557,6 +687,7 @@ class Trainer:
         owned_pass = hub.open_pass_auto()
         pass_t0 = time.perf_counter()
         stage0 = self.timers.snapshot()
+        applies0 = self.push_applies
         try:
             out = self._train_pass_impl(dataset, metrics, preload_keys,
                                         skip_steps)
@@ -572,6 +703,7 @@ class Trainer:
             examples=out["steps"] * self.cfg.global_batch_size,
             seconds=time.perf_counter() - pass_t0,
             loss_mean=out.get("loss_mean"), auc=out.get("auc"),
+            push_applies=(self.push_applies - applies0) or None,
             pull_engine=self.pull_engine,
             push_engine=(self.resolved_push_engine(self.last_ws)
                          if self.last_ws is not None else None),
@@ -587,10 +719,24 @@ class Trainer:
                          preload_keys: np.ndarray | None,
                          skip_steps: int) -> dict[str, float]:
         cfg = self.cfg
+        k = int(cfg.steps_per_dispatch)
+        if k > 1 and int(skip_steps) % k:
+            # a superstep commits k steps at once: a resume can only land
+            # between dispatches
+            raise NotImplementedError(
+                f"mid-pass resume with steps_per_dispatch={k} needs the "
+                f"cursor on a dispatch boundary: skip_steps={skip_steps} "
+                f"is not a multiple of {k}")
+        if k > 1 and self._midpass is not None and self._midpass[1] % k:
+            raise NotImplementedError(
+                f"mid-pass snapshots with steps_per_dispatch={k} need a "
+                f"cadence on the dispatch boundary: every_steps="
+                f"{self._midpass[1]} is not a multiple of {k}")
         t0 = time.perf_counter()
         fm = self.feed_mgr
         ws = fm.begin_pass(dataset.unique_keys())
         self.last_ws = ws
+        self._overlap_ws = ws if self.push_overlap else None
         self.midpass_saves = []
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
@@ -610,38 +756,50 @@ class Trainer:
             if preload_keys is not None:
                 self.preload_pass(preload_keys)
             t_loop = time.perf_counter()
-            pack_it = self._pack_iter(dataset, ws, cfg.global_batch_size)
-            for pb, staged in pack_it:
+            pack_it = self._pack_iter(dataset, ws, cfg.global_batch_size,
+                                      group=k)
+            for pbs, staged, stacked in pack_it:
                 if skip > 0:
-                    skip -= 1
-                    pass_step += 1
+                    # a resumed pass: these batches' effects live in the
+                    # restored state (a superstep group skips whole: the
+                    # boundary check above makes skip cover it)
+                    skip -= len(pbs)
+                    pass_step += len(pbs)
                     continue
-                mon_ctx.set_step(self.global_step)
-                with monitor.span("pack_batch"):
-                    idx, mask, dense, labels, plan, extras = staged
-                with self.timers("train"), monitor.span("train_step"):
-                    loss, preds = self.train_step(ws.table, idx, mask,
-                                                  dense, labels, plan,
-                                                  extras)
-                    pass_step += 1
-                with self.timers("auc"), monitor.span("auc_update"):
-                    auc.update(preds, labels)
-                    if metrics is not None:
-                        metrics.add_batch(preds, labels, cmatch=pb.cmatch,
-                                          rank=pb.rank)
-                if dump_stream is not None:
-                    if dump_pending is not None:
-                        dump_stream.write_fields(*dump_pending)
-                    dump_pending = (self.global_step, preds, labels,
-                                    self._dump_extra_fields(pb))
-                if cfg.check_nan_inf or flags.check_nan_inf:
-                    self._nan_guard(loss, preds, labels)
-                losses.append(loss)
-                self.global_step += 1
-                mp = self._midpass
-                if (mp is not None and mp[1] > 0
-                        and pass_step % mp[1] == 0):
-                    self._midpass_save(ws, pass_step)
+                # a superstep's k steps run back to back, no host sync
+                for i, pb in enumerate(pbs):
+                    mon_ctx.set_step(self.global_step)
+                    with monitor.span("pack_batch"):
+                        (idx, mask, dense, labels, plan,
+                         extras) = self._step_args(staged, stacked, i)
+                    with self.timers("train"), monitor.span("train_step"):
+                        if self.push_overlap:
+                            # the previous step's apply first: the pull
+                            # below reads the table it updates, in
+                            # stream order
+                            self._dispatch_pending_apply(ws.table)
+                        loss, preds = self.train_step(
+                            ws.table, idx, mask, dense, labels, plan,
+                            extras, defer=self.push_overlap)
+                        pass_step += 1
+                    with self.timers("auc"), monitor.span("auc_update"):
+                        auc.update(preds, labels)
+                        if metrics is not None:
+                            metrics.add_batch(preds, labels,
+                                              cmatch=pb.cmatch, rank=pb.rank)
+                    if dump_stream is not None:
+                        if dump_pending is not None:
+                            dump_stream.write_fields(*dump_pending)
+                        dump_pending = (self.global_step, preds, labels,
+                                        self._dump_extra_fields(pb))
+                    if cfg.check_nan_inf or flags.check_nan_inf:
+                        self._nan_guard(loss, preds, labels)
+                    losses.append(loss)
+                    self.global_step += 1
+                    mp = self._midpass
+                    if (mp is not None and mp[1] > 0
+                            and pass_step % mp[1] == 0):
+                        self._midpass_save(ws, pass_step)
             if self.device.type == "cuda":
                 # the steps' stream only: a staging copy of the next pass
                 # on the feed manager's stream is not step time
@@ -657,6 +815,11 @@ class Trainer:
                 # before anything reads or persists the table (the
                 # exception's traceback would keep it alive otherwise)
                 pack_it.close()
+            if self.push_overlap:
+                # the pass boundary: the last step's apply is still
+                # pending — land it before anything reads or persists
+                # the table, also when a batch raised
+                self._dispatch_pending_apply(ws.table)
             fm.pass_closed()
             if dump_stream is not None:
                 # flush the tail batch even when the pass raised (a nan
@@ -674,6 +837,8 @@ class Trainer:
         with self.timers("drain"):
             lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
                   if losses else np.zeros(0))
+        # every launched apply has drained: release the retired slot
+        self._push_stager.clear()
         out = auc.compute()
         out["loss_first"] = float(lv[0]) if len(lv) else float("nan")
         out["loss_last"] = float(lv[-1]) if len(lv) else float("nan")
@@ -782,12 +947,17 @@ class Trainer:
         cfg = self.cfg
         bs = cfg.global_batch_size
         t0 = time.perf_counter()
+        # predictions must see every trained row: a pending deferred
+        # apply lands first
+        self.flush_push()
         ws = self.feed_mgr.begin_pass(dataset.unique_keys(), test_mode=True)
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         rows = torch.arange(bs, device=self.device)
         steps = examples = 0
         t_loop = time.perf_counter()
-        for pb, staged in self._pack_iter(dataset, ws, bs, test_mode=True):
+        for pbs, staged, _ in self._pack_iter(dataset, ws, bs,
+                                              test_mode=True):
+            pb = pbs[0]
             idx, mask, dense, labels, _, extras = staged
             preds = self.eval_step(ws.table, idx, mask, dense, extras)
             auc.update(preds, labels, mask=rows < pb.num)
@@ -809,12 +979,40 @@ class Trainer:
     # ------------------------------------------------------------------
     # dense state and snapshots
     # ------------------------------------------------------------------
+    def _dispatch_pending_apply(self, table) -> None:
+        """Launch the pending deferred apply (if any) on ``table``, on the
+        current stream (JAX trainer.py:2038); the caller sequences it
+        before anything reads the table."""
+        item = self._push_stager.take()
+        if item is None:
+            return
+        faultpoint.hit("trainer.push_apply.pre")
+        idx, mask, labels, plan, ops = item
+        with monitor.span("push_apply"):
+            sharded.apply_deferred(table, idx, mask, labels, plan, ops,
+                                   self.store.cfg)
+        self.push_applies += 1
+        monitor.counter_add("trainer.push_applies")
+
     def flush_push(self) -> int:
-        """Apply a pending deferred sparse push (JAX trainer.py:2054),
-        registered as the feed manager's pre-flush hook. The port pushes
-        inline (push overlap is not ported, ROADMAP queue 1 item 4), so
-        nothing is ever pending: returns 0."""
-        return 0
+        """Apply a pending deferred sparse push to the live working set
+        (JAX trainer.py:2054). Runs at pass end, before ``eval_pass`` and
+        mid-pass snapshots, and before every sparse flush (the feed
+        manager's pre-flush hook: saves, exports, shrinks, ``get_rows``).
+        Returns the applies launched (0 or 1: staleness is bounded at one
+        step). Raises while a training pass is open: the loop owns the
+        table then."""
+        if not self._push_stager.pending():
+            return 0
+        ws = self._overlap_ws
+        if ws is None:
+            return 0
+        if self.feed_mgr._in_pass:
+            raise RuntimeError(
+                "flush_push while a training pass is open — the loop "
+                "owns the table mid-pass; finish the pass first")
+        self._dispatch_pending_apply(ws.table)
+        return 1
 
     def flush_sparse(self) -> int:
         """Move the lazily retained device rows back to the host store
@@ -880,14 +1078,22 @@ class Trainer:
         ones of a resumed pass included) and the shuffle state the caller
         put in ``midpass_cursor_extra["shuffle_state"]``, so a kill
         between pass boundaries resumes through
-        ``train_pass(skip_steps=mid_steps)``. One card, allreduce: any
-        cadence (the kstep, async and superstep boundary rules of the
-        reference have no mode to bind here)."""
+        ``train_pass(skip_steps=mid_steps)``. One card, allreduce: with
+        ``steps_per_dispatch`` k > 1 the cadence must land on the dispatch
+        boundary (a multiple of k: a superstep commits k steps at once,
+        so no cursor exists between them); any cadence otherwise."""
         if every_steps is None:
             every_steps = int(flags.ckpt_midpass_every_steps)
         if every_steps <= 0:
             self._midpass = None
             return
+        k = int(self.cfg.steps_per_dispatch)
+        if k > 1 and every_steps % k:
+            raise NotImplementedError(
+                f"mid-pass snapshots with steps_per_dispatch={k} must land "
+                f"on the dispatch boundary: every_steps={every_steps} is "
+                f"not a multiple of it — the k-step superstep commits k "
+                f"steps at once, so no cursor exists between them")
         if box is None:
             raise ValueError("enable_midpass_snapshots needs a BoxPS "
                              "(the cursor's pass identity)")
@@ -911,8 +1117,10 @@ class Trainer:
         live dense state. Returns {snapshot, mid_steps, seconds, bytes,
         stream_wait_s}."""
         t0 = time.perf_counter()
-        wait = self._quiesce_steps()
+        # the pending deferred apply lands first, so the stream wait
+        # covers it too
         self.flush_push()
+        wait = self._quiesce_steps()
         ds = self.dense_state()
         self.feed_mgr.end_pass(ws, ws.table)
         snap = checkpointer.save(

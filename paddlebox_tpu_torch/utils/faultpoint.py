@@ -56,6 +56,9 @@ POINTS: tuple[str, ...] = (
     # about to demote cold cached rows; the cache is never authoritative,
     # so a kill here must resume bit-exact.
     "tiering.evict.pre",
+    # train/trainer._dispatch_pending_apply: a deferred sparse-push apply
+    # (flags.push_overlap) is about to launch, before the next step.
+    "trainer.push_apply.pre",
     # utils/pass_ckpt.save: all planes written, snapshot MANIFEST.json not
     # yet committed — the snapshot must be invisible to resume.
     "pass_ckpt.pre_manifest",
@@ -66,6 +69,14 @@ POINTS: tuple[str, ...] = (
     # dying here must resume from the cursor (skip the steps already
     # trained), not replay the pass from its start.
     "trainer.midpass.post_save",
+    # remote (hdfs://) checkpoint and model roots: the local snapshot
+    # committed, its upload not yet run — the remote donefile must still
+    # name only fully uploaded snapshots (the pass_ckpt mirror and
+    # FleetUtil._save_dir).
+    "remote_ckpt.upload.pre",
+    # remote restore: a snapshot or model directory is about to download
+    # — dying here must leave the next resume able to download it again.
+    "remote_ckpt.download.pre",
     # serving/artifact.write_artifact: every member landed, the version's
     # MANIFEST.json not yet committed — the version never happened.
     "serving.publish.pre_manifest",

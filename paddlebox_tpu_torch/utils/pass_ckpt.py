@@ -1,5 +1,5 @@
 """Crash-safe pass snapshots and resume — the port of ``PassCheckpointer``
-(``paddlebox_tpu/utils/pass_ckpt.py:85``), local roots.
+(``paddlebox_tpu/utils/pass_ckpt.py:85``).
 
 A snapshot restores every plane a pass touches:
 
@@ -36,16 +36,34 @@ other. Each save and resume counts its seconds and bytes in the monitor
 (``ckpt.*``), emits ``checkpoint_save`` / ``checkpoint_resume`` (and
 ``checkpoint_torn_fallback``, ``checkpoint_timeline_reset``), and marks
 a ``checkpoint_commit`` instant in the chrome trace; ``last_save`` /
-``last_resume`` keep the same numbers with the flush's. Not ported yet
-(ROADMAP queue 1 item 5): remote roots and the mirror (:291-478, :742 —
-a remote URI raises ``RemoteFSNotPorted``).
+``last_resume`` keep the same numbers with the flush's.
+
+Remote roots (``hdfs://``, ``afs://``, any scheme registered with
+``utils.fs``): the checkpointer stages under ``staging_dir`` (a fresh
+temp dir by default), runs the whole local commit there, then mirrors
+the snapshot up — the whole chain after a rotation, only the new delta
+member after a delta save — and appends a line to the remote
+``snapshots.donefile`` only after every byte landed, so the donefile
+names complete uploads only. A resume into an empty staging dir reads
+the donefile newest-first, downloads up to ``keep_last_n`` entries,
+verifies each and falls back past one that fails to download or
+verify. Retention prunes the remote root too (the donefile shrinks
+first, through a ``.compact`` staging copy that a later save repairs
+from if the rewrite was interrupted), and ``resume(at=...)`` masks the
+abandoned timeline's entries with a ``reset_after`` line. Uploads and
+downloads count under ``ckpt.remote_*`` with their events; the windows
+``remote_ckpt.upload.pre`` and ``remote_ckpt.download.pre`` are fault
+points. ``last_save["remote_upload"]`` and
+``last_resume["remote_download"]`` carry their seconds and bytes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
+import tempfile
 import time
 import warnings
 from typing import Any
@@ -61,21 +79,42 @@ from paddlebox_tpu_torch.utils.checkpoint import CheckpointCorruptError
 _PASS_RE = re.compile(r"^pass-(\d+)(?:\.mid(\d+))?$")
 _CHAIN_RE = re.compile(r"^chain-(\d+)$")
 
+REMOTE_DONEFILE = "snapshots.donefile"
+
 
 def _metric_tree(metrics) -> dict[str, Any]:
     return {name: metrics.get_state(name) for name in metrics.names()}
 
 
+def _tree_bytes(path: str) -> int:
+    """Bytes of the files under ``path`` (a file or a directory)."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
 class PassCheckpointer:
     """Owns one snapshot root. One instance per training job; the
     training loop calls :meth:`save` at every pass boundary (directly or through
-    ``BoxPS.end_pass``) and :meth:`resume` once at startup."""
+    ``BoxPS.end_pass``) and :meth:`resume` once at startup.
+
+    ``root`` may be a remote URI: snapshots then stage under
+    ``staging_dir`` (a fresh temp dir by default; the remote root is the
+    authority across host loss) and mirror up after each local
+    commit."""
 
     def __init__(self, root: str, keep_last_n: int | None = None,
-                 base_every: int | None = None):
+                 base_every: int | None = None,
+                 staging_dir: str | None = None):
         if fs_lib.is_remote(root):
-            raise fs_lib.RemoteFSNotPorted(root)
-        self.root = fs_lib.resolve(root)[1]
+            fs_lib.resolve(root)    # an unregistered scheme raises here
+            self.remote_root: str | None = root.rstrip("/")
+            self.root = staging_dir or tempfile.mkdtemp(
+                prefix="pbt_ckpt_stage_")
+        else:
+            self.remote_root = None
+            self.root = fs_lib.resolve(root)[1]
         self.keep_last_n = (config_flags.ckpt_keep_last_n
                             if keep_last_n is None else int(keep_last_n))
         if self.keep_last_n < 2:
@@ -87,6 +126,11 @@ class PassCheckpointer:
         self._chain_gen = 0
         self._chain_dir: str | None = None
         self._deltas_in_chain = 0
+        # chains whose whole directory this process already mirrored up:
+        # a chain continued across a restart re-uploads whole once, then
+        # rides the incremental per-delta path
+        self._uploaded_chains: set[str] = set()
+        self._remote_synced = False
         # store.save_count as of OUR last save/resume: any foreign save in
         # between (a FleetUtil model sharing the store) consumed the dirty
         # mask and tombstones, so the next snapshot must be a full base
@@ -94,6 +138,9 @@ class PassCheckpointer:
         # what the last save / resume cost: {seconds, bytes, ...}
         self.last_save: dict | None = None
         self.last_resume: dict | None = None
+        # what the last remote sync cost (a remote root's resume into an
+        # empty staging dir): {seconds, bytes, snapshots}
+        self.last_download: dict | None = None
 
     # ---- paths -----------------------------------------------------------
 
@@ -180,6 +227,9 @@ class PassCheckpointer:
         self._expect_count = store.save_count
         chain_files = store.chain_file_entries(self._chain_path(chain_name),
                                                save_seq)
+        # what a delta save touched: the incremental upload set
+        incr_members = (None if rotate
+                        else store.chain_increment_members(save_seq))
 
         snap = self.snap_dir(pass_id, mid_steps)
         os.makedirs(snap, exist_ok=True)
@@ -238,8 +288,193 @@ class PassCheckpointer:
             "sparse_member": sparse_member, "sparse_seconds": sparse_seconds,
             "sparse_bytes": sparse_bytes, "flush_seconds": flush_seconds,
             "flush_bytes": int(flush_bytes)}
+        if self.remote_root is not None:
+            self.last_save["remote_upload"] = self._upload(
+                snap, chain_name, rotate, save_seq, cursor, incr_members)
         self._prune()
         return snap
+
+    # ---- remote mirror ---------------------------------------------------
+
+    def _remote_fs(self):
+        return fs_lib.resolve(self.remote_root)[0]
+
+    def _upload(self, snap: str, chain_name: str, rotated: bool,
+                save_seq: int, cursor: dict,
+                incr_members: list[str] | None) -> dict:
+        """Mirror the just-committed snapshot to the remote root; the
+        donefile line lands only after every byte uploaded, so a kill
+        anywhere in here leaves the donefile naming complete uploads
+        only (the local commit already happened). Returns {seconds,
+        bytes}."""
+        t0 = time.perf_counter()
+        faultpoint.hit("remote_ckpt.upload.pre")
+        fs = self._remote_fs()
+        rroot = self.remote_root
+        snap_name = os.path.basename(snap)
+        local_chain = self._chain_path(chain_name)
+        remote_chain = f"{rroot}/{chain_name}"
+        try:
+            fs.makedirs(rroot)
+            if (rotated or incr_members is None
+                    or chain_name not in self._uploaded_chains):
+                # the whole chain: a fresh rotation, or a chain continued
+                # across a restart (its remote contents are unknown)
+                fs_lib.put_replacing(fs, local_chain, remote_chain)
+                nbytes = _tree_bytes(local_chain)
+            else:
+                # incremental: only what the delta save touched
+                for d in sorted({os.path.dirname(m) for m in incr_members
+                                 if "/" in m}):
+                    fs.makedirs(f"{remote_chain}/{d}")
+                nbytes = 0
+                for name in incr_members:
+                    fs.put(os.path.join(local_chain, name),
+                           f"{remote_chain}/{name}")
+                    nbytes += _tree_bytes(os.path.join(local_chain, name))
+            self._uploaded_chains.add(chain_name)
+            # a leftover target (a torn upload, a re-save after an
+            # elected rollback) must never nest the source
+            fs_lib.put_replacing(fs, snap, f"{rroot}/{snap_name}")
+            nbytes += _tree_bytes(snap)
+        except BaseException:
+            # a half-uploaded chain must not ride the incremental path on
+            # the next save: force a whole re-upload
+            self._uploaded_chains.discard(chain_name)
+            raise
+        line = json.dumps({"pass": int(cursor["pass_id"]),
+                           "mid": int(cursor["mid_steps"]),
+                           "snapshot": snap_name, "chain": chain_name,
+                           "save_seq": int(save_seq),
+                           "ts": int(time.time())})
+        self._repair_donefile(fs)
+        # pblint: disable=donefile-discipline -- snapshots.donefile is the
+        # checkpoint mirror's own resume channel, not a model-visibility
+        # donefile: it needs reset-line masking and two-phase compaction,
+        # which FleetUtil.append_donefile does not express
+        fs.write_text(f"{rroot}/{REMOTE_DONEFILE}", line + "\n",
+                      append=True)
+        seconds = time.perf_counter() - t0
+        monitor.counter_add("ckpt.remote_uploads")
+        monitor.counter_add("ckpt.remote_upload_seconds", seconds)
+        monitor.event("checkpoint_remote_upload", type="lifecycle",
+                      snapshot=snap_name, chain=chain_name,
+                      seconds=seconds)
+        return {"seconds": seconds, "bytes": int(nbytes)}
+
+    def _read_donefile_raw(self) -> list[str]:
+        """Raw donefile lines; the ``.compact`` staging copy when the
+        main file is missing (a compaction uploads the compacted content
+        there first, so a kill between the main file's rm and put never
+        loses the donefile)."""
+        fs = self._remote_fs()
+        path = f"{self.remote_root}/{REMOTE_DONEFILE}"
+        if not fs.exists(path):
+            alt = f"{path}.compact"
+            if not fs.exists(alt):
+                return []
+            path = alt
+        return [ln.strip() for ln in fs.read_lines(path) if ln.strip()]
+
+    def _repair_donefile(self, fs) -> None:
+        """Finish an interrupted compaction before appending: with only
+        the ``.compact`` copy left, an append would recreate the main
+        file with one line and shadow the whole history (and the next
+        prune would reclaim every "unreferenced" directory)."""
+        path = f"{self.remote_root}/{REMOTE_DONEFILE}"
+        alt = f"{path}.compact"
+        if fs.exists(path) or not fs.exists(alt):
+            return
+        tmp = os.path.join(self.root, f".donefile.repair.{os.getpid()}")
+        try:
+            fs.get(alt, tmp)
+            # pblint: disable=donefile-discipline -- compaction-crash
+            # repair of the mirror's own snapshots.donefile from its
+            # .compact staging copy
+            fs.put(tmp, path)
+            fs.rm(alt)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        monitor.counter_add("ckpt.donefile_repairs")
+        monitor.event("donefile_repaired", type="lifecycle")
+
+    def _remote_entries(self, raw_lines: list[str] | None = None
+                        ) -> list[dict]:
+        """Donefile entries in append order, ``reset_after`` lines
+        applied: an elected rollback masks the abandoned timeline's newer
+        entries so no later restore resurrects them."""
+        out: list[dict] = []
+        for raw in (self._read_donefile_raw() if raw_lines is None
+                    else raw_lines):
+            e = json.loads(raw)
+            if "reset_after" in e:
+                ra = tuple(e["reset_after"])
+                out = [x for x in out
+                       if (int(x["pass"]), int(x.get("mid", 0))) <= ra]
+            else:
+                out.append(e)
+        return out
+
+    def _sync_from_remote(self) -> bool:
+        """Fill the local staging root from the remote donefile: up to
+        ``keep_last_n`` entries, newest first (a chain shared between
+        entries crosses the wire once), each downloaded to a temp dir,
+        landed and verified; an entry that fails to download or verify
+        is skipped with a diagnostic. True when at least one verified
+        snapshot landed; ``last_download`` holds {seconds, bytes,
+        snapshots}."""
+        self._remote_synced = True
+        t0 = time.perf_counter()
+        try:
+            entries = self._remote_entries()
+        except (RuntimeError, ValueError, OSError) as e:
+            warnings.warn(f"remote snapshot donefile unreadable ({e}); "
+                          f"starting fresh")
+            return False
+        fs = self._remote_fs()
+        landed: list[str] = []
+        nbytes = 0
+        got_chains: set[str] = set()
+        for e in reversed(entries):
+            if len(landed) >= self.keep_last_n:
+                break
+            snap_name, chain_name = e["snapshot"], e["chain"]
+            try:
+                faultpoint.hit("remote_ckpt.download.pre")
+                names = [chain_name] if chain_name not in got_chains \
+                    else []
+                names.append(snap_name)
+                with tempfile.TemporaryDirectory(dir=self.root) as tmp:
+                    for name in names:
+                        fs.get(f"{self.remote_root}/{name}",
+                               os.path.join(tmp, name))
+                    got = sum(_tree_bytes(os.path.join(tmp, n))
+                              for n in names)
+                    for name in names:
+                        dst = os.path.join(self.root, name)
+                        shutil.rmtree(dst, ignore_errors=True)
+                        os.replace(os.path.join(tmp, name), dst)
+                self._verify_snapshot(os.path.join(self.root, snap_name))
+            except (RuntimeError, OSError, CheckpointCorruptError) as err:
+                monitor.counter_add("ckpt.remote_fallbacks")
+                monitor.event("checkpoint_remote_fallback",
+                              type="lifecycle", snapshot=snap_name,
+                              error=str(err)[:300])
+                warnings.warn(
+                    f"remote snapshot {snap_name} failed to restore "
+                    f"({err}); falling back to the previous donefile "
+                    f"entry")
+                continue
+            got_chains.add(chain_name)
+            landed.append(snap_name)
+            nbytes += got
+            monitor.counter_add("ckpt.remote_downloads")
+            monitor.event("checkpoint_remote_download", type="lifecycle",
+                          snapshot=snap_name, chain=chain_name)
+        self.last_download = {"seconds": time.perf_counter() - t0,
+                              "bytes": int(nbytes), "snapshots": landed}
+        return bool(landed)
 
     # ---- discovery / verification ---------------------------------------
 
@@ -288,25 +523,38 @@ class PassCheckpointer:
                 out.append((pass_id, mid))
             except CheckpointCorruptError:
                 continue
+        if not out and self.remote_root is not None \
+                and not self._remote_synced:
+            # an empty staging dir: what the remote donefile delivers
+            if self._sync_from_remote():
+                return self.intact_cursors()
         return out
 
     def latest_valid(self) -> tuple[int, str, dict] | None:
         """Newest snapshot that fully verifies, walking past torn ones
         with a warning naming the diagnosis. None = nothing to resume.
         Returns (pass_id, snap_dir, manifest)."""
-        for pass_id, _mid, snap in reversed(self._list_snaps()):
-            try:
-                return pass_id, snap, self._verify_snapshot(snap)
-            except CheckpointCorruptError as e:
-                # a torn snapshot shows in the flight record and the
-                # exposition, not only in this warning
-                monitor.counter_add("ckpt.torn_fallbacks")
-                monitor.event("checkpoint_torn_fallback", type="lifecycle",
-                              snapshot=os.path.basename(snap),
-                              error=str(e)[:300])
-                warnings.warn(
-                    f"snapshot {snap} failed verification ({e}); "
-                    f"falling back to the previous one")
+        for attempt in (0, 1):
+            for pass_id, _mid, snap in reversed(self._list_snaps()):
+                try:
+                    return pass_id, snap, self._verify_snapshot(snap)
+                except CheckpointCorruptError as e:
+                    # a torn snapshot shows in the flight record and the
+                    # exposition, not only in this warning
+                    monitor.counter_add("ckpt.torn_fallbacks")
+                    monitor.event("checkpoint_torn_fallback",
+                                  type="lifecycle",
+                                  snapshot=os.path.basename(snap),
+                                  error=str(e)[:300])
+                    warnings.warn(
+                        f"snapshot {snap} failed verification ({e}); "
+                        f"falling back to the previous one")
+            # nothing intact locally (none, or all torn): a remote root
+            # may still deliver — sync once and walk again
+            if (attempt == 1 or self.remote_root is None
+                    or self._remote_synced
+                    or not self._sync_from_remote()):
+                break
         return None
 
     # ---- resume ----------------------------------------------------------
@@ -393,11 +641,16 @@ class PassCheckpointer:
             "bytes": (sum(e["bytes"] for e in manifest["files"].values())
                       + sum(e["bytes"] for e in
                             manifest.get("chain_files", {}).values()))}
+        if self.remote_root is not None:
+            self.last_resume["remote_download"] = self.last_download
         return cursor
 
     def _discard_newer_than(self, at: tuple[int, int]) -> None:
         """Remove snapshots newer than ``at``: they belong to an abandoned
-        timeline and must never win a later newest-first walk."""
+        timeline and must never win a later newest-first walk. A remote
+        root's donefile masks them with a ``reset_after`` line (their
+        directories are overwritten as the re-run reaches those
+        passes)."""
         dropped = [s for p, m, s in self._list_snaps() if (p, m) > at]
         for s in dropped:
             shutil.rmtree(s, ignore_errors=True)
@@ -405,6 +658,21 @@ class PassCheckpointer:
             monitor.event("checkpoint_timeline_reset", type="lifecycle",
                           elected=list(at),
                           dropped=[os.path.basename(s) for s in dropped])
+        if self.remote_root is None:
+            return
+        try:
+            fs = self._remote_fs()
+            if fs.exists(f"{self.remote_root}/{REMOTE_DONEFILE}"):
+                line = json.dumps({"reset_after": list(at),
+                                   "ts": int(time.time())})
+                # pblint: disable=donefile-discipline -- timeline-reset
+                # mask on the mirror's own snapshots.donefile
+                fs.write_text(f"{self.remote_root}/{REMOTE_DONEFILE}",
+                              line + "\n", append=True)
+        except RuntimeError as e:
+            # the rollback already happened locally; the mask only keeps
+            # later restores off the abandoned entries
+            warnings.warn(f"remote donefile reset failed ({e})")
 
     # ---- retention -------------------------------------------------------
 
@@ -430,3 +698,74 @@ class PassCheckpointer:
             if _CHAIN_RE.match(n) and n not in referenced:
                 shutil.rmtree(os.path.join(self.root, n),
                               ignore_errors=True)
+        if self.remote_root is not None:
+            try:
+                self._prune_remote()
+            except (RuntimeError, OSError, ValueError) as e:
+                # retention is hygiene: download-side verification is the
+                # backstop, and the next save retries the compaction
+                warnings.warn(f"remote snapshot retention failed ({e}); "
+                              f"will retry at the next save")
+
+    def _prune_remote(self) -> None:
+        """The mirror's retention: keep the newest ``keep_last_n``
+        donefile entries per pool (pass-boundary and mid-pass, as
+        locally), rewrite the donefile to exactly those lines (dropping
+        pruned and masked ones), then remove the remote snapshot and
+        chain directories no kept entry references. The donefile shrinks
+        first, so a kill leaves orphan directories the next compaction
+        reclaims, never a line naming a deleted directory; the rewrite
+        stages at ``snapshots.donefile.compact`` before replacing the
+        main file."""
+        raw = self._read_donefile_raw()
+        if not raw:
+            return
+        entries = self._remote_entries(raw)
+        keep = max(1, int(self.keep_last_n))
+        fulls = [e for e in entries if not int(e.get("mid", 0))]
+        mids = [e for e in entries if int(e.get("mid", 0))]
+        kept_ids = {id(e) for e in fulls[-keep:] + mids[-keep:]}
+        kept = [e for e in entries if id(e) in kept_ids]
+        fs = self._remote_fs()
+        donefile = f"{self.remote_root}/{REMOTE_DONEFILE}"
+        if len(kept) != len(raw):
+            tmp = os.path.join(self.root,
+                               f".donefile.compact.{os.getpid()}")
+            # pblint: disable=durable-write,donefile-discipline -- local
+            # staging copy of the compacted mirror donefile: durability
+            # comes from the two-phase remote protocol below
+            with open(tmp, "w") as f:
+                for e in kept:
+                    f.write(json.dumps(e) + "\n")
+            try:
+                fs.rm(f"{donefile}.compact")
+                # pblint: disable=donefile-discipline -- two-phase
+                # compaction STAGE upload (readers fall back to .compact
+                # if the replace below is interrupted)
+                fs.put(tmp, f"{donefile}.compact")
+                fs.rm(donefile)
+                # pblint: disable=donefile-discipline -- two-phase
+                # compaction REPLACE of the mirror's own donefile
+                fs.put(tmp, donefile)
+                fs.rm(f"{donefile}.compact")
+            finally:
+                os.remove(tmp)
+            monitor.counter_add("ckpt.donefile_compactions")
+            monitor.event("donefile_compacted", type="lifecycle",
+                          dropped=len(raw) - len(kept), kept=len(kept))
+        kept_snaps = {e["snapshot"] for e in kept}
+        kept_chains = {e["chain"] for e in kept}
+        if self._chain_dir is not None:
+            kept_chains.add(self._chain_dir)     # the open chain
+        removed = 0
+        for path in fs.ls(self.remote_root):
+            name = os.path.basename(path.rstrip("/"))
+            if _PASS_RE.match(name) and name not in kept_snaps:
+                fs.rm(f"{self.remote_root}/{name}")
+                removed += 1
+            elif _CHAIN_RE.match(name) and name not in kept_chains:
+                fs.rm(f"{self.remote_root}/{name}")
+                self._uploaded_chains.discard(name)
+                removed += 1
+        if removed:
+            monitor.counter_add("ckpt.remote_pruned_dirs", removed)

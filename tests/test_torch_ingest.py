@@ -506,16 +506,35 @@ def test_data_generator_with_ins_id(tmp_path):
 
 
 def test_remote_paths_raise_not_ported(tmp_path):
+    """A remote path whose scheme has no registered filesystem is refused
+    with ValueError in every mode, as in the JAX package; once a
+    filesystem is registered for the scheme the same path reads what the
+    local file reads."""
+    from tests.test_torch_fs import register_port_mockfs
     schema, _ = schemas()
     for kw in ({}, {"pipe_command": "cat"}):
-        with pytest.raises(fs_lib.RemoteFSNotPorted):
+        with pytest.raises(ValueError, match="no filesystem registered"):
             read_file("hdfs://nn/day/part-0", schema, **kw)
-    with pytest.raises(fs_lib.RemoteFSNotPorted):
+    with pytest.raises(ValueError, match="no filesystem registered"):
         read_file("afs://x/part-0.pbar", schema)
+    with pytest.raises(ValueError, match="no filesystem registered"):
+        jax_reader.read_file("hdfs://nn/day/part-0", schemas()[1])
     # file:// is local
     p = tmp_path / "f"
     p.write_text("\n".join(make_lines(3)) + "\n")
     assert read_file(f"file://{p}", schema).num == 3
+    fs = register_port_mockfs(str(tmp_path / "remote"), scheme="hdfs")
+    try:
+        fs.makedirs("hdfs://nn/day")
+        fs.put(str(p), "hdfs://nn/day/part-0")
+        for kw in ({}, {"pipe_command": "cat"}):
+            got = read_file("hdfs://nn/day/part-0", schema, **kw)
+            want = read_file(str(p), schema, **kw)
+            assert got.num == want.num == 3
+            for a, b in zip(got.sparse_values, want.sparse_values):
+                assert a.tobytes() == b.tobytes()
+    finally:
+        fs_lib._REGISTRY.pop("hdfs", None)
 
 
 def test_tcp_shuffle_parts_raise_not_ported():

@@ -49,4 +49,7 @@ def test_port_is_lint_clean():
     # monitor.context
     rules = [w[0] for w in out["waived"]]
     assert "thread-context" not in rules, out["waived"]
-    assert len(rules) == 7, out["waived"]
+    # 13: the remote reads' early-exit pipe, CommandFS's between-attempt
+    # cleanup and the checkpoint mirror's own snapshots.donefile writes
+    # (the reference's waivers at the same sites) joined the 7 before
+    assert len(rules) == 13, out["waived"]

@@ -543,7 +543,8 @@ DETERMINISTIC = ("trainer.tokens", "trainer.pull_bytes",
                  "trainer.push_bytes", "feed_pass.fresh_rows",
                  "feed_pass.reused_rows", "feed_pass.stale_rows",
                  "feed_pass.patched_rows", "feed_pass.retired_rows",
-                 "feed_pass.flushed_rows", "dataset.records_loaded")
+                 "feed_pass.flushed_rows", "dataset.records_loaded",
+                 "trainer.push_applies")
 
 
 def _two_passes(pkg, mon):
@@ -564,16 +565,16 @@ def _two_passes(pkg, mon):
 
 @pytest.fixture(scope="module")
 def both(request):
-    # the JAX package's default push overlap adds its deferred-apply
-    # spans; the port pushes inline (ROADMAP queue 1 item 4), so the
-    # reference runs inline too
-    old = jflags.push_overlap
-    jflags.push_overlap = "off"
+    # like with like: both packages run their deferred sparse push, so
+    # each step's push_apply span and trainer.push_applies count are
+    # compared too
+    old = (jflags.push_overlap, flags.push_overlap)
+    jflags.push_overlap = flags.push_overlap = "on"
     try:
         out = {"jax": _two_passes("jax", jmon),
                "port": _two_passes("port", monitor)}
     finally:
-        jflags.push_overlap = old
+        jflags.push_overlap, flags.push_overlap = old
     return out
 
 
@@ -591,6 +592,7 @@ def test_same_event_and_span_names_per_pass(both):
         assert got["port"][1] == got["jax"][1], p
         names = got["port"][1]
         assert names["train_step"] == STEPS == names["stage/translate"]
+        assert names["push_apply"] == STEPS
         assert names["pass"] == 1
 
 

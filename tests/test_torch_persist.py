@@ -11,7 +11,9 @@
 - ``MetricRegistry``'s four methods and the phase gate;
 - a ``FleetUtil`` root written by one package ``load_model``-ed by the
   other; ``BoxPS``'s delta save, shrink and phase flip;
-- remote roots raise the named not-ported error.
+- a remote root with no filesystem registered for its scheme raises
+  ValueError; registered, it saves and loads (tests/test_torch_fs.py and
+  tests/test_torch_remote.py hold the remote paths in full).
 
 Small sizes (a few hundred keys, dim 4-8); no trainer is built here
 (tests/test_torch_resume.py drives the trainers).
@@ -43,7 +45,7 @@ from paddlebox_tpu_torch.models import DeepFMModel
 from paddlebox_tpu_torch.train import optimizers
 from paddlebox_tpu_torch.utils import checkpoint as ckpt
 from paddlebox_tpu_torch.utils import faultpoint
-from paddlebox_tpu_torch.utils.fs import RemoteFSNotPorted
+from paddlebox_tpu_torch.utils import fs as fs_lib
 from paddlebox_tpu_torch.utils.pass_ckpt import PassCheckpointer
 
 torch.set_num_threads(1)
@@ -529,11 +531,35 @@ def test_donefile_append_is_idempotent_and_rewrite_repairs(tmp_path):
 
 
 @pytest.mark.parametrize("root", ["hdfs://ns1/ckpt", "afs://cluster/out"])
-def test_remote_roots_raise_not_ported(root):
-    with pytest.raises(RemoteFSNotPorted, match="ROADMAP"):
+def test_remote_roots_raise_not_ported(root, tmp_path):
+    """Unregistered, a remote root raises ValueError as in the JAX
+    package; registered, the checkpointer stages locally and a FleetUtil
+    day model saves to it and loads back bit-exactly."""
+    from tests.test_torch_fs import register_port_mockfs
+    scheme = root.split("://")[0]
+    with pytest.raises(ValueError, match="no filesystem registered"):
         PassCheckpointer(root)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="no filesystem registered"):
         FleetUtil(root)
+    register_port_mockfs(str(tmp_path / "remote"), scheme=scheme)
+    try:
+        ck = PassCheckpointer(root, staging_dir=str(tmp_path / "stage"))
+        assert ck.remote_root == root and ck.root == str(tmp_path / "stage")
+        assert ck.intact_cursors() == []
+        store = _store("port")
+        keys = np.arange(1, 40, dtype=np.uint64)
+        store.lookup_or_init(keys)
+        store.write_back(keys, _rows(np.random.default_rng(0), len(keys),
+                                     store.cfg.row_width))
+        dense = {"w": np.arange(4, dtype=np.float32)}
+        FleetUtil(root).save_model(store, dense, day=3)
+        got, got_dense, day = FleetUtil(root).load_model(
+            {"w": np.zeros(4, np.float32)})
+        assert day == 3
+        assert got.get_rows(keys).tobytes() == store.get_rows(keys).tobytes()
+        assert got_dense["w"].tobytes() == dense["w"].tobytes()
+    finally:
+        fs_lib._REGISTRY.pop(scheme, None)
 
 
 def test_boxps_delta_shrink_and_phase_match_reference(tmp_path):

@@ -22,7 +22,8 @@ JAX package's:
 - ``ServingObs``: the split and shadow records, and its window fields
   equal to the reference's on the same scores and labels;
 - ``BoxPS.end_pass(publisher=...)`` degrading to ``{"error": ...}``,
-  compaction and pruning, ``publish_if_behind``, remote roots refused.
+  compaction and pruning, ``publish_if_behind``, an unregistered remote
+  scheme refused (tests/test_torch_remote.py serves remote roots).
 
 Small sizes (4 slots, dim 8, hidden 16, batch 64), device="cpu"; every
 thread join and future has a timeout.
@@ -68,7 +69,7 @@ from paddlebox_tpu_torch.serving.obs import LatencyWindow, ServingObs
 from paddlebox_tpu_torch.train import Trainer, TrainerConfig
 from paddlebox_tpu_torch.utils import checkpoint as ckpt
 from paddlebox_tpu_torch.utils import faultpoint
-from paddlebox_tpu_torch.utils.fs import RemoteFSNotPorted
+from paddlebox_tpu_torch.utils import fs as fs_lib
 
 torch.set_num_threads(1)
 
@@ -565,13 +566,27 @@ def test_end_pass_publish_failure_degrades(job):
         job.box.end_pass(publisher=job.pub)
 
 
-def test_publish_windows_in_closed_registry():
+def test_publish_windows_in_closed_registry(tmp_path):
+    """The publish windows are registered fault points; a remote serving
+    root with no filesystem for its scheme raises ValueError as in the
+    JAX package, and with one registered a publisher and a server attach
+    to it (an empty root: nothing announced, nothing applied)."""
+    from tests.test_torch_fs import register_port_mockfs
     for p in POINTS:
         assert p in faultpoint.POINTS
-    with pytest.raises(RemoteFSNotPorted):
+    with pytest.raises(ValueError, match="no filesystem registered"):
         ServingPublisher("hdfs://nn/serve", None, None)
-    with pytest.raises(RemoteFSNotPorted):
+    with pytest.raises(ValueError, match="no filesystem registered"):
         ServingServer("afs://x/serve", device="cpu")
+    register_port_mockfs(str(tmp_path / "remote"), scheme="afs")
+    try:
+        pub = ServingPublisher("afs://x/serve", None, None)
+        assert pub.latest_announced() is None
+        srv = ServingServer("afs://x/serve", device="cpu",
+                            staging_dir=str(tmp_path / "stage"))
+        assert srv.poll_once() == 0 and srv.active is None
+    finally:
+        fs_lib._REGISTRY.pop("afs", None)
 
 
 def test_donefile_compaction_keeps_serving_loadable(job):
