@@ -195,7 +195,28 @@ Phases, each of which exits non-zero on failure:
    loaded bit-equal; a remote serving root published to and served by a
    ServingServer staging its fetch on the card, scoring as the local
    root's server does. Prints the seconds and bytes of every upload,
-   download and resume.
+   download and resume;
+15. the mesh, DeepFM at full width, every training pass counted between
+   a reset just before and a read just after (the sums, both ranks' in
+   (b), are the kernels line's phase15_launches): (a) world 1 over NCCL:
+   Trainer(mesh=make_mesh(1)) against the mesh-less trainer on the same
+   16 batches of each layout, bit-equal (losses, rows, dense params;
+   the one-hot pair under the deterministic scatter_accumulate engine,
+   since binned_merge_acc's f32 atomics reorder sums from run to run),
+   then one pass each of dense_sync_mode "kstep" (param_sync_step 4) and
+   "async" on the mesh, printing losses and ms/step; (b) world 2 on the
+   one card: the launcher (this script with --mesh-worker) starts two
+   ranks on cuda:0 over gloo, each taking 4096 of every 8192-example
+   batch, and runs the "sharded" table layout on both layouts and
+   "single" on one-hot, 16 steps each, over the f32 wire: launches per
+   rank (sharded: gather_pool and scatter_accumulate on multi-hot,
+   scatter_accumulate on one-hot; single: binned_merge_acc and
+   merge_update), 0 dropped tokens, the routed pull of a batch bit-equal
+   to lookup / fused_pull_pool on the gathered table, the world's loss
+   and the two shards' rows within LOSS_TOL / TABLE_TOL of a one-rank run
+   of the same global batches here. Prints each rank's step ms,
+   all-to-all bytes a step, the gloo exchange's host-staged ms a step
+   (no NCCL number) and the routed step's share of device busy time.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -3989,6 +4010,339 @@ def dispatch_phase(torch, kernels, card) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh
+# ---------------------------------------------------------------------------
+
+# (table layout, model layout) of the world-2 runs: the sharded exchange
+# on both layouts, the token-level routed path on one-hot
+MESH_RUNS = (("sharded", MULTI), ("sharded", ONEHOT), ("single", ONEHOT))
+MESH_WORLD = 2
+KSTEP_SYNC = 4
+
+
+def mesh_trainer(torch, lay, mesh=None, device=None, **cfg_kw):
+    """make_trainer's DeepFM on ``mesh`` (a Trainer(mesh=...)), or on
+    ``device`` without one, under the TrainerConfig fields ``cfg_kw``;
+    with phase 5's records. Returns (store, tr, ds)."""
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    from paddlebox_tpu_torch.embedding import (EmbeddingConfig,
+                                               HostEmbeddingStore)
+    from paddlebox_tpu_torch.models import DeepFMModel
+    from paddlebox_tpu_torch.train import Trainer, TrainerConfig
+    cfg = EmbeddingConfig(dim=lay.dim, optimizer="adagrad",
+                          learning_rate=0.05)
+    store = HostEmbeddingStore(cfg)
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=lay.max_len)
+    tr = Trainer(DeepFMModel(S, lay.dim, DENSE, hidden=HIDDEN), store,
+                 schema, TrainerConfig(global_batch_size=B,
+                                       auc_buckets=1 << 16, **cfg_kw),
+                 seed=SEED, device=device, mesh=mesh)
+    keys, rng = draw_keys(lay.n_keys)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
+    return store, tr, ds
+
+
+def dense_flat(tr) -> np.ndarray:
+    return np.concatenate([p.detach().float().cpu().numpy().reshape(-1)
+                           for p in tr.params])
+
+
+def pass_rows(tr, store) -> tuple[np.ndarray, np.ndarray]:
+    """The pass's keys this trainer's store holds, sorted, and their
+    flushed rows."""
+    tr.flush_sparse()
+    keys = np.sort(store.keys())
+    return keys, store.get_rows(keys)
+
+
+def world1_nccl(torch, kernels, card, total: dict) -> None:
+    """(a) Trainer(mesh=make_mesh(1)) over NCCL against the mesh-less
+    trainer, then kstep and async passes on the mesh."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(1)
+    check(mesh.backend == "nccl" and mesh.device.type == "cuda",
+          f"make_mesh(1) formed {mesh}")
+    for lay in (MULTI, ONEHOT):
+        # one-hot narrow rows push through binned_merge_acc by default,
+        # whose f32 atomics order sums differently from run to run (two
+        # mesh-less runs differ too): the pair runs the deterministic
+        # premerged engine there, which the sharded exchange applies with
+        old = flags.push_engine
+        if lay is ONEHOT:
+            flags.push_engine = "scatter_accumulate"
+        try:
+            got = {}
+            for label, m in (("mesh", mesh), ("mesh-less", None)):
+                store, tr, ds = mesh_trainer(torch, lay, mesh=m)
+                out, launches, _ = counted_pass(kernels, tr, ds, total)
+                keys, rows = pass_rows(tr, store)
+                got[label] = (out, launches, keys, rows, dense_flat(tr))
+                del store, tr, ds
+                torch.cuda.empty_cache()
+        finally:
+            flags.push_engine = old
+        (om, lm, km, rm, dm), (op, lp, kp, rp, dp) = (got["mesh"],
+                                                      got["mesh-less"])
+        check(lm == lp, f"(a) {lay.name}: launches {lm} vs {lp}")
+        for k in ("loss_first", "loss_last", "loss_mean", "auc", "steps"):
+            check(om[k] == op[k], f"(a) {lay.name}: {k} {om[k]!r} on the "
+                  f"mesh vs {op[k]!r} without")
+        check(np.array_equal(km, kp) and np.array_equal(rm, rp)
+              and np.array_equal(dm, dp),
+              f"(a) {lay.name}: rows or dense params differ")
+        print(f"  (a) {lay.name}, world 1 over nccl ({card}): bit-equal to "
+              f"the mesh-less trainer (losses, {len(km)} rows, "
+              f"{dm.size} dense params) | loss mean {om['loss_mean']:.6f} "
+              f"| step {om['step_seconds'] / om['steps'] * 1e3:.3f} ms vs "
+              f"{op['step_seconds'] / op['steps'] * 1e3:.3f} ms | "
+              f"launches {lm}" + (" (push engine forced to "
+                                  "scatter_accumulate)" if lay is ONEHOT
+                                  else ""))
+        for mode, kw in (("kstep", dict(dense_sync_mode="kstep",
+                                         param_sync_step=KSTEP_SYNC)),
+                         ("async", dict(dense_sync_mode="async"))):
+            store, tr, ds = mesh_trainer(torch, lay, mesh=mesh, **kw)
+            out, launches, _ = counted_pass(kernels, tr, ds, total)
+            expect_launches(f"(a) {lay.name} {mode}", launches,
+                            {k: lay.steps for k in lay.kernels})
+            check(np.isfinite(out["loss_mean"]), f"(a) {mode}: loss")
+            extra = ""
+            if mode == "async":
+                check(tr.dense_table.grads_merged == lay.steps,
+                      f"(a) async merged {tr.dense_table.grads_merged}")
+                extra = (f" | table applies {tr.dense_table.steps_applied}"
+                         f" for {tr.dense_table.grads_merged} grads")
+                tr.dense_table.stop()
+            print(f"  (a) {lay.name}, {mode} on the world-1 mesh ({card}): "
+                  f"loss first {out['loss_first']:.6f} mean "
+                  f"{out['loss_mean']:.6f} | "
+                  f"{out['step_seconds'] / out['steps'] * 1e3:.3f} ms/step"
+                  f"{extra} | launches {launches}")
+            del store, tr, ds
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def mesh_worker(argv: list[str]) -> int:
+    """One rank of (b): joins the world over gloo on the current card,
+    runs MESH_RUNS (a counted pass, the routed pull against lookup /
+    fused_pull_pool on the gathered table, a profiled pass) and writes
+    its numbers to <dir>/rank<r>.json and its rows to
+    <dir>/rank<r>_<run>.npz."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.distributed import RoleMaker
+    from paddlebox_tpu_torch.embedding import exchange, sharded
+    from paddlebox_tpu_torch.ops import kernels
+    from paddlebox_tpu_torch.parallel import make_mesh
+    work = argv[0]
+    rm = RoleMaker.from_env()
+    rm.init_distributed(backend="gloo")
+    mesh = make_mesh(backend="gloo")
+    kernels.build_kernels()          # built by the parent: loads only
+    info = {"rank": mesh.rank, "device": str(mesh.device),
+            "jax_loaded": "jax" in sys.modules, "runs": {}}
+    for layout, lay in MESH_RUNS:
+        flags.table_layout = layout
+        store, tr, ds = mesh_trainer(torch, lay, mesh=mesh)
+        name = f"{layout}_{lay.name}"
+        st0 = monitor.STATS.snapshot()
+        a0, c0, s0 = mesh.a2a_bytes, mesh.a2a_calls, mesh.staged_seconds
+        reset_counts(kernels)
+        out = tr.train_pass(ds)
+        launches = launch_counts(kernels)
+        st1 = monitor.STATS.snapshot()
+        steps = out["steps"]
+        run = {"launches": launches, "steps": steps,
+               "loss_first": out["loss_first"],
+               "loss_mean": out["loss_mean"], "auc": out["auc"],
+               "dropped": out["routed_dropped"],
+               "step_ms": out["step_seconds"] / steps * 1e3,
+               "a2a_bytes_step": (mesh.a2a_bytes - a0) / steps,
+               "a2a_calls_step": (mesh.a2a_calls - c0) / steps,
+               "gloo_ms_step": (mesh.staged_seconds - s0) / steps * 1e3,
+               "table_layout": tr.table_layout,
+               "push_engine": tr.resolved_push_engine(tr.last_ws),
+               "pull_engine": tr.pull_engine,
+               "wire": tr.exchange_wire}
+        for k in ("pull_bytes", "push_bytes", "tokens", "unique_lanes"):
+            run[f"exchange_{k}"] = (st1.get(f"exchange.{k}", 0)
+                                    - st0.get(f"exchange.{k}", 0))
+        keys, rows = pass_rows(tr, store)
+        np.savez(os.path.join(work, f"rank{mesh.rank}_{name}.npz"),
+                 keys=keys, rows=rows)
+        # the routed pull of the pass's first batch against the gathered
+        # table, bit for bit (the checking launches count nowhere)
+        ws = tr.last_ws
+        pb = tr._local_batch(next(iter(ds.batches(B, drop_last=True))))
+        idx_np = ws.translate(pb.ids, pb.mask)
+        idx = torch.from_numpy(idx_np).to(mesh.device)
+        full = mesh.all_gather(ws.table.contiguous())
+        plan = sharded.map_plan(tr.host_plan(ws, idx_np),
+                                lambda a: torch.from_numpy(a).to(
+                                    mesh.device))
+        ecfg = store.cfg
+        if tr.pull_engine == "fused_gather_pool":
+            got = exchange.routed_pull_pooled(
+                ws.table, idx, ecfg, mesh, mesh.axis_names, S,
+                lay.max_len, tr.cfg.capacity_factor, plan=plan)
+            want = sharded.fused_pull_pool(full, idx, ecfg, S, lay.max_len)
+        elif layout == "sharded":
+            got = exchange.routed_pull(ws.table, idx.reshape(-1), ecfg,
+                                       mesh, mesh.axis_names,
+                                       tr.cfg.capacity_factor, plan=plan)
+            want = sharded.lookup(full, idx.reshape(-1), ecfg)
+        else:
+            got = sharded.routed_lookup(ws.table, idx.reshape(-1), ecfg,
+                                        mesh, mesh.axis_names,
+                                        tr.cfg.capacity_factor, dedup=True)
+            want = sharded.lookup(full, idx.reshape(-1), ecfg)
+        run["pull_bit_equal"] = bool(torch.equal(got, want))
+        run["pull_checked"] = int(got.numel())
+        del full
+        # the routed step's share of the device's busy time
+        reset_counts(kernels)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p_out = tr.train_pass(ds)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not e.key.startswith(("Memcpy", "Memset")))
+        run["busy_ms_step"] = busy / 1e3 / p_out["steps"]
+        run["profiled_step_ms"] = (p_out["step_seconds"] / p_out["steps"]
+                                   * 1e3)
+        info["runs"][name] = run
+        del store, tr, ds, ws
+        torch.cuda.empty_cache()
+    flags.table_layout = "auto"
+    with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def world2_gloo(torch, kernels, card, total: dict) -> None:
+    """(b) two ranks on this card over gloo (MESH_RUNS), each held to a
+    one-rank run of the same global batches."""
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.distributed.launch import launch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        code = launch(MESH_WORLD, [sys.executable, os.path.abspath(__file__),
+                                   "--mesh-worker", d],
+                      store_dir=os.path.join(d, "store"),
+                      base_env={"PBTPU_EXCHANGE_WIRE": "f32",
+                                "GLOO_SOCKET_IFNAME": "lo"},
+                      timeout_s=600, local_ranks=[0] * MESH_WORLD)
+        check(code == 0, f"(b) a rank of the world of {MESH_WORLD} exited "
+              f"{code}")
+        t_world = time.perf_counter() - t0
+        infos = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                infos.append(json.load(f))
+        print(f"  (b) world {MESH_WORLD} on one card over gloo: "
+              f"{t_world:.1f} s for the world (start, data, "
+              f"{len(MESH_RUNS)} x 2 passes a rank)")
+        for layout, lay in MESH_RUNS:
+            name = f"{layout}_{lay.name}"
+            runs = [i["runs"][name] for i in infos]
+            want_k = ({"gather_pool": lay.steps,
+                       "scatter_accumulate": lay.steps}
+                      if layout == "sharded" and lay is MULTI else
+                      {"scatter_accumulate": lay.steps}
+                      if layout == "sharded" else
+                      {"binned_merge_acc": lay.steps,
+                       "merge_update": lay.steps})
+            for r, run in enumerate(runs):
+                add_counts(total, run["launches"])
+                expect_launches(f"(b) {name} rank {r}", run["launches"],
+                                want_k)
+                check(run["dropped"] == 0 and run["steps"] == lay.steps,
+                      f"(b) {name} rank {r}: dropped {run['dropped']}, "
+                      f"steps {run['steps']}")
+                check(run["pull_bit_equal"], f"(b) {name} rank {r}: the "
+                      f"routed pull differs from the gathered table's")
+                check(run["table_layout"] == layout, f"(b) {name}: layout "
+                      f"{run['table_layout']}")
+                check(not infos[r]["jax_loaded"], "(b) a rank loaded jax")
+            check(runs[0]["loss_mean"] == runs[1]["loss_mean"],
+                  f"(b) {name}: the ranks' world losses differ")
+            # the one-rank run of the same global batches
+            flags.table_layout = "auto"
+            store, tr, ds = mesh_trainer(torch, lay)
+            ref = tr.train_pass(ds)
+            keys = np.concatenate([np.load(os.path.join(
+                d, f"rank{r}_{name}.npz"))["keys"]
+                for r in range(MESH_WORLD)])
+            rows = np.concatenate([np.load(os.path.join(
+                d, f"rank{r}_{name}.npz"))["rows"]
+                for r in range(MESH_WORLD)])
+            check(len(np.unique(keys)) == len(keys) == len(store),
+                  f"(b) {name}: the shards hold {len(keys)} keys, the "
+                  f"one-rank store {len(store)}")
+            np.testing.assert_allclose(
+                [runs[0]["loss_first"], runs[0]["loss_mean"]],
+                [ref["loss_first"], ref["loss_mean"]], **LOSS_TOL)
+            want_rows = store.get_rows(keys)
+            np.testing.assert_allclose(rows, want_rows, **TABLE_TOL)
+            err = float(np.abs(rows - want_rows).max())
+            del store, tr, ds
+            torch.cuda.empty_cache()
+            for r, run in enumerate(runs):
+                ex = ("" if layout != "sharded" else
+                      f" (exchange counters: pull "
+                      f"{run['exchange_pull_bytes'] / run['steps']:.0f} + "
+                      f"push {run['exchange_push_bytes'] / run['steps']:.0f}"
+                      f" B/step, {run['exchange_unique_lanes']} unique "
+                      f"lanes of {run['exchange_tokens']} tokens)")
+                share = run["busy_ms_step"] / run["profiled_step_ms"]
+                print(f"  (b) {name}, rank {r} of {MESH_WORLD} ({card}): "
+                      f"step {run['step_ms']:.3f} ms | launches "
+                      f"{run['launches']} | dropped {run['dropped']} | "
+                      f"all-to-all {run['a2a_bytes_step']:.0f} B/step in "
+                      f"{run['a2a_calls_step']:g} calls{ex} | gloo "
+                      f"exchange {run['gloo_ms_step']:.3f} ms/step "
+                      f"(host-staged through pinned memory: no NCCL "
+                      f"number) | device busy {run['busy_ms_step']:.3f} "
+                      f"of {run['profiled_step_ms']:.3f} ms/step "
+                      f"(profiled pass): routed step's share {share:.3f} "
+                      f"| pull {run['pull_engine']}, push "
+                      f"{run['push_engine']}, wire {run['wire']}")
+            print(f"  (b) {name}: routed pull bit-equal to the gathered "
+                  f"table's ({runs[0]['pull_checked']} values a rank) | "
+                  f"0 dropped | world loss mean {runs[0]['loss_mean']:.6f} "
+                  f"vs one rank {ref['loss_mean']:.6f} within LOSS_TOL | "
+                  f"{len(keys)} rows within TABLE_TOL of one rank's (max "
+                  f"abs diff {err:.3g}) ok")
+
+
+def mesh_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 15. Returns the launches of every kernel over the phase's
+    training passes (world 2: both ranks')."""
+    print(f"== the mesh ({card}): DeepFM, {B} x {S} slots, world 1 over "
+          f"nccl, world {MESH_WORLD} over gloo on one card")
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    world1_nccl(torch, kernels, card, total)
+    t1 = time.perf_counter()
+    world2_gloo(torch, kernels, card, total)
+    print(f"launches in phase 15: {total} | seconds: world 1 "
+          f"{t1 - t0:.1f}, world {MESH_WORLD} {time.perf_counter() - t1:.1f}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4019,16 +4373,18 @@ def main() -> int:
     storage = storage_phase(torch, kernels, card, onehot_pass)
     monitored = monitor_phase(torch, kernels, card)
     dispatched = dispatch_phase(torch, kernels, card)
+    meshed = mesh_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
         r["phase12_launches"] = storage.get(r["name"], 0)
         r["phase13_launches"] = monitored.get(r["name"], 0)
         r["phase14_launches"] = dispatched.get(r["name"], 0)
+        r["phase15_launches"] = meshed.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "phase11_launches", "phase12_launches", "phase13_launches",
-            "phase14_launches")
+            "phase14_launches", "phase15_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -4042,4 +4398,6 @@ if __name__ == "__main__":
         sys.exit(midpass_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--remote-worker"]:
         sys.exit(remote_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -43,6 +43,34 @@ class Flags:
     # token streams on the card to binned_kernel only while this is set
     # (a forced flags.push_engine="binned_kernel" ignores it)
     binned_push: bool = True
+    # the mesh's embedding exchange (embedding/sharded.py, exchange.py;
+    # train.trainer.Trainer._select_table_layout): "auto" = "sharded" on
+    # a multi-rank mesh on the card, "single" elsewhere; "sharded" forced
+    # on one shard raises
+    table_layout: str = "auto"
+    # FLAGS_enable_pullpush_dedup_keys: merge duplicate tokens before the
+    # routed all-to-all (the "single" layout's device dedup, and the
+    # capacity preplan's unique-token count)
+    pullpush_dedup_keys: bool = True
+    # push-payload wire of the sharded exchange: "auto" (bf16; int8 for
+    # int8 tables) | "f32" (exact, the parity baseline) | "bf16" | "int8";
+    # show/clk always cross f32
+    exchange_wire: str = "auto"
+    # the push all-to-all's decomposition: "auto" (hier on a (node, dp)
+    # mesh with both axes > 1) | "flat" | "hier"
+    exchange_topology: str = "auto"
+    # starting capacity factor of the sharded exchange (0 = keep
+    # TrainerConfig.capacity_factor)
+    exchange_capacity_factor: float = 0.0
+    # per-pass wire adaptation (exchange.WireController), opt-in
+    exchange_adaptive: bool = False
+    # routed capacity overflow: never silent. fatal raises at pass end;
+    # adapt doubles the capacity factor for the next pass (up to the shard
+    # count, which cannot drop); preplan sizes the factor from the pass's
+    # own token histogram before the first step
+    routed_drop_fatal: bool = False
+    routed_drop_adapt: bool = True
+    routed_capacity_preplan: bool = True
     # PassCheckpointer retention: snapshots kept (at least 2, so a torn
     # newest one has a predecessor to fall back to)
     ckpt_keep_last_n: int = 3

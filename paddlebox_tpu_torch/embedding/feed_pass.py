@@ -1,5 +1,5 @@
 """Incremental, overlapped pass boundary — the port of ``FeedPassManager``
-(``paddlebox_tpu/embedding/feed_pass.py``) for one device.
+(``paddlebox_tpu/embedding/feed_pass.py``).
 
 - **Resident reuse.** The previous pass's device table is retained; the
   next pass's table is built on the device from it (one ``index_select``
@@ -53,8 +53,20 @@ emitted from the thread that did the work (the feed thread is spawned
 through ``monitor.context``, so they carry the pass's tags). The
 ``last_*`` attributes carry the same numbers for the last boundary.
 
-Not carried (each raises ``NotImplementedError`` naming its ROADMAP
-item): a device mesh and per-host shard ownership (queue 1 item 6).
+- **The mesh** (``mesh=``, a ``parallel.mesh.Mesh`` of several ranks).
+  Every rank is given the pass-wide key set and builds a
+  ``working_set.ShardLayout`` from it (the same on every rank): the
+  keys this rank owns (``working_set.key_owners``) become its shard,
+  built, reused across passes and written back exactly as one device's
+  working set, and the pass-wide index translates every rank's batch
+  slice to global rows. ``end_pass`` ORs the ranks' touch marks
+  (``PassWorkingSet.sync_touched``), a collective every rank makes at
+  the same point. ``ownership=`` (a ``distributed.ShardOwnership``)
+  makes a rank own its store shards' keys; without one a key's rank is
+  its splitmix64 hash mod the world. Without a mesh, an ownership
+  filters every key set to the owned keys, as in the JAX package (a
+  host builds 1/world of the global set). ``set_ownership`` rebinds it:
+  pending rows flush and the resident set drops.
 """
 
 from __future__ import annotations
@@ -71,9 +83,11 @@ from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding import quant, tiering
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
+                                                       ShardLayout,
                                                        bucket_size,
                                                        embedx_compressed,
                                                        fetch_rows,
+                                                       key_owners,
                                                        upload_rows)
 from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.monitor import counter_add as stat_add
@@ -102,7 +116,7 @@ class _Staging:
 
     __slots__ = ("keys", "pos_prev", "fresh_dev", "n_fresh", "h2d_bytes",
                  "prev", "store_gen", "full_ws", "timings", "marker",
-                 "patch_keys", "n_stale", "replica_hits")
+                 "patch_keys", "n_stale", "replica_hits", "n_rows")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -115,17 +129,17 @@ class FeedPassManager:
     def __init__(self, store: HostEmbeddingStore,
                  device: str | torch.device | None = None,
                  min_rows: int = 8, mesh=None, ownership=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FeedPassManager(mesh=...): multi-device tables are not "
-                "ported yet (ROADMAP, queue 1 item 6)")
-        if ownership is not None:
-            raise NotImplementedError(
-                "FeedPassManager(ownership=...): per-host shard ownership "
-                "is not ported yet (ROADMAP, queue 1 item 6)")
         self.store = store
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.min_rows = min_rows
+        # the mesh this manager's table shards over (None: one device, or
+        # a world of one, which lays out exactly as one device), and the
+        # per-host shard ownership (None: the hash partition on a mesh,
+        # every key without one)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.ownership = ownership
         # the H2D copies of staged rows run here, off the training stream
         self._side = (torch.cuda.Stream(device=self.device)
                       if self.device.type == "cuda" else None)
@@ -179,6 +193,26 @@ class FeedPassManager:
         self.last_replica_hits = 0
 
     # -- helpers -----------------------------------------------------------
+
+    def _layout(self, keys: np.ndarray):
+        """(this rank's keys, the pass's ShardLayout or None) for a
+        sorted unique key set."""
+        if self.mesh is None:
+            o = self.ownership
+            if o is None or o.owns_all():
+                return keys, None
+            return o.filter_keys(self.store, keys), None
+        m = self.mesh
+        lay = ShardLayout(keys, key_owners(keys, m.world, self.store,
+                                           self.ownership),
+                          m.world, m.rank, self.min_rows)
+        return lay.local_keys, lay
+
+    @staticmethod
+    def _attach(ws: PassWorkingSet, layout) -> PassWorkingSet:
+        if layout is not None:
+            ws.attach_layout(layout)
+        return ws
 
     def _stale_since(self, marker) -> np.ndarray | None:
         """Keys whose store bytes changed since ``marker`` (empty =
@@ -250,6 +284,8 @@ class FeedPassManager:
         store lock), and copies the fresh rows on the manager's stream."""
         self.wait_feed_pass_done()        # one feed in flight at a time
         keys = sorted_unique(np.asarray(keys).astype(np.uint64))
+        keys, layout = self._layout(keys)
+        n_rows = None if layout is None else layout.rows_per_shard
         prev, stale = self._resolve_reuse()
         gen = self.store.mutation_count
         marker = self._marker_now()
@@ -257,7 +293,7 @@ class FeedPassManager:
         def run():
             try:
                 self._staged = self._stage(keys, prev, gen, marker=marker,
-                                           stale_keys=stale)
+                                           stale_keys=stale, n_rows=n_rows)
             except BaseException as e:    # re-raised at the join
                 self._feed_error = e
 
@@ -278,12 +314,14 @@ class FeedPassManager:
 
     def _stage(self, keys: np.ndarray, prev: PassWorkingSet | None,
                gen: int, marker=None, stale_keys: np.ndarray | None = None,
-               test_mode: bool = False) -> _Staging:
+               test_mode: bool = False, n_rows: int | None = None
+               ) -> _Staging:
         """Diff ``keys`` against ``prev`` and put the fresh rows on the
         device; with prev=None, stage the full build instead.
         ``stale_keys`` (the incremental delta feed) are resident keys
         whose store bytes changed since retain: they re-fetch with the
-        fresh rows. Runs on the feed thread or synchronously."""
+        fresh rows. ``n_rows``: the table's rows (a mesh shard's
+        rows_per_shard). Runs on the feed thread or synchronously."""
         cfg = self.store.cfg
         fault0 = tiering.fault_in_seconds(self.store)
         if prev is None:
@@ -293,18 +331,18 @@ class FeedPassManager:
                     ws = PassWorkingSet.begin_pass(
                         self.store, keys, self.device,
                         min_rows=self.min_rows, test_mode=test_mode,
-                        timing_out=timing)
+                        timing_out=timing, n_rows=n_rows)
             else:
                 ws = PassWorkingSet.begin_pass(
                     self.store, keys, self.device, min_rows=self.min_rows,
-                    test_mode=test_mode, timing_out=timing)
+                    test_mode=test_mode, timing_out=timing, n_rows=n_rows)
             timing["spill_fault_in"] = (tiering.fault_in_seconds(self.store)
                                         - fault0)
             return _Staging(keys=ws.sorted_keys, prev=None, store_gen=gen,
                             marker=marker, full_ws=ws,
                             n_fresh=len(ws.sorted_keys),
                             h2d_bytes=ws.h2d_bytes, timings=timing,
-                            replica_hits=0)
+                            replica_hits=0, n_rows=n_rows)
         t0 = time.perf_counter()
         pos = prev._tindex.lookup(keys)            # -1 = fresh
         n_stale = 0
@@ -371,7 +409,8 @@ class FeedPassManager:
                         n_fresh=n_fresh, n_stale=n_stale, h2d_bytes=nbytes,
                         prev=prev, store_gen=gen, marker=marker,
                         full_ws=None, timings=timing,
-                        replica_hits=0 if served is None else served.n)
+                        replica_hits=0 if served is None else served.n,
+                        n_rows=n_rows)
 
     # -- pass lifecycle ----------------------------------------------------
 
@@ -385,11 +424,13 @@ class FeedPassManager:
         retained table, and are not retained themselves."""
         t0 = time.perf_counter()
         keys = sorted_unique(np.asarray(keys).astype(np.uint64))
+        keys, layout = self._layout(keys)
+        n_rows = None if layout is None else layout.rows_per_shard
         # join + resolve once: mutations happen only on this thread, so
         # the stale set cannot change between here and the consume below
         self.wait_feed_pass_done()
         prev, stale = self._resolve_reuse()
-        staged = self._take_staging(keys, test_mode, prev)
+        staged = self._take_staging(keys, test_mode, prev, n_rows)
         if prev is None and self._current is not None:
             # the store mutated beyond what the stale log can prove: the
             # external state wins, stale device rows must not leak back
@@ -414,13 +455,13 @@ class FeedPassManager:
             self.last_replica_hits = 0
             if not self._eager:
                 self._retain(ws)
-            return ws
+            return self._attach(ws, layout)
         if prev is None:
             timing: dict = {}
             fault0 = tiering.fault_in_seconds(self.store)
             ws = PassWorkingSet.begin_pass(
                 self.store, keys, self.device, min_rows=self.min_rows,
-                test_mode=test_mode, timing_out=timing)
+                test_mode=test_mode, timing_out=timing, n_rows=n_rows)
             timing["spill_fault_in"] = (tiering.fault_in_seconds(self.store)
                                         - fault0)
             self._account_begin(ws.h2d_bytes, 0, len(ws.sorted_keys), 0, t0,
@@ -428,10 +469,11 @@ class FeedPassManager:
             self.last_replica_hits = 0
             if not test_mode and not self._eager:
                 self._retain(ws)
-            return ws
+            return self._attach(ws, layout)
         if staged is None:
             staged = self._stage(keys, prev, self.store.mutation_count,
-                                 stale_keys=stale, test_mode=test_mode)
+                                 stale_keys=stale, test_mode=test_mode,
+                                 n_rows=n_rows)
         d2h = 0
         if not test_mode:
             d2h = self._writeback_retiring(prev, keys)
@@ -445,7 +487,7 @@ class FeedPassManager:
         self.last_replica_hits = int(staged.replica_hits or 0)
         if not test_mode:
             self._retain(ws, carried)
-        return ws
+        return self._attach(ws, layout)
 
     def _apply_patch(self, ws: PassWorkingSet,
                      patch_keys: np.ndarray | None,
@@ -560,7 +602,8 @@ class FeedPassManager:
         return nbytes
 
     def _take_staging(self, keys: np.ndarray, test_mode: bool,
-                      prev: PassWorkingSet | None) -> _Staging | None:
+                      prev: PassWorkingSet | None,
+                      n_rows: int | None = None) -> _Staging | None:
         """Consume the background staging if it matches ``keys`` against
         the caller-resolved resident set."""
         staged, self._staged = self._staged, None
@@ -574,6 +617,8 @@ class FeedPassManager:
         if (len(staged.keys) != len(keys)
                 or not np.array_equal(staged.keys, keys)):
             return None                   # preloaded keys don't match
+        if staged.n_rows != n_rows:
+            return None                   # another shard geometry
         if staged.prev is not prev:
             # the resident set the staging diffed against is gone
             return None
@@ -597,7 +642,8 @@ class FeedPassManager:
         keys = staged.keys
         pos = staged.pos_prev
         k = len(keys)
-        n_rows = max(self.min_rows, k + 1)
+        n_rows = (max(self.min_rows, k + 1) if staged.n_rows is None
+                  else staged.n_rows)
         resident = pos >= 0
         src = np.zeros(n_rows, np.int64)       # fresh and tail rows: row 0
         src[1:1 + k][resident] = pos[resident] + 1
@@ -629,6 +675,9 @@ class FeedPassManager:
         t0 = time.perf_counter()
         if table is not None:
             ws.table = table
+        if self.mesh is not None:
+            # rows other ranks' batches touched on this shard
+            ws.sync_touched(self.mesh)
         if self._eager:
             nbytes = ws.end_pass(self.store)
             if self._replica is not None:
@@ -659,10 +708,17 @@ class FeedPassManager:
         self._replica = replica
 
     def set_ownership(self, ownership) -> None:
-        if ownership is not None:
-            raise NotImplementedError(
-                "per-host shard ownership is not ported yet (ROADMAP, "
-                "queue 1 item 6)")
+        """Bind or rebind the per-host shard ownership. On a rebind the
+        pending device rows flush and the resident working set drops, so
+        the next ``begin_pass`` builds exactly the newly owned shards'
+        keys; an equal partition keeps the resident set."""
+        if ownership is self.ownership or ownership == self.ownership:
+            self.ownership = ownership
+            return
+        self.wait_feed_pass_done()
+        if self._current is not None or self._staged is not None:
+            self.drop()
+        self.ownership = ownership
 
     def register_pre_flush(self, method) -> None:
         """Run a bound method at the start of flush(), before any row

@@ -23,7 +23,10 @@ batches carry int32 indices (0 = the all-zero null/padding row).
   requant pass over its touched rows, which the reference runs in XLA
   with no Pallas kernel and the port in plain PyTorch.
 
-The routed multi-shard path is not ported yet (ROADMAP, multi-GPU).
+- ``routed_lookup`` / ``routed_push`` — the routed multi-shard core
+  (the token-level "single" table layout) over a ``parallel.mesh.Mesh``,
+  with ``dedup_tokens``, ``merge_sorted_runs`` and the capacity rule the
+  sharded exchange (``embedding/exchange.py``) shares.
 """
 
 from __future__ import annotations
@@ -304,3 +307,225 @@ def _merge_update(table, idx: torch.Tensor, grads: torch.Tensor,
                                              n_rows)
         kernels.merge_update(table, acc, cfg)
     return engine
+
+
+# ---------------------------------------------------------------------------
+# the routed (multi-shard) path: the "single" table layout
+# ---------------------------------------------------------------------------
+#
+# Each rank holds one contiguous shard of the working-set table (rows
+# [rank * rps, (rank + 1) * rps), ``parallel.mesh.Mesh.table_rows``) and
+# routes its tokens to the owning shards with a fixed-capacity tiled
+# all-to-all over the mesh (JAX ``sharded.py:413-663``; there the same
+# functions run inside ``shard_map``, here on every rank's process).
+
+def _capacity(n: int, n_shards: int, factor: float) -> int:
+    """Lanes per destination for ``n`` routed tokens: ``ceil(n * factor
+    / n_shards)`` on Python floats, clipped to [1, n] — the JAX
+    package's formula to the bit, so preplanned factors and drop counts
+    agree."""
+    return max(1, min(n, int(-(-n * factor // n_shards))))
+
+
+def _route(idx: torch.Tensor, rows_per_shard: int, n_shards: int,
+           cap: int):
+    """The fixed-capacity routing plan of a flat token vector: (order,
+    sorted_owner, pos, valid, send_idx), ``send_idx`` the (n_shards, cap)
+    per-destination index buffer (-1 = empty lane). Tokens past a
+    destination's capacity are dropped (``routed_dropped`` counts them).
+    NULL_INDEX tokens are never routed: every consumer synthesizes the
+    zero row locally, and on row 0's shard they would crowd out real
+    tokens."""
+    owner = torch.where(idx == NULL_INDEX, n_shards,
+                        torch.div(idx, rows_per_shard, rounding_mode="floor"))
+    return _route_owner(idx, owner.long(), n_shards, cap)
+
+
+def _route_owner(idx: torch.Tensor, owner: torch.Tensor, n_groups: int,
+                 cap: int):
+    """The routing-plan core with the destination group given; group
+    ``n_groups`` (and any above it) is the drop group. The sort is
+    stable, so within a group tokens keep their input order — ascending
+    input gives ascending per-destination runs, which the receive side's
+    D-way merge rests on."""
+    n = idx.shape[0]
+    dev = idx.device
+    sowner, order = torch.sort(owner, stable=True)
+    sidx = idx.index_select(0, order)
+    counts = torch.bincount(owner, minlength=n_groups + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n, device=dev) - starts.index_select(0, sowner)
+    valid = (pos < cap) & (sowner < n_groups)
+    send_idx = torch.full((n_groups * cap,), -1, dtype=idx.dtype,
+                          device=dev)
+    lane = sowner * cap + pos
+    send_idx[lane[valid]] = sidx[valid]
+    return order, sowner, pos, valid, send_idx.reshape(n_groups, cap)
+
+
+def _scatter_lanes(payload: torch.Tensor, sowner: torch.Tensor,
+                   pos: torch.Tensor, valid: torch.Tensor, n_groups: int,
+                   cap: int) -> torch.Tensor:
+    """(n, w) payload in routed order → the (n_groups, cap, w) send
+    buffer (zeros in empty lanes)."""
+    out = payload.new_zeros((n_groups * cap, payload.shape[1]))
+    out[(sowner * cap + pos)[valid]] = payload[valid]
+    return out.reshape(n_groups, cap, payload.shape[1])
+
+
+def routed_lookup(table_shard, idx: torch.Tensor, cfg: EmbeddingConfig,
+                  mesh, axes, capacity_factor: float = 2.0,
+                  dedup: bool = False, return_dropped: bool = False):
+    """Distributed gather over the mesh (JAX ``routed_lookup``).
+
+    table_shard : this rank's (rows_per_shard, W) shard (or QuantTable)
+    idx         : (n,) int32 *global* working-set indices of this rank's
+                  tokens
+    dedup       : route each unique token once and re-expand after the
+                  gather (FLAGS_enable_pullpush_dedup_keys)
+    return_dropped : also return this rank's count of real tokens that
+                  overflowed a destination's capacity (exact, from the
+                  plan's valid mask; a device scalar, no host sync)
+    The owner gathers with ``lookup`` (gating and the quantized table's
+    dequantization there), so the received rows are final. Returns (n,
+    pull_width), or (out, dropped)."""
+    n = idx.shape[0]
+    D = mesh.axis_size(axes)
+    if D == 1:
+        out = lookup(table_shard, idx, cfg)
+        zero = torch.zeros((), dtype=torch.int64, device=idx.device)
+        return (out, zero) if return_dropped else out
+    if dedup:
+        uniq, inverse = dedup_tokens(idx)
+        res = routed_lookup(table_shard, uniq, cfg, mesh, axes,
+                            capacity_factor, return_dropped=return_dropped)
+        if return_dropped:
+            return res[0].index_select(0, inverse), res[1]
+        return res.index_select(0, inverse)
+    rps = quant.table_rows(table_shard)
+    cap = _capacity(n, D, capacity_factor)
+    P = cfg.pull_width
+    order, sowner, pos, valid, send_idx = _route(idx, rps, D, cap)
+    recv_idx = mesh.all_to_all(send_idx, axes)
+    lane_ok = recv_idx >= 0
+    local_row = torch.where(lane_ok, recv_idx % rps, 0)
+    vals = lookup(table_shard, local_row.reshape(-1), cfg).reshape(D, cap, P)
+    vals = torch.where(lane_ok[:, :, None], vals, 0.0)
+    back = mesh.all_to_all(vals, axes).reshape(D * cap, P)
+    # the drop group's tokens read a clamped lane, then zero by `valid`
+    lane = sowner.clamp(max=D - 1) * cap + pos.clamp(max=cap - 1)
+    gathered = torch.where(valid[:, None], back.index_select(0, lane), 0.0)
+    out = gathered.new_zeros((n, P))
+    out[order] = gathered
+    if return_dropped:
+        return out, ((~valid) & (sowner < D)).sum()
+    return out
+
+
+def routed_push(table_shard, idx: torch.Tensor, grads: torch.Tensor,
+                shows: torch.Tensor, clks: torch.Tensor,
+                cfg: EmbeddingConfig, mesh, axes,
+                capacity_factor: float = 2.0, dedup: bool = False,
+                plan=None) -> str:
+    """Distributed merge-update (the reverse of ``routed_lookup``), in
+    place on this rank's shard; returns the engine the owner ran.
+
+    ``dedup`` merges per-token payloads onto unique tokens before
+    routing (masked tokens carry zero payloads, so their merge onto the
+    null lane is a no-op). ``plan`` applies on one shard only: tokens
+    after the all-to-all have no host plan. Received empty lanes go to
+    the out-of-range local row ``rps`` and are dropped by the push — on
+    row 0 (a real row on every shard but the first) adam would decay an
+    untouched row's moments."""
+    n = idx.shape[0]
+    D = mesh.axis_size(axes)
+    if D == 1:
+        return push(table_shard, idx, grads, shows, clks, cfg, plan=plan)
+    gw = cfg.grad_width
+    if dedup:
+        uniq, inverse = dedup_tokens(idx)
+        payload = torch.cat([grads, shows[:, None], clks[:, None]], dim=1)
+        merged = payload.new_zeros((n, gw + 2)).index_add_(0, inverse,
+                                                           payload)
+        return routed_push(table_shard, uniq, merged[:, :gw],
+                           merged[:, gw], merged[:, gw + 1], cfg, mesh,
+                           axes, capacity_factor)
+    rps = quant.table_rows(table_shard)
+    cap = _capacity(n, D, capacity_factor)
+    order, sowner, pos, valid, send_idx = _route(idx, rps, D, cap)
+    payload = torch.cat([grads, shows[:, None], clks[:, None]],
+                        dim=1).index_select(0, order)
+    send_pay = _scatter_lanes(payload, sowner, pos, valid, D, cap)
+    flat_idx = mesh.all_to_all(send_idx, axes).reshape(-1)
+    flat_pay = mesh.all_to_all(send_pay, axes).reshape(-1, gw + 2)
+    empty = flat_idx < 0
+    local_row = torch.where(empty, rps, flat_idx % rps).to(torch.int32)
+    flat_pay = torch.where(empty[:, None], 0.0, flat_pay)
+    return push(table_shard, local_row, flat_pay[:, :gw], flat_pay[:, gw],
+                flat_pay[:, gw + 1], cfg)
+
+
+def routed_dropped(idx: torch.Tensor, rows_per_shard: int, n_shards: int,
+                   capacity_factor: float = 2.0) -> torch.Tensor:
+    """Tokens that exceed per-destination capacity (monitoring); null
+    tokens are not routed and do not count."""
+    n = idx.shape[0]
+    cap = _capacity(n, n_shards, capacity_factor)
+    owner = torch.where(idx == NULL_INDEX, n_shards,
+                        torch.div(idx, rows_per_shard, rounding_mode="floor"))
+    counts = torch.bincount(owner.long(), minlength=n_shards + 1)[:n_shards]
+    return (counts - cap).clamp(min=0).sum()
+
+
+# ---------------------------------------------------------------------------
+# dedup (FLAGS_enable_pullpush_dedup_keys, flags.cc:603)
+# ---------------------------------------------------------------------------
+
+def _segments(sorted_vals: torch.Tensor) -> torch.Tensor:
+    """Segment id per position of an ascending vector."""
+    is_start = torch.ones_like(sorted_vals, dtype=torch.bool)
+    is_start[1:] = sorted_vals[1:] != sorted_vals[:-1]
+    return torch.cumsum(is_start.to(torch.int64), 0) - 1
+
+
+def dedup_tokens(idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-capacity unique: (unique_idx, inverse), the unused tail of
+    unique_idx NULL_INDEX — ``lookup(t, unique_idx)[inverse] ==
+    lookup(t, idx)`` (the reference's DedupKeysAndFillIdx,
+    box_wrapper_impl.h:103). The sort is stable, as JAX's argsort."""
+    n = idx.shape[0]
+    sidx, order = torch.sort(idx, stable=True)
+    seg = _segments(sidx)
+    unique_idx = idx.new_zeros(n)
+    unique_idx[seg] = sidx
+    inverse = torch.empty(n, dtype=torch.int64, device=idx.device)
+    inverse[order] = seg
+    return unique_idx, inverse
+
+
+def merge_sorted_runs(runs: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dedup_tokens(runs.reshape(-1))`` — the same outputs, bit for
+    bit — for a (D, L) batch of row-wise ascending runs, without the
+    global sort: each element's sorted rank is its position in its run
+    plus, per other run, a binary search (right side for earlier runs,
+    left for later ones, so equal values count only from earlier runs —
+    the stable sort's order)."""
+    D, L = runs.shape
+    n = D * L
+    ranks = []
+    for r in range(D):
+        acc = torch.arange(L, device=runs.device)
+        for r2 in range(D):
+            if r2 != r:
+                acc = acc + torch.searchsorted(runs[r2], runs[r],
+                                               right=r2 < r)
+        ranks.append(acc)
+    rank = torch.stack(ranks).reshape(-1)
+    flat = runs.reshape(-1)
+    sorted_vals = torch.empty_like(flat)
+    sorted_vals[rank] = flat
+    seg = _segments(sorted_vals)
+    unique_idx = flat.new_zeros(n)
+    unique_idx[seg] = sorted_vals
+    return unique_idx, seg.index_select(0, rank)

@@ -45,6 +45,12 @@ through ``_save_base_payload`` / ``_save_delta_payload`` (:435-446), so
 the disk spill tier (``spill_store.SpillEmbeddingStore``) swaps the row
 array for a memory-mapped file under a RAM cache and streams its
 payloads, with everything else inherited.
+
+``ShardedEmbeddingStore`` (reference :680-990) is the hash-partitioned
+host tier over N such stores: shard ``s`` owns the keys whose splitmix64
+hash lands on it, keeps its own chain under ``shard-SS/``, and a
+``shards.json`` manifest committed last records the chain positions a
+restore replays to.
 """
 
 from __future__ import annotations
@@ -644,3 +650,336 @@ class HostEmbeddingStore:
             # the next delta must carry it (restore clears the mask after
             # its replay, so the first post-load delta stays small)
             self._dirty[idx] = True
+
+
+# ---------------------------------------------------------------------------
+# ShardedEmbeddingStore — the host plane of the mesh-partitioned table
+# ---------------------------------------------------------------------------
+
+_SHARD_MANIFEST = "shards.json"
+
+
+def splitmix_shard(keys: np.ndarray, n: int) -> np.ndarray:
+    """Owner shard per key: the splitmix64 hash mod ``n`` (int64)."""
+    k = np.asarray(keys).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        z = k * np.uint64(0x9E3779B97F4A7C15)
+        z ^= z >> np.uint64(30)
+        z *= np.uint64(0xBF58476D1CE4E5B9)
+        z ^= z >> np.uint64(27)
+    return (z % np.uint64(n)).astype(np.int64)
+
+
+class ShardedEmbeddingStore:
+    """Hash-partitioned host tier over N sub-stores.
+
+    The role of libbox_ps's sharded HashTable on the HOST side: shard s
+    owns the keys whose splitmix64 hash lands on it (``shard_of`` — the
+    reference likewise shards by key hash), each shard is a full
+    :class:`HostEmbeddingStore` with its own base/delta chain under
+    ``shard-SS/``, and a top-level ``shards.json`` manifest — committed
+    LAST, atomically — records the per-shard chain positions a restore
+    replays to. A kill between DELTA shard saves (``exchange.store.
+    pre_shard_save``) or before the manifest commit (``exchange.store.
+    pre_manifest``) therefore rolls the whole save back: shards restore
+    at the manifest's recorded seqs and the orphaned newer delta files
+    are overwritten by the re-run — the same discipline as
+    ``save_delta``'s seq-commit. Re-saving a BASE into a directory that
+    already holds a chain carries the parent class's caveat verbatim
+    (see ``HostEmbeddingStore.save_base``): a kill in that window resets
+    the shard chains under a stale top manifest, which ``load`` detects
+    LOUDLY (``CheckpointCorruptError``) but cannot fall back from —
+    writers needing fall-back semantics must rotate to a fresh directory
+    per base, exactly what PassCheckpointer's chain rotation does.
+
+    Drop-in for the trainer stack: implements the host-store protocol
+    (lookup_or_init / peek_rows / write_back / get_rows / flush hooks /
+    mutation_count), so FeedPassManager's resident reuse and
+    PassWorkingSet's working-set build run unchanged. Per-shard chains
+    are the unit ``distributed.ShardOwnership`` hands to the mesh's
+    ranks — shard s's directory is self-contained.
+
+    ``store_factory`` selects each sub-store's storage tier — signature
+    ``(cfg, initial_capacity, shard) -> store`` — so shards can be
+    disk-backed ``spill_store.SpillEmbeddingStore``s (the BoxPS SSD tier;
+    ``tiering.shard_store_factory`` reads ``flags.table_tiering``). The
+    default keeps the in-RAM HostEmbeddingStore.
+    """
+
+    _GROW = HostEmbeddingStore._GROW
+    supports_resident_reuse = True
+
+    def __init__(self, cfg: EmbeddingConfig, n_shards: int,
+                 initial_capacity: int = 1024, store_factory=None):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.cfg = cfg
+        self.n_shards = int(n_shards)
+        if store_factory is None:
+            def store_factory(cfg, cap, shard):
+                return HostEmbeddingStore(cfg, cap)
+        self.store_factory = store_factory
+        self._shards = [store_factory(cfg, initial_capacity, s)
+                        for s in range(self.n_shards)]
+        self._save_seq = 0
+        self._save_count = 0
+        self._flush_hooks: list = []
+        # the BoxPS whose open pass runs the tier work (as the
+        # HostEmbeddingStore's)
+        self.boundary_owner = None
+
+    # ---- partition ----
+
+    def shard_of(self, keys: np.ndarray) -> np.ndarray:
+        """Owner shard per key: splitmix64 hash mod n — the reference
+        shards its HashTable by key hash, which stays balanced for ANY
+        sign distribution (feature signs are slot-salted in the low
+        bits, so a range partition would degenerate). Stable across
+        passes and independent of the per-pass device-table layout."""
+        return splitmix_shard(keys, self.n_shards)
+
+    def _fan_out(self, keys: np.ndarray):
+        keys = np.asarray(keys).astype(np.uint64)
+        owner = self.shard_of(keys)
+        for s in range(self.n_shards):
+            pos = np.flatnonzero(owner == s)
+            if len(pos):
+                yield s, pos, keys[pos]
+
+    # ---- host-store protocol (fan-out + reassemble in input order) ----
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self._shards)
+
+    @property
+    def mutation_count(self) -> int:
+        return sum(s.mutation_count for s in self._shards)
+
+    def mutation_marker(self):
+        """Per-shard marker tuple — a summed count cannot be decomposed
+        back into shard cursors, so the marker carries each one."""
+        return tuple(s.mutation_marker() for s in self._shards)
+
+    def stale_keys_since(self, marker) -> np.ndarray | None:
+        """Union of every shard's stale keys since its marker; None if
+        any shard's log cannot prove completeness (full rebuild)."""
+        if not isinstance(marker, tuple) or len(marker) != self.n_shards:
+            return None
+        parts = []
+        for sub, m in zip(self._shards, marker):
+            k = sub.stale_keys_since(m)
+            if k is None:
+                return None
+            if len(k):
+                parts.append(k)
+        if not parts:
+            return _EMPTY_KEYS
+        return np.unique(np.concatenate(parts))
+
+    def prefetch_rows(self, keys: np.ndarray) -> int:
+        """Fan the madvise(WILLNEED)-style readahead out to spill-backed
+        shards (no-op rows for shards without a disk tier)."""
+        n = 0
+        for s, pos, sk in self._fan_out(keys):
+            fn = getattr(self._shards[s], "prefetch_rows", None)
+            if fn is not None:
+                n += fn(sk)
+        return n
+
+    @property
+    def save_seq(self) -> int:
+        return self._save_seq
+
+    @property
+    def save_count(self) -> int:
+        return self._save_count
+
+    def register_flush_hook(self, fn) -> None:
+        self._flush_hooks.append(fn)
+
+    def unregister_flush_hook(self, fn) -> None:
+        if fn in self._flush_hooks:
+            self._flush_hooks.remove(fn)
+
+    def has_flush_hooks(self) -> bool:
+        return bool(self._flush_hooks)
+
+    def keys(self) -> np.ndarray:
+        """Every shard's stored keys, shard by shard."""
+        return np.concatenate([s.keys() for s in self._shards])
+
+    def _run_flush_hooks(self) -> None:
+        for fn in list(self._flush_hooks):
+            fn()
+
+    def lookup_or_init(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.asarray(keys).astype(np.uint64)
+        out = np.empty((len(keys), self.cfg.row_width), np.float32)
+        for s, pos, sk in self._fan_out(keys):
+            out[pos] = self._shards[s].lookup_or_init(sk)
+        return out
+
+    def peek_rows(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.asarray(keys).astype(np.uint64)
+        out = np.empty((len(keys), self.cfg.row_width), np.float32)
+        for s, pos, sk in self._fan_out(keys):
+            out[pos] = self._shards[s].peek_rows(sk)
+        return out
+
+    def write_back(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        keys = np.asarray(keys).astype(np.uint64)
+        rows = np.asarray(rows, dtype=np.float32)
+        for s, pos, sk in self._fan_out(keys):
+            self._shards[s].write_back(sk, rows[pos])
+
+    def get_rows(self, keys: np.ndarray) -> np.ndarray:
+        self._run_flush_hooks()
+        keys = np.asarray(keys).astype(np.uint64)
+        out = np.empty((len(keys), self.cfg.row_width), np.float32)
+        for s, pos, sk in self._fan_out(keys):
+            out[pos] = self._shards[s].get_rows(sk)
+        return out
+
+    def shrink(self, min_show: float, decay: float = 1.0) -> int:
+        self._run_flush_hooks()
+        return sum(s.shrink(min_show, decay) for s in self._shards)
+
+    def export_serving(self) -> tuple[np.ndarray, np.ndarray]:
+        self._run_flush_hooks()
+        parts = [s.export_serving() for s in self._shards]
+        keys = np.concatenate([k for k, _ in parts]) if parts else \
+            np.zeros(0, np.uint64)
+        vals = (np.concatenate([v for _, v in parts])
+                if parts else np.zeros((0, self.cfg.pull_width), np.float32))
+        return keys, vals
+
+    # ---- checkpoint: per-shard chains + one top-level commit ----
+
+    def _shard_dir(self, path: str, s: int) -> str:
+        return self._shard_dir_static(path, s)
+
+    def _commit_manifest(self, path: str,
+                         pass_id: int | None = None) -> None:
+        meta = {
+            "n_shards": self.n_shards,
+            "save_seq": self._save_seq,
+            "pass_id": pass_id,
+            "row_width": self.cfg.row_width,
+            "shards": [{"save_seq": s.save_seq, "num_keys": len(s)}
+                       for s in self._shards],
+        }
+        with ckpt_lib.atomic_file(
+                os.path.join(path, _SHARD_MANIFEST)) as tmp:
+            with open(tmp, "w") as f:
+                json.dump(meta, f, indent=1)
+
+    def save_base(self, path: str, pass_id: int | None = None) -> str:
+        """Full snapshot: every shard's base chain, then the top-level
+        shard manifest LAST — the commit record a restore keys off."""
+        self._run_flush_hooks()
+        os.makedirs(path, exist_ok=True)
+        for s, sub in enumerate(self._shards):
+            faultpoint.hit("exchange.store.pre_shard_save")
+            sub.save_base(self._shard_dir(path, s), pass_id=pass_id)
+        self._save_seq = 0
+        self._save_count += 1
+        faultpoint.hit("exchange.store.pre_manifest")
+        self._commit_manifest(path, pass_id=pass_id)
+        return path
+
+    def save_delta(self, path: str, pass_id: int | None = None) -> str:
+        """Incremental save: per-shard deltas (each shard's own dirty
+        rows), manifest last. A shard with nothing dirty still commits a
+        (tiny) delta so every shard's chain position matches the top
+        manifest's recorded seq."""
+        self._run_flush_hooks()
+        os.makedirs(path, exist_ok=True)
+        for s, sub in enumerate(self._shards):
+            faultpoint.hit("exchange.store.pre_shard_save")
+            sub.save_delta(self._shard_dir(path, s), pass_id=pass_id)
+        self._save_seq += 1
+        self._save_count += 1
+        faultpoint.hit("exchange.store.pre_manifest")
+        self._commit_manifest(path, pass_id=pass_id)
+        return path
+
+    def chain_members(self, seq: int) -> list[str]:
+        """Shard-prefixed chain prefix: every shard's chain is in
+        lockstep with the top-level seq (save_base/save_delta save every
+        shard every time), so the members at seq N are each shard's
+        ``base + deltas[:N]``."""
+        out = []
+        for s, sub in enumerate(self._shards):
+            out.extend(f"shard-{s:02d}/{name}"
+                       for name in sub.chain_members(seq))
+        return out
+
+    def chain_file_entries(self, path: str, seq: int) -> dict[str, dict]:
+        out: dict[str, dict] = {}
+        for s, sub in enumerate(self._shards):
+            for name, ent in sub.chain_file_entries(
+                    self._shard_dir(path, s), seq).items():
+                out[f"shard-{s:02d}/{name}"] = ent
+        return out
+
+    def chain_increment_members(self, seq: int) -> list[str]:
+        out = []
+        for s, sub in enumerate(self._shards):
+            out.extend(f"shard-{s:02d}/{name}"
+                       for name in sub.chain_increment_members(seq))
+        out.append(_SHARD_MANIFEST)
+        return out
+
+    def restore(self, path: str, upto_seq: int | None = None,
+                verify: bool = True) -> "ShardedEmbeddingStore":
+        """Resume from the top-level manifest: each shard replays its
+        chain to the seq the LAST COMMITTED manifest records — shard
+        delta files written after it (a crashed save) are ignored and
+        later overwritten, exactly like save_delta's own seq commit.
+
+        ``upto_seq`` pins the horizon instead (the PassCheckpointer
+        flow: the SNAPSHOT is the commit record there, and shard chains
+        stay in lockstep with the top seq, so every shard replays to the
+        pinned value and ``shards.json`` — rewritten by any newer,
+        possibly crashed save — is consulted only for the partition
+        identity)."""
+        mpath = os.path.join(path, _SHARD_MANIFEST)
+        meta = None
+        if upto_seq is None or os.path.exists(mpath):
+            with open(mpath) as f:
+                meta = json.load(f)
+            if int(meta["n_shards"]) != self.n_shards:
+                raise CheckpointCorruptError(
+                    mpath, f"manifest records {meta['n_shards']} shards, "
+                           f"this store has {self.n_shards} — the "
+                           f"partition is part of the checkpoint identity")
+        if upto_seq is None:
+            seqs = [int(ent["save_seq"]) for ent in meta["shards"]]
+            self._save_seq = int(meta["save_seq"])
+        else:
+            seqs = [int(upto_seq)] * self.n_shards
+            self._save_seq = int(upto_seq)
+        for s, (sub, seq) in enumerate(zip(self._shards, seqs)):
+            sub.restore(self._shard_dir(path, s), upto_seq=seq,
+                        verify=verify)
+        return self
+
+    @classmethod
+    def load(cls, path: str, cfg: EmbeddingConfig | None = None,
+             verify: bool = True,
+             store_factory=None) -> "ShardedEmbeddingStore":
+        with open(os.path.join(path, _SHARD_MANIFEST)) as f:
+            meta = json.load(f)
+        if cfg is None:
+            with open(os.path.join(cls._shard_dir_static(path, 0),
+                                   "meta.json")) as f:
+                sm = json.load(f)
+            fields = {f.name for f in dataclasses.fields(EmbeddingConfig)}
+            cfg = EmbeddingConfig(**{k: v for k, v in sm.items()
+                                     if k in fields})
+        store = cls(cfg, int(meta["n_shards"]), store_factory=store_factory)
+        return store.restore(path, verify=verify)
+
+    @staticmethod
+    def _shard_dir_static(path: str, s: int) -> str:
+        return os.path.join(path, f"shard-{s:02d}")

@@ -1,5 +1,5 @@
 """Tiered table placement: disk + host RAM + device memory — the port of
-``paddlebox_tpu/embedding/tiering.py`` for one card.
+``paddlebox_tpu/embedding/tiering.py``.
 
 PaddleBox trains tables larger than device or host memory by stacking
 three tiers: SSD holds the table, ``LoadSSD2Mem`` pulls a pass's range
@@ -22,9 +22,10 @@ from the memory map, and the crash windows are the fault points
 ``tiering.*`` / ``spill.*`` counters and gauges flush into the monitor at
 each pass boundary, before the flight record commits, so they land in
 that pass's ``stats_delta``; ``end_pass_rebalance`` also returns its
-counts and ``spill_stats`` carries the totals. The sharded store (one
-spill store per shard) waits for multi-GPU work (ROADMAP queue 1 item
-6).
+counts and ``spill_stats`` carries the totals. ``store_from_flags(cfg,
+n_shards > 1)`` builds a ``store.ShardedEmbeddingStore`` whose every
+shard takes the flags' tier (one spill file per shard under
+``<spill_dir>/shard-SS``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import numpy as np
 
 from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
+from paddlebox_tpu_torch.embedding.store import (HostEmbeddingStore,
+                                                 ShardedEmbeddingStore)
 
 TIER_MODES = ("off", "spill")
 POLICIES = ("freq", "direct")
@@ -230,15 +232,14 @@ def shard_store_factory(tiering: str | None = None,
 
 def store_from_flags(cfg: EmbeddingConfig, n_shards: int = 1,
                      initial_capacity: int = 1024):
-    """Build the host table the flags describe: ``flags.table_tiering``
-    picks the storage tier. One shard only: the hash-partitioned
-    ``ShardedEmbeddingStore`` is multi-GPU work (ROADMAP queue 1 item
-    6), so ``n_shards > 1`` raises."""
+    """Build the host table the flags describe: ``n_shards > 1`` wraps
+    the tier in a hash-partitioned ``ShardedEmbeddingStore``, and
+    ``flags.table_tiering`` picks each (sub-)store's storage tier."""
+    factory = shard_store_factory()
     if int(n_shards) > 1:
-        raise NotImplementedError(
-            f"store_from_flags(n_shards={n_shards}): ShardedEmbeddingStore "
-            f"is not ported yet (ROADMAP, queue 1 item 6)")
-    return shard_store_factory()(cfg, initial_capacity, 0)
+        return ShardedEmbeddingStore(cfg, int(n_shards), initial_capacity,
+                                     store_factory=factory)
+    return factory(cfg, initial_capacity, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +247,10 @@ def store_from_flags(cfg: EmbeddingConfig, n_shards: int = 1,
 # ---------------------------------------------------------------------------
 
 def _spill_subs(store) -> list:
-    return [store] if hasattr(store, "tier_end_pass") else []
+    subs = getattr(store, "_shards", None)
+    if subs is None:
+        subs = [store]
+    return [s for s in subs if hasattr(s, "tier_end_pass")]
 
 
 def autotune_cache_rows(sub, stats: dict) -> int | None:
@@ -312,8 +316,13 @@ def end_pass_rebalance(store) -> dict | None:
 
 def describe(store) -> str | None:
     """The table's storage-tier identity: "spill" for a spill-backed
-    store, None when untiered."""
-    return "spill" if _spill_subs(store) else None
+    store, "sharded+spill" when spill sub-stores sit under a sharded
+    partition, None when untiered."""
+    if not _spill_subs(store):
+        return None
+    if getattr(store, "_shards", None) is not None:
+        return "sharded+spill"
+    return "spill"
 
 
 def fault_in_seconds(store) -> float:

@@ -30,6 +30,22 @@ optimizer state stay f32), converted on the host with ``torch.bfloat16``
 byte counts returned are those of the arrays that crossed, which equal
 ``transfer_bytes``.
 
+On a mesh of several ranks (``feed_pass.FeedPassManager(mesh=...)``)
+each rank holds one shard of the pass table: rows ``[rank * rps, (rank
++ 1) * rps)`` of the global index space (``parallel.mesh.Mesh
+.table_rows``). A key's shard is the rank that owns it
+(``key_owners``: the store's shard partition under a
+``distributed.ShardOwnership``, else the splitmix64 hash mod the world),
+so a rank builds, keeps and writes back exactly the rows its own host
+store holds, and a key stays on its rank from pass to pass. Inside a
+shard the owned keys sit in sorted order from local row 1 (local row 0
+is the null row on shard 0 and an unused zero row elsewhere), so the
+local table is laid out as a one-device working set of the rank's keys.
+``ShardLayout`` carries the pass-wide key index every rank translates
+its batch slice against; ``sync_touched`` ORs the ranks' touch marks
+over the mesh so each shard writes back the rows any rank's batch
+touched.
+
 ``PushOperandStager`` holds the deferred sparse push's operands
 (``flags.push_overlap``, JAX ``working_set.py:231``) between a step and
 its apply.
@@ -46,7 +62,8 @@ from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding import quant
 from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
-from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
+from paddlebox_tpu_torch.embedding.store import (HostEmbeddingStore,
+                                                 splitmix_shard)
 from paddlebox_tpu_torch.native.key_index import KeyIndex, sorted_unique
 
 
@@ -172,6 +189,61 @@ def fetch_rows(table, row_idx: np.ndarray,
     return rows, rows.nbytes
 
 
+def key_owners(keys: np.ndarray, world: int, store=None,
+               ownership=None) -> np.ndarray:
+    """The mesh rank that owns each key: under a ``ShardOwnership`` the
+    rank its store shard is assigned to (``store.shard_of(key) %
+    world``), else the splitmix64 hash mod ``world``."""
+    if ownership is not None:
+        if ownership.world_size != world:
+            raise ValueError(f"ownership spans {ownership.world_size} "
+                             f"ranks, the mesh {world}")
+        shard_of = getattr(store, "shard_of", None)
+        if shard_of is None:
+            raise TypeError(
+                "per-host shard ownership needs a sharded store with "
+                f"shard_of (got {type(store).__name__})")
+        return np.asarray(shard_of(keys), np.int64) % world
+    return splitmix_shard(keys, world)
+
+
+class ShardLayout:
+    """One pass's keys over the mesh: ``keys`` (the pass-wide sorted
+    unique keys, the same on every rank), ``gidx`` (each key's global
+    working-set index, ``owner * rows_per_shard + 1 + its position among
+    the owner's keys``), ``rows_per_shard`` (the largest shard's key
+    count + 1, at least ``min_rows``) and this rank's ``local_keys``."""
+
+    def __init__(self, keys: np.ndarray, owner: np.ndarray, world: int,
+                 rank: int, min_rows: int):
+        self.keys = keys
+        self.world = int(world)
+        self.rank = int(rank)
+        counts = np.bincount(owner, minlength=self.world)
+        self.rows_per_shard = int(max(min_rows, int(counts.max(initial=0))
+                                      + 1))
+        o = np.argsort(owner, kind="stable")
+        starts = np.cumsum(counts) - counts
+        within = np.empty(len(keys), np.int64)
+        within[o] = np.arange(len(keys)) - starts[owner[o]]
+        self.gidx = (owner * self.rows_per_shard + 1 + within).astype(
+            np.int32)
+        self.local_keys = keys[owner == self.rank]
+        self.index = KeyIndex(len(keys) or 1)
+        self.index.rebuild(keys)
+
+
+def _positions(index: KeyIndex, sorted_keys: np.ndarray,
+               flat: np.ndarray) -> np.ndarray:
+    """Position of each key of ``flat`` in ``sorted_keys``, -1 if
+    absent."""
+    if index.is_native:
+        return index.lookup(flat)
+    pos = np.searchsorted(sorted_keys, flat)
+    pos[pos >= len(sorted_keys)] = 0
+    return np.where(sorted_keys[pos] == flat, pos, -1)
+
+
 class PushOperandStager:
     """Double-buffered staging for the deferred sparse push
     (``flags.push_overlap``).
@@ -223,6 +295,11 @@ class PassWorkingSet:
     def __init__(self, cfg: EmbeddingConfig, sorted_keys: np.ndarray,
                  table: torch.Tensor):
         self.cfg = cfg
+        # on a mesh (attach_layout): the pass-wide index (sorted_keys /
+        # table / touched are this rank's shard), and the touch marks of
+        # every global row this rank's batches referenced
+        self.layout: ShardLayout | None = None
+        self.gtouched: np.ndarray | None = None
         self.sorted_keys = sorted_keys      # uint64 (K,), ascending
         self.table = table        # (n_rows, W) float32, or a QuantTable
         self._tindex = KeyIndex(len(sorted_keys) or 1)
@@ -239,21 +316,58 @@ class PassWorkingSet:
 
     @property
     def padded_rows(self) -> int:
+        """This shard's table rows (the whole table on one device)."""
         return quant.table_rows(self.table)
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.padded_rows
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.layout is None else self.layout.world
+
+    @property
+    def global_rows(self) -> int:
+        """Rows of the global index space (rows_per_shard * shards)."""
+        return self.padded_rows * self.n_shards
+
+    def shard_of(self, idx: np.ndarray) -> np.ndarray:
+        """Owner shard per global working-set index (the contiguous
+        partition the exchange routes by)."""
+        return np.asarray(idx) // self.rows_per_shard
+
+    def attach_layout(self, layout: ShardLayout) -> None:
+        """Make this working set a mesh shard of ``layout``'s pass."""
+        self.layout = layout
+        self.gtouched = np.zeros(layout.world * self.padded_rows, bool)
+
+    def sync_touched(self, mesh) -> None:
+        """OR every rank's touch marks over the mesh into this shard's
+        ``touched``: a row any rank's batch referenced is written back by
+        its owner. A collective: every rank calls it at the same point."""
+        if self.layout is None:
+            return
+        tot = mesh.host_psum(self.gtouched.astype(np.int32))
+        rows = mesh.table_rows(self.padded_rows)
+        self.touched |= tot[rows] > 0
+        self.touched[0] = False
 
     @classmethod
     def begin_pass(cls, store: HostEmbeddingStore, keys: np.ndarray,
                    device: str | torch.device | None = None,
                    min_rows: int = 8,
                    test_mode: bool = False,
-                   timing_out: dict | None = None) -> "PassWorkingSet":
+                   timing_out: dict | None = None,
+                   n_rows: int | None = None) -> "PassWorkingSet":
         """Build the pass working set on ``device`` (the card unless
         ``device="cpu"``), inserting unseen keys into the store — or, with
         ``test_mode``, reading them without inserting (unseen keys get
         their deterministic init row). ``timing_out`` (updated in place)
         receives the boundary split: ``build`` = key dedup + store fetch
         + table assembly seconds, ``h2d`` = the copy to the device, waited
-        for."""
+        for. ``n_rows`` fixes the table's rows (a mesh shard's
+        rows_per_shard); default ``max(min_rows, K + 1)``."""
         dev = resolve_device(device)
         cfg = store.cfg
         t0 = time.perf_counter()
@@ -266,7 +380,10 @@ class PassWorkingSet:
                 prefetch(keys)
         rows = (store.peek_rows(keys) if test_mode
                 else store.lookup_or_init(keys))
-        n_rows = max(min_rows, len(keys) + 1)      # +1: the null row
+        need = len(keys) + 1                       # +1: the null row
+        n_rows = max(min_rows, need) if n_rows is None else int(n_rows)
+        if n_rows < need:
+            raise ValueError(f"n_rows={n_rows} < {need} keys + null row")
         host = np.zeros((n_rows, cfg.row_width), dtype=np.float32)
         host[1:1 + len(keys)] = rows
         t1 = time.perf_counter()
@@ -294,17 +411,27 @@ class PassWorkingSet:
         """uint64 feature signs → dense int32 working-set indices.
 
         Keys not in this pass and masked positions map to the null
-        index 0."""
+        index 0. On a mesh the indices are global (any shard's rows)."""
         ids_arr = np.asarray(ids)
+        lay = self.layout
+        if lay is not None:
+            # the pass-wide index: global indices, any shard's rows
+            flat = ids_arr.astype(np.uint64).reshape(-1)
+            if len(lay.keys):
+                pos = _positions(lay.index, lay.keys, flat)
+                idx = np.where(pos >= 0, lay.gidx[np.maximum(pos, 0)], 0)
+            else:
+                idx = np.zeros(flat.shape, np.int32)
+            idx = idx.astype(np.int32).reshape(ids_arr.shape)
+            if mask is not None:
+                idx = np.where(mask, idx, 0).astype(np.int32)
+            self.gtouched[idx.reshape(-1)] = True
+            self.gtouched[0] = False     # the null row is never persisted
+            return idx
         if len(self.sorted_keys) == 0:
             return np.zeros(ids_arr.shape, dtype=np.int32)
         flat = ids_arr.astype(np.uint64).reshape(-1)
-        if self._tindex.is_native:
-            pos = self._tindex.lookup(flat)      # -1 = not in this pass
-        else:
-            pos = np.searchsorted(self.sorted_keys, flat)
-            pos[pos >= len(self.sorted_keys)] = 0
-            pos = np.where(self.sorted_keys[pos] == flat, pos, -1)
+        pos = _positions(self._tindex, self.sorted_keys, flat)
         idx = (pos + 1).astype(np.int32).reshape(ids_arr.shape)
         if mask is not None:
             idx = np.where(mask, idx, 0).astype(np.int32)

@@ -36,9 +36,11 @@ is tagged with the pass; ``end_pass`` commits the pass's flight record
 last and returns it under ``"flight_record"``; ``abort_pass`` closes the
 scope without one; ``flip_phase`` emits ``flip_phase``.
 
-Not ported yet (ROADMAP queue 1 item 6): multi-host pass barriers and
-heartbeats (``attach_collectives``); the exchange-wire and self-healing
-boundary hooks serve subsystems the port does not have yet.
+On a mesh, ``attach_collectives`` makes ``begin_pass`` and ``end_pass``
+barrier over the world, and ``end_pass(trainer=)`` runs the trainer's
+exchange-wire adaptation (``Trainer.adapt_wire_boundary``) before the
+flight record commits. Not ported yet: the heartbeat watchdog (ROADMAP
+queue 1 item 6) and the self-healing boundary hook (item 7).
 """
 
 from __future__ import annotations
@@ -69,6 +71,23 @@ class BoxPS:
         self.pass_id = 0
         self.in_pass = False
         self._pass_t0 = 0.0
+        # the multi-host lifecycle (attach_collectives): lockstep barriers
+        # at the pass boundaries
+        self._col = None
+
+    def attach_collectives(self, collectives, heartbeat=None) -> None:
+        """Make the pass lifecycle world-synchronous: ``begin_pass`` and
+        ``end_pass`` barrier over the collectives (a ``HostCollectives``
+        or a mesh's ``collectives()``), so no rank trains a pass the world
+        has not entered (the reference's MPICluster barrier around
+        BeginPass/EndPass, box_wrapper.h:415). Re-attachable. The
+        heartbeat watchdog (``heartbeat=``) is resilience work, not
+        ported yet (ROADMAP queue 1 item 6)."""
+        if heartbeat is not None:
+            raise NotImplementedError(
+                "BoxPS.attach_collectives(heartbeat=...): the heartbeat "
+                "watchdog is not ported yet (ROADMAP, queue 1 item 6)")
+        self._col = collectives
 
     @property
     def phase(self) -> int:
@@ -81,6 +100,9 @@ class BoxPS:
     def begin_pass(self) -> None:
         if self.in_pass:
             raise RuntimeError("begin_pass while a pass is open")
+        if self._col is not None:
+            # lockstep: no rank opens pass N+1 until the world is ready
+            self._col.barrier("begin_pass")
         # the telemetry pass scope first: it refuses unported read-side
         # flags before any pass state moves
         monitor.hub().begin_pass(self.pass_id + 1, phase=self.phase)
@@ -160,9 +182,13 @@ class BoxPS:
         if trainer is not None and hasattr(trainer,
                                            "refresh_replica_boundary"):
             trainer.refresh_replica_boundary()
+        if trainer is not None and hasattr(trainer, "adapt_wire_boundary"):
+            trainer.adapt_wire_boundary()
         # the flight record commits last: the snapshot's, the publish's
         # and the tiers' counters above land in this pass's stats_delta
         out["flight_record"] = monitor.hub().end_pass(metrics=self.metrics)
+        if self._col is not None:
+            self._col.barrier("end_pass")
         return out
 
     def flip_phase(self) -> None:

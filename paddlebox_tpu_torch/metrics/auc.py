@@ -92,6 +92,27 @@ class AucAccumulator:
         self.drain()
         return auc_compute(self.host, **kw)
 
+    def compute_global(self, collectives, **kw) -> dict[str, float]:
+        """Exact multi-host AUC: all-reduce the histogram tables over the
+        control plane first (``HostCollectives``, or a mesh's
+        ``collectives()``; the MPICluster::allreduce_sum path,
+        box_wrapper.cc:331-356)."""
+        self.drain()
+        tot = {k: np.asarray(collectives.all_reduce(
+                   np.atleast_1d(np.asarray(v, np.float64)), op="sum"))
+               for k, v in self.host.items()}
+        tot = {k: v if self.host[k].ndim else v.reshape(())
+               for k, v in tot.items()}
+        return auc_compute(tot, **kw)
+
+
+def psum_state(state: dict[str, torch.Tensor], mesh,
+               axes=None) -> dict[str, torch.Tensor]:
+    """An AUC state summed over the mesh's ``axes`` (all of them by
+    default): the exact global reduction (collect_data_nccl +
+    MPICluster::allreduce_sum, box_wrapper.cc:230-332)."""
+    return {k: mesh.psum(v, axes) for k, v in state.items()}
+
 
 def auc_compute(state: dict,
                 max_span: float = 0.01,

@@ -130,6 +130,25 @@ SPAN_NAMES: tuple[str, ...] = (
 
 ALL_NAMES: frozenset = frozenset(EVENT_NAMES) | frozenset(SPAN_NAMES)
 
+# the mesh's counters (train/trainer.py on a multi-rank mesh), under the
+# JAX package's names (it emits them without a registry): the sharded
+# exchange's traffic a pass — tokens routed, unique lanes on the wire
+# (the dedup rate), modeled pull / push wire bytes — and the overflow
+# policy's drops, eval retries and wire switches; the routed drops and
+# preplanned capacity growths of either table layout
+EXCHANGE_COUNTERS: tuple[str, ...] = (
+    "exchange.tokens",
+    "exchange.unique_lanes",
+    "exchange.pull_bytes",
+    "exchange.push_bytes",
+    "exchange.overflow_dropped",
+    "exchange.overflow_retries",
+    "exchange.wire_switches",
+    "trainer.routed_dropped",
+    "trainer.capacity_preplanned",
+    "trainer.capacity_preplanned_eval",
+)
+
 
 def is_registered(name: str) -> bool:
     return name in ALL_NAMES

@@ -40,15 +40,16 @@ def data_norm(x: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
 
 def summary_update(summary: torch.Tensor, x: torch.Tensor,
                    decay: float = 0.9999999,
-                   axis_name=None) -> torch.Tensor:
+                   axis_name=None, mesh=None) -> torch.Tensor:
     """Accumulate a batch into the summary with exponential decay.
 
-    ``axis_name`` (the JAX package's psum of the batch contribution
-    across data-parallel replicas) needs the multi-GPU port."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "summary_update(axis_name=...) sums across replicas, which "
-            "needs the multi-GPU port (ROADMAP queue 1)")
+    ``axis_name`` (with the ``parallel.mesh.Mesh`` it names an axis of)
+    sums the batch contribution over the ranks of that axis first — the
+    reference's sync_stats all-reduce of summary deltas (data_norm_op.cu
+    multi-trainer path), the JAX package's ``lax.psum``."""
+    if axis_name is not None and mesh is None:
+        raise ValueError("summary_update(axis_name=...) needs the mesh "
+                         "the axis belongs to (mesh=)")
     b = x.shape[0]
     batch = torch.stack([
         torch.full((x.shape[-1],), float(b), dtype=x.dtype,
@@ -56,6 +57,8 @@ def summary_update(summary: torch.Tensor, x: torch.Tensor,
         x.sum(dim=0),
         (x * x).sum(dim=0),
     ])
+    if axis_name is not None:
+        batch = mesh.psum(batch, axis_name)
     return summary * decay + batch
 
 

@@ -112,23 +112,31 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
 
 def build_kernels() -> dict[str, str]:
     """Build and load every kernel library not yet loaded: one nvcc per
-    source, all started together. Returns {kernel: library path}."""
+    source, all started together. The in-process lock serializes threads;
+    ``native.build``'s per-library file lock makes concurrently started
+    processes (the ranks of a mesh) build each library once. Returns
+    {kernel: library path}."""
     with _lock:
         missing = [k for k in KERNEL_SOURCES if k not in _libs]
         if missing:
             cmd = [nvcc_path(), *NVCC_FLAGS]
             headers = [os.path.join(CSRC_DIR, h) for h in KERNEL_HEADERS]
-            pending = {
-                k: build_lib.start_build(
-                    f"lib{k}", [os.path.join(CSRC_DIR, KERNEL_SOURCES[k])],
-                    headers, cmd)
-                for k in missing}
-            for k, (path, proc) in pending.items():
-                path, log = build_lib.finish_build(path, proc)
-                lib = ctypes.CDLL(path)
-                _configure(k, lib)
-                _libs[k] = lib
-                build_logs[k] = log
+            pending: dict = {}
+            try:
+                for k in missing:
+                    pending[k] = build_lib.start_build(
+                        f"lib{k}",
+                        [os.path.join(CSRC_DIR, KERNEL_SOURCES[k])],
+                        headers, cmd)
+                for k in list(pending):
+                    path, log = build_lib.finish_build(*pending.pop(k))
+                    lib = ctypes.CDLL(path)
+                    _configure(k, lib)
+                    _libs[k] = lib
+                    build_logs[k] = log
+            finally:
+                for _path, proc in pending.values():
+                    build_lib.abandon_build(proc)
         return {k: lib._name for k, lib in _libs.items()}
 
 
@@ -642,6 +650,16 @@ def binned_push(table: torch.Tensor, idx: torch.Tensor,
     acc = binned_merge_acc(idx, grads, shows, clks, cfg, table.shape[0],
                            plan=plan)
     return merge_update(table, acc, cfg)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {k: globals()[k].launches for k in KERNEL_SOURCES}
+
+
+def reset_launches() -> None:
+    for k in KERNEL_SOURCES:
+        globals()[k].launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -108,8 +108,35 @@ Precision: the reference computes in f32, so TF32 is turned off for
 matmuls and convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) when a Trainer is built.
 
-Not ported yet (ROADMAP queue 1): multi-shard routing, shard ownership,
-kstep/async dense sync and coordinated multi-host resume (item 6).
+The mesh (``Trainer(..., mesh=make_mesh(...))``, JAX trainer.py:411-945,
+1180-1207, 1800-1975): one rank per card. Every rank iterates the same
+global batches and takes its contiguous slice (``Mesh.batch_slice``);
+its table is its shard of the pass working set (``feed_pass`` lays the
+keys out by owner). A step pulls through the routed exchange of the
+table layout (``flags.table_layout``: "sharded" = ``embedding/
+exchange.py``, the plan-keyed unique-row all-to-all with the
+wire-compressed push and ``gather_pool`` on the received lanes; "single"
+= the token-level ``sharded.routed_lookup`` / ``routed_push``; "auto"
+picks "sharded" on a multi-rank mesh on the card), runs the model on its
+slice, scales the sparse grads by 1/world
+(``scale_sparse_grad_by_global_mean``: the global-mean loss's gradient)
+and pushes them back through the same exchange. The dense parameters
+follow ``dense_sync_mode``: "allreduce" (the global mean of the grads,
+one flat all-reduce a step), "kstep" (local updates, parameters averaged
+every ``param_sync_step`` steps and at pass end, the optimizer's moments
+too with ``sync_dense_moment``) or "async" (the host
+``parallel.dense_sync.AsyncDenseTable``: params pulled before and the
+global-mean grad pushed after every step); kstep and async also run
+without a mesh. Losses, the AUC histograms and drop counts reduce over
+the mesh once a pass. Capacity overflow is never silent
+(``_preplan_capacity`` sizes the factor from the pass's own routing
+histogram before the first step; ``_check_dropped`` counts
+``exchange.overflow_dropped``, emits ``exchange_overflow``, and doubles
+the factor for the next pass; an eval pass that dropped re-runs in
+place).
+
+Not ported yet (ROADMAP queue 1 item 6): the coordinated multi-host
+resume (``resume(collectives=...)``).
 """
 
 from __future__ import annotations
@@ -131,7 +158,7 @@ from paddlebox_tpu_torch.config import flags
 from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
 from paddlebox_tpu_torch.device import resolve_device
-from paddlebox_tpu_torch.embedding import quant, sharded, tiering
+from paddlebox_tpu_torch.embedding import exchange, quant, sharded, tiering
 from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
 from paddlebox_tpu_torch.embedding.replica_cache import TrainerReplicaCache
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
@@ -143,6 +170,7 @@ from paddlebox_tpu_torch.monitor.timers import StageTimers
 from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
 from paddlebox_tpu_torch.ops.seqpool_cvm import PooledSlots
+from paddlebox_tpu_torch.parallel import dense_sync
 from paddlebox_tpu_torch.train import optimizers
 from paddlebox_tpu_torch.utils import faultpoint
 from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
@@ -172,6 +200,19 @@ class TrainerConfig:
     # each, and the loop runs them back to back; the same computation as
     # k single steps. A tail shorter than k trains as single steps
     steps_per_dispatch: int = 1
+    # the routed all-to-all's capacity slack (lanes per destination =
+    # ceil(tokens * factor / shards)); preplanned and grown, never silent
+    capacity_factor: float = 2.0
+    # the sparse grads of a mesh step are the local-mean loss's; divide
+    # by the world to make them the global mean's, as the dense grads are
+    scale_sparse_grad_by_global_mean: bool = True
+    # dense sync (BoxPSWorkerParameter.sync_mode, trainer_desc.proto:
+    # 100-108): allreduce | kstep | async
+    dense_sync_mode: str = "allreduce"
+    param_sync_step: int = 1               # K of kstep
+    sync_dense_moment: bool = False        # FLAGS_enable_sync_dense_moment
+    async_merge_limit: int = 4             # async table grad-merge bound
+    async_betas: tuple = (0.99, 0.9999)    # the reference's betas
 
 
 class _PackError:
@@ -181,12 +222,18 @@ class _PackError:
 
 class Trainer:
     """Pass-oriented trainer on one device (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``), or one rank of a mesh (``mesh=``; the device is
+    then the mesh's)."""
 
     def __init__(self, model, store: HostEmbeddingStore,
                  schema: DataFeedSchema, config: TrainerConfig | None = None,
                  seed: int = 0, device: str | torch.device | None = None,
-                 feed_mgr: FeedPassManager | None = None):
+                 feed_mgr: FeedPassManager | None = None, mesh=None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but the mesh's rank "
+                                 f"runs on {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -194,6 +241,16 @@ class Trainer:
         self.schema = schema
         self.cfg = config or TrainerConfig()
         self.layout = SparseLayout.from_schema(schema)
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else mesh.world
+        self.axes = None if mesh is None else tuple(mesh.axis_names)
+        if self.cfg.global_batch_size % self.n_shards:
+            raise ValueError("global_batch_size must divide by mesh size")
+        if self.cfg.dense_sync_mode not in ("allreduce", "kstep", "async"):
+            raise ValueError(self.cfg.dense_sync_mode)
+        if self.cfg.param_sync_step < 1:
+            raise ValueError(f"param_sync_step must be >= 1, got "
+                             f"{self.cfg.param_sync_step}")
         model_dim = getattr(model, "emb_dim", None)
         if model_dim is not None and model_dim != store.cfg.total_dim:
             raise ValueError(
@@ -208,6 +265,36 @@ class Trainer:
         self.dense_opt = optimizers.make(
             self.cfg.dense_optimizer, self.cfg.dense_lr, self.params,
             **self.cfg.dense_optimizer_kwargs)
+        # async dense sync: the host table owns the dense update
+        # (BoxPSAsynDenseTable); its state is the optimizer state
+        self.dense_table = None
+        if self.cfg.dense_sync_mode == "async":
+            self.dense_table = dense_sync.AsyncDenseTable(
+                dense_sync.flatten_dense(self.params), lr=self.cfg.dense_lr,
+                betas=self.cfg.async_betas,
+                merge_limit=self.cfg.async_merge_limit)
+        # the mesh's embedding exchange (flags.table_layout), its push
+        # wire and all-to-all decomposition (sharded layout only)
+        self.table_layout = self._select_table_layout()
+        sharded_x = self.table_layout == "sharded"
+        self.exchange_wire = (exchange.select_wire(store.cfg) if sharded_x
+                              else None)
+        self.exchange_topology = (exchange.select_topology(mesh.shape)
+                                  if sharded_x else None)
+        self._wire_controller = (
+            exchange.WireController(store.cfg, self.exchange_wire)
+            if sharded_x and flags.exchange_adaptive else None)
+        self._wire_stats0: dict | None = None
+        self._last_wire_decision: dict | None = None
+        if sharded_x and flags.exchange_capacity_factor > 0:
+            self.cfg.capacity_factor = max(
+                self.cfg.capacity_factor,
+                float(flags.exchange_capacity_factor))
+        # eval capacity grows apart from the train factor (a skewed eval
+        # set must not pad the train step's lanes)
+        self._eval_capacity = self.cfg.capacity_factor
+        # this pass's over-capacity tokens so far (a device scalar)
+        self._dropped: torch.Tensor | None = None
         # the model-extras protocol: a host-side pack stage whose arrays
         # the step passes to the model after the standard arguments
         self._extras_fn = getattr(model, "batch_extras", None)
@@ -216,10 +303,15 @@ class Trainer:
         # on the card while the binned engine is enabled, and wherever a
         # plan-consuming engine is forced (the CPU-parity knob), as in the
         # JAX package with the card in place of the TPU
+        # — on one shard; on a mesh the sharded layout's exchange is
+        # keyed off the dedup plan (its unique lanes premerge before
+        # routing), and the single layout's routed tokens carry none
         forced = kernels.push_engine_flag()
-        self._use_plan = ((self.device.type == "cuda" and flags.binned_push)
-                          or forced in ("scatter_accumulate",
-                                        "binned_kernel"))
+        self._use_plan = (
+            (self.n_shards == 1
+             and ((self.device.type == "cuda" and flags.binned_push)
+                  or forced in ("scatter_accumulate", "binned_kernel")))
+            or (sharded_x and flags.pullpush_dedup_keys))
         self._seg = torch.as_tensor(self.layout.segment_ids,
                                     dtype=torch.int64, device=self.device)
         self.global_step = 0
@@ -255,7 +347,8 @@ class Trainer:
         # the incremental, overlapped pass boundary: resident rows reused
         # across passes, write-back lazy. Pass a shared manager when
         # several trainers drive one table.
-        self.feed_mgr = feed_mgr or FeedPassManager(store, self.device)
+        self.feed_mgr = feed_mgr or FeedPassManager(store, self.device,
+                                                    mesh=mesh)
         self.feed_mgr.register_pre_flush(self.flush_push)
         # the host table's storage tier: "spill" or None (in RAM)
         self.table_tiering = tiering.describe(store)
@@ -272,6 +365,29 @@ class Trainer:
     # ------------------------------------------------------------------
     # engine selection
     # ------------------------------------------------------------------
+    def _select_table_layout(self) -> str:
+        """The mesh's embedding exchange (``flags.table_layout``, JAX
+        trainer.py:1180): "sharded" = ``embedding/exchange.py`` (the
+        dedup plan keys the all-to-all, the push crosses in
+        ``flags.exchange_wire``, the pooled pull runs per shard after
+        routing); "single" = the token-level routed path. "auto" picks
+        "sharded" on a multi-rank mesh on the card (the card in the
+        TPU's place) and "single" elsewhere; "sharded" forced on one
+        shard raises."""
+        tl = flags.table_layout
+        if tl not in ("auto", "single", "sharded"):
+            raise ValueError(f"table_layout={tl!r}")
+        if tl == "sharded":
+            if self.n_shards == 1:
+                raise ValueError(
+                    "flags.table_layout='sharded' needs a multi-device "
+                    "mesh — on one shard there is nothing to exchange")
+            return "sharded"
+        if tl == "single":
+            return "single"
+        return ("sharded" if self.n_shards > 1 and self.device.type == "cuda"
+                else "single")
+
     def _select_pull_engine(self) -> str:
         """"fused_gather_pool" — rows pool per (example, slot) inside the
         pull (the gather_pool kernel) and the model consumes the
@@ -288,7 +404,11 @@ class Trainer:
         cfg = self.store.cfg
         uniform = (lay.num_slots > 0 and len(lay.slot_lens)
                    and np.all(lay.slot_lens == lay.slot_lens[0]))
+        # a multi-shard mesh pools through the sharded exchange only
+        # (routed_pull_pooled: gather_pool on the received lanes)
         compatible = (uniform
+                      and (self.n_shards == 1
+                           or self.table_layout == "sharded")
                       and getattr(self.model, "pooled_pull_ok", False)
                       and sharded.fused_pull_supported(cfg))
         if not compatible:
@@ -309,17 +429,20 @@ class Trainer:
         (``flags.push_overlap``, read when the Trainer is built; JAX
         trainer.py:835). "auto" = on at ``steps_per_dispatch == 1`` (the
         superstep runs its k steps' pushes inline), "on" / "off" force;
-        "on" with a superstep raises."""
+        "on" with a superstep or a kstep / async dense sync raises (those
+        run the inline push, as in the JAX package)."""
         po = flags.push_overlap
         if po not in ("auto", "on", "off"):
             raise ValueError(f"push_overlap={po!r}")
         if po == "off":
             return False
-        ok = self.cfg.steps_per_dispatch == 1
+        ok = (self.cfg.steps_per_dispatch == 1
+              and self.cfg.dense_sync_mode == "allreduce")
         if po == "on" and not ok:
             raise ValueError(
-                "flags.push_overlap='on' needs steps_per_dispatch=1 (the "
-                "deferred apply is sequenced between single steps)")
+                "flags.push_overlap='on' needs the allreduce dense-sync "
+                "mode with steps_per_dispatch=1 (the deferred apply is "
+                "sequenced between single steps)")
         return ok
 
     def _dedup_premerge(self) -> bool:
@@ -340,7 +463,11 @@ class Trainer:
         return multi_hot or kernels.wide_rows(self.store.cfg)
 
     def push_premerged(self) -> bool:
-        return self._use_plan and self._dedup_premerge()
+        """Whether the push engine sees one lane per unique row: always
+        on the sharded exchange (premerged per source, merged across
+        sources on the owner), else iff the host plan premerges."""
+        return (self.table_layout == "sharded"
+                or (self._use_plan and self._dedup_premerge()))
 
     def resolved_push_engine(self, ws: PassWorkingSet) -> str:
         """The push engine the steps run for this working set (for a
@@ -374,6 +501,8 @@ class Trainer:
         if not self._use_plan:
             return None
         flat = idx.reshape(-1)
+        if self.table_layout == "sharded":
+            return self._exchange_plan(ws, flat)
         n_rows = ws.padded_rows
         geom = None
         if self.resolved_push_engine(ws) == "binned_kernel":
@@ -390,6 +519,45 @@ class Trainer:
         if geom is None:
             return None
         return sharded.BlockPlan(*block_plan(flat, *geom))
+
+    def _exchange_plan(self, ws: PassWorkingSet, flat: np.ndarray
+                       ) -> sharded.DedupPlan:
+        """The sharded exchange's plan over this rank's batch slice: the
+        dedup counting sort over the global rows (no kernel windows —
+        tokens after the all-to-all have no host plan), and the exchange
+        counters (its unique lanes, less the null row's, are the wire's
+        lanes)."""
+        rows = ws.global_rows
+        o, u, s, _r, _e = dedup_plan(flat, rows, rows, 1)
+        n_u = int(np.searchsorted(u, rows)) - int(len(u) > 0 and u[0] == 0)
+        ecfg = self.store.cfg
+        monitor.counter_add("exchange.tokens", flat.size)
+        monitor.counter_add("exchange.unique_lanes", n_u)
+        monitor.counter_add("exchange.pull_bytes",
+                            exchange.pull_wire_bytes(ecfg, n_u))
+        monitor.counter_add("exchange.push_bytes",
+                            exchange.push_wire_bytes(ecfg, n_u,
+                                                     self.exchange_wire))
+        monitor.counter_add("trainer.plan_tokens", flat.size)
+        monitor.counter_add("trainer.plan_unique_tokens", n_u)
+        return sharded.DedupPlan(o, u, s)
+
+    def _local_batch(self, pb: PackedBatch) -> PackedBatch:
+        """This rank's contiguous slice of a global batch (the batch
+        itself off a mesh); ``num`` becomes the slice's valid count."""
+        if self.mesh is None:
+            return pb
+        sl = self.mesh.batch_slice(len(pb.floats))
+
+        def cut(a):
+            return None if a is None else a[sl]
+
+        return PackedBatch(
+            schema=pb.schema,
+            num=int(np.clip(pb.num - sl.start, 0, sl.stop - sl.start)),
+            ids=pb.ids[sl], mask=pb.mask[sl], floats=pb.floats[sl],
+            rank=pb.rank[sl], cmatch=pb.cmatch[sl], ins_id=cut(pb.ins_id),
+            search_id=cut(pb.search_id))
 
     def pack_arrays(self, ws: PassWorkingSet, idx: np.ndarray,
                     mask: np.ndarray, dense: np.ndarray,
@@ -517,6 +685,7 @@ class Trainer:
             for pb in dataset.batches(batch_size, drop_last=not test_mode):
                 if len(pb.floats) < batch_size:
                     pb = pb.pad_to(batch_size)
+                pb = self._local_batch(pb)
                 if group <= 1:
                     yield [pb], self._pack_host(ws, pb, with_plan), False
                     continue
@@ -579,39 +748,138 @@ class Trainer:
     # the step
     # ------------------------------------------------------------------
     def _pull(self, table: torch.Tensor, idx: torch.Tensor,
-              requires_grad: bool = False):
+              requires_grad: bool = False, plan=None,
+              capacity: float | None = None):
         """One batch's pull and the model input it makes: for the fused
         engine the gather_pool kernel's (B, S, P) sums (PooledSlots), else
-        the gathered (B, T, P) rows."""
+        the gathered (B, T, P) rows; on a mesh through the layout's
+        routed exchange. Returns (pulled, model input, dropped), dropped
+        this rank's count of tokens over capacity (a device scalar, or
+        None on one shard)."""
         lay = self.layout
         S = lay.num_slots
         ecfg = self.store.cfg
         fused = self.pull_engine == "fused_gather_pool"
-        if fused:
+        dropped = None
+        capf = self.cfg.capacity_factor if capacity is None else capacity
+        if self.n_shards > 1:
+            mesh, axes = self.mesh, self.axes
+            dedup = flags.pullpush_dedup_keys
+            if fused:       # the sharded layout (_select_pull_engine)
+                pulled, dropped = exchange.routed_pull_pooled(
+                    table, idx, ecfg, mesh, axes, S, lay.total_len // S,
+                    capf, plan=plan, return_dropped=True)
+            elif self.table_layout == "sharded":
+                pulled, dropped = exchange.routed_pull(
+                    table, idx.reshape(-1), ecfg, mesh, axes, capf,
+                    plan=plan, dedup=dedup, return_dropped=True)
+            else:
+                pulled, dropped = sharded.routed_lookup(
+                    table, idx.reshape(-1), ecfg, mesh, axes, capf,
+                    dedup=dedup, return_dropped=True)
+            if not fused:
+                pulled = pulled.reshape(*idx.shape, ecfg.pull_width)
+        elif fused:
             pulled = sharded.fused_pull_pool(table, idx, ecfg, S,
                                              lay.total_len // S)
         else:
             pulled = sharded.lookup(table, idx, ecfg)
         if requires_grad:
             pulled.requires_grad_()
-        return pulled, (PooledSlots(pulled) if fused else pulled)
+        return pulled, (PooledSlots(pulled) if fused else pulled), dropped
+
+    def _push(self, table, flat_idx: torch.Tensor, grads: torch.Tensor,
+              shows: torch.Tensor, clks: torch.Tensor, plan=None,
+              premerged: bool = False) -> str:
+        """The sparse push into the table, in place: the layout's routed
+        exchange on a mesh, ``sharded.push`` on one shard. Returns the
+        engine the (owner) shard ran."""
+        ecfg = self.store.cfg
+        if self.table_layout == "sharded":
+            return exchange.routed_push(
+                table, flat_idx, grads, shows, clks, ecfg, self.mesh,
+                self.axes, self.cfg.capacity_factor,
+                wire=self.exchange_wire, plan=plan, premerged=premerged,
+                topology=self.exchange_topology)
+        if self.n_shards > 1:
+            return sharded.routed_push(
+                table, flat_idx, grads, shows, clks, ecfg, self.mesh,
+                self.axes, self.cfg.capacity_factor,
+                dedup=flags.pullpush_dedup_keys, plan=plan)
+        return sharded.push(table, flat_idx, grads, shows, clks, ecfg,
+                            plan=plan)
+
+    def _mean_dense_grads(self, gp: list[torch.Tensor]) -> list:
+        """The global mean of the ranks' dense grads (one flat all-reduce;
+        the grads themselves off a mesh)."""
+        if self.mesh is None:
+            return gp
+        flat = self.mesh.pmean(dense_sync.flat_tensor(gp))
+        out = [torch.empty_like(g) for g in gp]
+        dense_sync.unflatten_into(flat, out)
+        return out
+
+    def _opt_moments(self) -> list[torch.Tensor]:
+        """The dense optimizer's float state tensors (its moments)."""
+        out: list[torch.Tensor] = []
+
+        def walk(x):
+            if isinstance(x, (tuple, list)):
+                for v in x:
+                    walk(v)
+            elif isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, torch.Tensor) and x.is_floating_point():
+                out.append(x)
+
+        walk(self.dense_opt.state_leaves())
+        return out
+
+    @torch.no_grad()
+    def param_sync(self) -> None:
+        """kstep's parameter averaging (SyncParam, boxps_worker.cc:
+        481-521): one mean over the mesh of the flat dense parameters,
+        and with ``sync_dense_moment`` of the optimizer's moments."""
+        if self.mesh is None:
+            return
+        groups = [self.params]
+        if self.cfg.sync_dense_moment:
+            groups.append(self._opt_moments())
+        for ts in groups:
+            if ts:
+                dense_sync.unflatten_into(
+                    self.mesh.pmean(dense_sync.flat_tensor(ts)), ts)
+
+    @torch.no_grad()
+    def _pull_async_params(self) -> None:
+        """Async dense sync: the step trains on the table's latest
+        parameters (the pull of BoxPSAsynDenseTable)."""
+        flat = torch.from_numpy(self.dense_table.pull())
+        dense_sync.unflatten_into(flat.to(self.device), self.params)
 
     def train_step(self, table: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor, dense: torch.Tensor,
                    labels: torch.Tensor, plan=None, extras: tuple = (),
-                   defer: bool = False
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   defer: bool = False):
         """One training step on device tensors. Updates the dense params
-        in place and ``table`` too, unless ``defer``: the push operands
-        then go to the push stager and the table changes when
-        ``_dispatch_pending_apply`` launches them. Returns (loss, preds)
-        without a host sync."""
+        in place (per ``dense_sync_mode``) and ``table`` too, unless
+        ``defer``: the push operands then go to the push stager and the
+        table changes when ``_dispatch_pending_apply`` launches them.
+        Returns (loss, preds) without a host sync; on a mesh they are this
+        rank's slice's, and the pull's over-capacity count adds to
+        ``_dropped`` (a device scalar, read once a pass)."""
         lay = self.layout
         S, T = lay.num_slots, lay.total_len
         ecfg = self.store.cfg
         B = idx.shape[0]
         fused = self.pull_engine == "fused_gather_pool"
-        pulled, model_in = self._pull(table, idx, requires_grad=True)
+        mode = self.cfg.dense_sync_mode
+        if mode == "async":
+            self._pull_async_params()
+        pulled, model_in, dropped = self._pull(table, idx,
+                                               requires_grad=True,
+                                               plan=plan)
         logits = self.model(model_in, mask, dense, lay.segment_ids, S,
                             *extras)
         loss = F.binary_cross_entropy_with_logits(logits, labels)
@@ -626,6 +894,8 @@ class Trainer:
             sgrad = sharded.pooled_grad_tokens(gpulled, mask, self._seg, S)
         else:
             sgrad = gpulled[..., 2:].reshape(B * T, ecfg.grad_width)
+        if self.n_shards > 1 and self.cfg.scale_sparse_grad_by_global_mean:
+            sgrad = sgrad / self.n_shards
         maskf = mask.to(torch.float32)
         show_inc = maskf.reshape(-1)
         clk_inc = (maskf * labels[:, None]).reshape(-1)
@@ -634,22 +904,46 @@ class Trainer:
                                                  show_inc, clk_inc, plan)
             self._push_stager.put((idx, mask, labels, plan, ops))
         else:
-            sharded.push(table, idx.reshape(-1), sgrad, show_inc, clk_inc,
-                         ecfg, plan=plan)
-        self.dense_opt.step(gp)
+            self._push(table, idx.reshape(-1), sgrad, show_inc, clk_inc,
+                       plan=plan)
+        if mode == "kstep":
+            self.dense_opt.step(gp)          # local copy; param_sync later
+        elif mode == "async":
+            flat = dense_sync.flat_tensor(self._mean_dense_grads(gp))
+            self.dense_table.push(flat.detach().cpu().numpy())
+        else:
+            self.dense_opt.step(self._mean_dense_grads(gp))
+        self._note_dropped(dropped)
         return loss.detach(), torch.sigmoid(logits.detach())
+
+    def _note_dropped(self, dropped) -> None:
+        if dropped is not None:
+            self._dropped = (dropped if self._dropped is None
+                             else self._dropped + dropped)
+
+    def _take_dropped(self) -> int:
+        """The pass's dropped tokens over the whole mesh (one host read
+        and one reduction), and reset the count."""
+        d, self._dropped = self._dropped, None
+        local = 0 if d is None else int(d.item())
+        if self.mesh is None:
+            return local
+        return int(self.mesh.host_psum(np.array([local], np.int64))[0])
 
     @torch.no_grad()
     def eval_step(self, table: torch.Tensor, idx: torch.Tensor,
                   mask: torch.Tensor, dense: torch.Tensor,
-                  extras: tuple = ()) -> torch.Tensor:
+                  extras: tuple = ()):
         """Predictions of one batch (the JAX eval step, trainer.py:894):
-        the training step's pull and the model's forward; nothing is
-        pushed or updated."""
+        the training step's pull (on a mesh routed without a plan, at the
+        eval capacity) and the model's forward; nothing is pushed or
+        updated; the over-capacity count adds to ``_dropped``."""
         lay = self.layout
-        _, model_in = self._pull(table, idx)
+        _, model_in, dropped = self._pull(table, idx,
+                                          capacity=self._eval_capacity)
         logits = self.model(model_in, mask, dense, lay.segment_ids,
                             lay.num_slots, *extras)
+        self._note_dropped(dropped)
         return torch.sigmoid(logits)
 
     # ------------------------------------------------------------------
@@ -688,6 +982,9 @@ class Trainer:
         pass_t0 = time.perf_counter()
         stage0 = self.timers.snapshot()
         applies0 = self.push_applies
+        if self._wire_controller is not None and self._wire_stats0 is None:
+            # the controller observes whole passes' counter deltas
+            self._wire_stats0 = monitor.STATS.snapshot()
         try:
             out = self._train_pass_impl(dataset, metrics, preload_keys,
                                         skip_steps)
@@ -703,6 +1000,7 @@ class Trainer:
             examples=out["steps"] * self.cfg.global_batch_size,
             seconds=time.perf_counter() - pass_t0,
             loss_mean=out.get("loss_mean"), auc=out.get("auc"),
+            routed_dropped=out.get("routed_dropped"),
             push_applies=(self.push_applies - applies0) or None,
             pull_engine=self.pull_engine,
             push_engine=(self.resolved_push_engine(self.last_ws)
@@ -710,10 +1008,49 @@ class Trainer:
             boundary_seconds=round(fm.last_boundary_seconds, 6),
             boundary_split={k: round(v, 6) for k, v
                             in fm.last_boundary_split.items()},
+            table_layout=self.table_layout,
+            exchange_wire=self.exchange_wire,
+            exchange_topology=self.exchange_topology,
             table_tiering=self.table_tiering)
         if owned_pass:
+            self.adapt_wire_boundary()
             hub.end_pass(metrics=metrics)
         return out
+
+    def adapt_wire_boundary(self) -> str | None:
+        """The pass-boundary wire adaptation (``flags.exchange_adaptive``,
+        JAX trainer.py:1480): the controller costs the wires on this
+        pass's own exchange counter deltas and, on a switch, the next
+        pass's steps push in the new wire. Returns the next pass's wire,
+        or None when the controller is off or saw no pass."""
+        ctl = self._wire_controller
+        stats0, self._wire_stats0 = self._wire_stats0, None
+        if ctl is None or stats0 is None:
+            return None
+        now = monitor.STATS.snapshot()
+
+        def delta(name):
+            return int(now.get(name, 0.0) - stats0.get(name, 0.0))
+
+        # every rank adapts on the world's counters, so all switch alike
+        tot = self.mesh.host_psum(np.array(
+            [delta("exchange.tokens"), delta("exchange.unique_lanes"),
+             delta("exchange.overflow_retries")
+             + delta("exchange.overflow_dropped")], np.int64))
+        decision = ctl.observe(tokens=int(tot[0]), unique_lanes=int(tot[1]),
+                               overflow_retries=int(tot[2]))
+        self._last_wire_decision = decision
+        if decision["switched"]:
+            monitor.event(
+                "exchange_wire_adapted", type="exchange",
+                prev=decision["prev_wire"], wire=decision["wire"],
+                streak=decision["streak"], reason=decision["reason"],
+                costs={w: round(c, 1)
+                       for w, c in decision["costs"].items()})
+            monitor.counter_add("exchange.wire_switches")
+            self.exchange_wire = decision["wire"]
+        monitor.hub().record_train(exchange_wire_next=decision["wire"])
+        return decision["wire"]
 
     def _train_pass_impl(self, dataset, metrics,
                          preload_keys: np.ndarray | None,
@@ -738,6 +1075,11 @@ class Trainer:
         self.last_ws = ws
         self._overlap_ws = ws if self.push_overlap else None
         self.midpass_saves = []
+        self._preplan_capacity(dataset, ws)
+        self._dropped = None
+        mode = cfg.dense_sync_mode
+        if mode == "async":
+            self.dense_table.start()
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         losses: list[torch.Tensor] = []
         skip = int(skip_steps)
@@ -782,6 +1124,9 @@ class Trainer:
                             ws.table, idx, mask, dense, labels, plan,
                             extras, defer=self.push_overlap)
                         pass_step += 1
+                        if (mode == "kstep"
+                                and pass_step % cfg.param_sync_step == 0):
+                            self.param_sync()
                     with self.timers("auc"), monitor.span("auc_update"):
                         auc.update(preds, labels)
                         if metrics is not None:
@@ -820,6 +1165,13 @@ class Trainer:
                 # pending — land it before anything reads or persists
                 # the table, also when a batch raised
                 self._dispatch_pending_apply(ws.table)
+            if mode == "async":
+                # every pushed grad applied; the model holds the table's
+                # parameters
+                self.dense_table.flush()
+                self._pull_async_params()
+            elif mode == "kstep" and sys.exc_info()[0] is None:
+                self.param_sync()            # the end-of-pass sync
             fm.pass_closed()
             if dump_stream is not None:
                 # flush the tail batch even when the pass raised (a nan
@@ -837,14 +1189,18 @@ class Trainer:
         with self.timers("drain"):
             lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
                   if losses else np.zeros(0))
+        if self.mesh is not None:
+            # the global-mean loss of each step (the JAX step's pmean)
+            lv = self.mesh.host_psum(lv) / self.n_shards
         # every launched apply has drained: release the retired slot
         self._push_stager.clear()
-        out = auc.compute()
+        out = self._auc_out(auc)
         out["loss_first"] = float(lv[0]) if len(lv) else float("nan")
         out["loss_last"] = float(lv[-1]) if len(lv) else float("nan")
         out["loss_mean"] = float(np.mean(lv)) if len(lv) else float("nan")
         out["steps"] = len(lv)
         out["step_seconds"] = step_seconds
+        out["routed_dropped"] = self._check_dropped(self._take_dropped())
         if self.store.boundary_owner is None:
             # a trainer-owned pass: no BoxPS.end_pass will run the tier
             # re-scoring and the replica refresh, so they run here, the
@@ -942,18 +1298,42 @@ class Trainer:
         read without growing or dirtying the store, nothing is pushed and
         the dense params stay; the tail batch is padded and masked out of
         the AUC instead of dropped. Returns the AUC stats plus steps,
-        examples, step_seconds (the batch loop, device work included)
-        and seconds (the whole pass)."""
-        cfg = self.cfg
-        bs = cfg.global_batch_size
-        t0 = time.perf_counter()
+        examples, routed_dropped, step_seconds (the batch loop, device
+        work included) and seconds (the whole pass). On a mesh the AUC
+        and the examples are the world's. A routed pass that dropped
+        tokens has already grown the eval capacity (``_check_dropped``)
+        and re-runs in place, so the numbers returned are a lossless
+        run's (the factor caps at the shard count, where nothing
+        drops)."""
         # predictions must see every trained row: a pending deferred
         # apply lands first
         self.flush_push()
+        out = self._eval_pass_once(dataset)
+        for attempt in range(8):      # the factor doubles up to n_shards
+            if (not out["routed_dropped"] or flags.routed_drop_fatal
+                    or not flags.routed_drop_adapt):
+                break
+            faultpoint.hit("exchange.eval.pre_retry")
+            monitor.counter_add("exchange.overflow_retries")
+            monitor.event("exchange_overflow_retry", type="lifecycle",
+                          dropped=int(out["routed_dropped"]),
+                          capacity_factor=float(self._eval_capacity),
+                          attempt=attempt + 1)
+            out = self._eval_pass_once(dataset)
+        monitor.event("eval_pass", auc=float(out.get("auc", float("nan"))),
+                      routed_dropped=out["routed_dropped"])
+        return out
+
+    def _eval_pass_once(self, dataset) -> dict[str, float]:
+        cfg = self.cfg
+        bs = cfg.global_batch_size
+        t0 = time.perf_counter()
         ws = self.feed_mgr.begin_pass(dataset.unique_keys(), test_mode=True)
+        self._preplan_capacity(dataset, ws, drop_last=False, for_eval=True)
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
-        rows = torch.arange(bs, device=self.device)
+        rows = torch.arange(bs // self.n_shards, device=self.device)
         steps = examples = 0
+        self._dropped = None
         t_loop = time.perf_counter()
         for pbs, staged, _ in self._pack_iter(dataset, ws, bs,
                                               test_mode=True):
@@ -966,15 +1346,126 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         step_seconds = time.perf_counter() - t_loop
-        out = auc.compute()
+        out = self._auc_out(auc)
         out["steps"] = steps
-        out["examples"] = examples
+        out["examples"] = (examples if self.mesh is None else int(
+            self.mesh.host_psum(np.array([examples], np.int64))[0]))
         out["step_seconds"] = step_seconds
+        out["routed_dropped"] = self._check_dropped(self._take_dropped(),
+                                                    for_eval=True)
         out["seconds"] = time.perf_counter() - t0
-        # one card routes nothing, so nothing is ever dropped
-        monitor.event("eval_pass", auc=float(out.get("auc", float("nan"))),
-                      routed_dropped=0)
         return out
+
+    def _auc_out(self, auc: AucAccumulator) -> dict[str, float]:
+        """The pass's AUC stats: the world's histograms on a mesh."""
+        if self.mesh is None:
+            return auc.compute()
+        return auc.compute_global(self.mesh.collectives())
+
+    # ------------------------------------------------------------------
+    # routed capacity: preplan and the overflow policy
+    # ------------------------------------------------------------------
+    def _preplan_capacity(self, dataset, ws: PassWorkingSet,
+                          drop_last: bool = True,
+                          for_eval: bool = False) -> None:
+        """Size the all-to-all capacity before the first step (JAX
+        trainer.py:1800): scan the pass's global batches once on the host
+        (the translate the pack thread runs later; its touch marks are
+        idempotent), histogram the routed lanes per (source rank,
+        destination shard) — unique tokens when routing dedups, NULL
+        tokens never — and grow the factor where the measured maximum
+        would drop. Every rank scans the same global batches, so every
+        rank lands on the same factor. Factors go in steps of 0.25 and
+        never shrink; an eval scan grows only the eval capacity. The
+        scan is memoized on the dataset (its size, the pass rows, the
+        tail rule and the routing mode key it)."""
+        n_dev = self.n_shards
+        if n_dev <= 1 or not flags.routed_capacity_preplan:
+            return
+        bs = self.cfg.global_batch_size
+        dedup_route = flags.pullpush_dedup_keys
+        n_ex = getattr(dataset, "num_examples", None)
+        memo_key = (n_ex, ws.global_rows, drop_last, dedup_route,
+                    getattr(dataset, "_records_version", None))
+        memo = (getattr(dataset, "_pbt_preplan_need", None)
+                if n_ex is not None else None)
+        if memo is not None and memo[0] == memo_key:
+            capf = memo[1]
+        else:
+            bpd = bs // n_dev
+            n_local = bpd * self.layout.total_len
+            max_c = 0
+            for pb in dataset.batches(bs, drop_last=drop_last):
+                if len(pb.floats) < bs:
+                    pb = pb.pad_to(bs)
+                per_dev = ws.translate(pb.ids, pb.mask).reshape(n_dev, -1)
+                for d in range(n_dev):
+                    row = per_dev[d]
+                    if dedup_route:
+                        row = np.unique(row)
+                    row = row[row != 0]       # NULL tokens never route
+                    if len(row):
+                        c = np.bincount(ws.shard_of(row), minlength=n_dev)
+                        max_c = max(max_c, int(c[:n_dev].max()))
+            if max_c == 0:
+                return
+            # _capacity gives ceil(n_local * factor / n_dev) lanes a
+            # destination; dedup only shrinks the counts
+            need = max_c * n_dev / n_local
+            capf = min(float(n_dev), max(1.0, -(-need * 4 // 1) / 4))
+            if n_ex is not None and hasattr(dataset, "__dict__"):
+                # (a dataset type that cannot carry the memo re-plans)
+                dataset._pbt_preplan_need = (memo_key, capf)
+        if for_eval:
+            if capf > self._eval_capacity:
+                monitor.counter_add("trainer.capacity_preplanned_eval", 1)
+                self._eval_capacity = capf
+        elif capf > self.cfg.capacity_factor:
+            monitor.counter_add("trainer.capacity_preplanned", 1)
+            self.cfg.capacity_factor = capf
+            self._eval_capacity = max(self._eval_capacity, capf)
+
+    def _check_dropped(self, total: int, for_eval: bool = False) -> int:
+        """The capacity-drop policy: never silent (JAX trainer.py:1930;
+        the reference sizes its buffers dynamically and never drops).
+        Counts go to ``trainer.routed_dropped`` (and on the sharded
+        layout ``exchange.overflow_dropped`` with an ``exchange_overflow``
+        event); ``flags.routed_drop_fatal`` raises; by default the factor
+        doubles for the next pass (the eval factor only, for an eval
+        pass), up to the shard count. Returns ``total``."""
+        if not total:
+            return 0
+        monitor.counter_add("trainer.routed_dropped", total)
+        monitor.event("routed_dropped", total=total, for_eval=for_eval)
+        capf = (self._eval_capacity if for_eval
+                else self.cfg.capacity_factor)
+        if self.table_layout == "sharded":
+            monitor.counter_add("exchange.overflow_dropped", total)
+            monitor.event("exchange_overflow", total=total,
+                          capacity_factor=float(capf), for_eval=for_eval)
+        msg = (f"{total} tokens exceeded all_to_all capacity this "
+               f"{'eval ' if for_eval else ''}pass "
+               f"(capacity_factor={capf}); their pulls returned zero "
+               f"rows" + ("" if for_eval
+                          else " and their grads were dropped"))
+        if flags.routed_drop_fatal:
+            raise RuntimeError(msg)
+        if flags.routed_drop_adapt:
+            grown = min(float(self.n_shards), capf * 2.0)
+            if for_eval:
+                self._eval_capacity = grown
+            else:
+                self.cfg.capacity_factor = grown
+                self._eval_capacity = max(self._eval_capacity, grown)
+            msg += f"; raising capacity_factor to {grown} for the next pass"
+        warnings.warn(msg)
+        return total
+
+    def set_shard_ownership(self, ownership) -> None:
+        """Bind the per-host shard ownership (``distributed.
+        ShardOwnership``) on the feed manager: every feed builds only the
+        keys of this rank's store shards."""
+        self.feed_mgr.set_ownership(ownership)
 
     # ------------------------------------------------------------------
     # dense state and snapshots
@@ -989,10 +1480,28 @@ class Trainer:
         faultpoint.hit("trainer.push_apply.pre")
         idx, mask, labels, plan, ops = item
         with monitor.span("push_apply"):
-            sharded.apply_deferred(table, idx, mask, labels, plan, ops,
-                                   self.store.cfg)
+            if self.n_shards == 1:
+                sharded.apply_deferred(table, idx, mask, labels, plan, ops,
+                                       self.store.cfg)
+            else:
+                self._apply_deferred_routed(table, idx, mask, labels, plan,
+                                            ops)
         self.push_applies += 1
         monitor.counter_add("trainer.push_applies")
+
+    def _apply_deferred_routed(self, table, idx, mask, labels, plan,
+                               ops) -> None:
+        """The deferred push on a mesh (JAX ``_build_apply_fn``): lanes
+        the step premerged onto the plan's unique rows route as
+        premerged; per-token operands replay the inline push with the
+        increments recomputed from the staged mask and labels."""
+        g0, g1, g2 = ops
+        if isinstance(plan, sharded.DedupPlan) and g1.numel():
+            self._push(table, plan.uniq, g0, g1, g2, premerged=True)
+            return
+        maskf = mask.to(torch.float32)
+        self._push(table, idx.reshape(-1), g0, maskf.reshape(-1),
+                   (maskf * labels[:, None]).reshape(-1), plan=plan)
 
     def flush_push(self) -> int:
         """Apply a pending deferred sparse push to the live working set
@@ -1028,15 +1537,30 @@ class Trainer:
 
     def dense_state(self) -> dict:
         """{"params", "opt_state"} as NumPy trees in the JAX layout: what
-        a pass snapshot's dense.npz holds."""
+        a pass snapshot's dense.npz holds. Under async dense sync the
+        optimizer state is the host table's state dict, as in the JAX
+        package."""
+        if self.dense_table is not None:
+            return {"params": weights.model_params(self.model),
+                    "opt_state": self.dense_table.state_dict()}
         return weights.dense_state(self.model, self.dense_opt)
 
     def restore_dense(self, params, opt_state=None) -> None:
         """Load dense params and, when given, the optimizer state (JAX
-        trainer.py:2088, allreduce mode — the only mode ported) onto the
-        trainer's device."""
-        weights.load_dense_state(self.model, self.dense_opt, params,
-                                 opt_state)
+        trainer.py:2088) onto the trainer's device. Async: the state is
+        the host table's (fresh zero moments when omitted); kstep: every
+        rank loads the same (collapsed) parameters."""
+        if self.dense_table is None:
+            weights.load_dense_state(self.model, self.dense_opt, params,
+                                     opt_state)
+            return
+        weights.load_model_params(self.model, params)
+        if opt_state is None:
+            flat = dense_sync.flatten_dense(self.params)
+            opt_state = {"params": flat, "mom1": np.zeros_like(flat),
+                         "mom2": np.zeros_like(flat),
+                         "steps": np.asarray([0])}
+        self.dense_table.load_state_dict(opt_state)
 
     def save_checkpoint(self, checkpointer, box=None, metrics=None,
                         pass_id: int | None = None) -> str:

@@ -28,6 +28,15 @@ from __future__ import annotations
 import os
 
 POINTS: tuple[str, ...] = (
+    # embedding/store.ShardedEmbeddingStore saves: about to write one
+    # shard's chain (the top-level shards.json still describes the
+    # previous save), and every shard saved with the top manifest not yet
+    # committed — a kill at either rolls the whole save back.
+    "exchange.store.pre_shard_save",
+    "exchange.store.pre_manifest",
+    # train/trainer.eval_pass: a routed eval pass dropped tokens and is
+    # about to re-run at the grown capacity factor (eval is stateless).
+    "exchange.eval.pre_retry",
     # utils/checkpoint.save_tree: dense tmp file written + fsynced,
     # os.replace not yet run — the final name still holds the previous
     # file (or nothing).

@@ -298,7 +298,10 @@ def test_data_norm_and_summary_update_match_reference():
 
 
 def test_summary_update_across_replicas_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """summary_update(axis_name=) is ported: it sums the batch over the
+    named axis of the mesh it is given (two ranks in
+    tests/test_torch_distributed.py), so without the mesh it refuses."""
+    with pytest.raises(ValueError, match="mesh"):
         cross_norm.summary_update(cross_norm.init_summary(2),
                                   torch.zeros(3, 2), axis_name="dp")
 

@@ -467,9 +467,14 @@ def test_helpers_and_unported_options():
     np.testing.assert_array_equal(rows, t[[3, 1], :cfg.row_width].numpy())
     assert nbytes == transfer_bytes(cfg, 2) == 2 * cfg.row_width * 4
     store = _store("port")
-    for kw in (dict(mesh=object()), dict(ownership=object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            FeedPassManager(store, device="cpu", **kw)
+    # the mesh and per-host ownership are ported: an ownership needs the
+    # sharded store's partition, and an unsharded store refuses it
+    from paddlebox_tpu_torch.distributed import ShardOwnership
+    owned = FeedPassManager(store, device="cpu",
+                            ownership=ShardOwnership(2, 2, 0))
+    with pytest.raises(TypeError, match="shard_of"):
+        owned.begin_pass(_keys(0, 10))
+    owned.close()
     mgr = FeedPassManager(store, device="cpu")
     # the replica tier is ported: set_replica attaches and None detaches
     replica = object()

@@ -1,5 +1,8 @@
 """The PyTorch port stands alone: every module of it (found by walking
-the package) imports with jax, jaxlib, optax and paddlebox_tpu blocked,
+the package; the mesh's ``parallel`` and ``distributed`` modules among
+them) and the multi-rank tests' rank program (tests/
+torch_multirank_worker.py) import with jax, jaxlib, optax and
+paddlebox_tpu blocked,
 it parses through its native parser and runs a MultiSlotDataGenerator
 pipe command (itself blocked the same way) there, the serving CLI
 starts there, it names none of them in any import, and its entry points
@@ -35,7 +38,7 @@ sys.meta_path.insert(0, Blocker())
 """
 
 _IMPORTS = _BLOCKER + """
-import importlib, pkgutil
+import importlib, os, pkgutil
 import paddlebox_tpu_torch
 # every module of the package, found by walking it: a new module cannot
 # escape the check
@@ -51,8 +54,24 @@ for name in ("paddlebox_tpu_torch.serving.server",
              "paddlebox_tpu_torch.embedding.quant",
              "paddlebox_tpu_torch.embedding.spill_store",
              "paddlebox_tpu_torch.embedding.tiering",
-             "paddlebox_tpu_torch.embedding.replica_cache"):
+             "paddlebox_tpu_torch.embedding.replica_cache",
+             "paddlebox_tpu_torch.embedding.exchange",
+             "paddlebox_tpu_torch.parallel.mesh",
+             "paddlebox_tpu_torch.parallel.dense_sync",
+             "paddlebox_tpu_torch.distributed.store",
+             "paddlebox_tpu_torch.distributed.collectives",
+             "paddlebox_tpu_torch.distributed.ownership",
+             "paddlebox_tpu_torch.distributed.role_maker",
+             "paddlebox_tpu_torch.distributed.launch"):
     assert name in walked, (name, walked)
+# the multi-rank tests' rank program and its helpers: a spawned rank
+# imports no JAX
+tests_dir = os.path.join(os.path.dirname(paddlebox_tpu_torch.__path__[0]),
+                         "tests")
+sys.path.insert(0, tests_dir)
+for name in ("torch_multirank_common", "torch_multirank_spawn",
+             "torch_multirank_worker"):
+    importlib.import_module(name)
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
 
@@ -117,7 +136,9 @@ def _port_sources():
     for root, dirs, files in os.walk(PKG_DIR):
         dirs[:] = [d for d in dirs if d != "_build"]    # build outputs
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    return sorted(out) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(out) + [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", f"torch_multirank_{m}.py")
+        for m in ("common", "spawn", "worker")]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

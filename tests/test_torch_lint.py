@@ -49,7 +49,9 @@ def test_port_is_lint_clean():
     # monitor.context
     rules = [w[0] for w in out["waived"]]
     assert "thread-context" not in rules, out["waived"]
-    # 13: the remote reads' early-exit pipe, CommandFS's between-attempt
+    # 15: the remote reads' early-exit pipe, CommandFS's between-attempt
     # cleanup and the checkpoint mirror's own snapshots.donefile writes
-    # (the reference's waivers at the same sites) joined the 7 before
-    assert len(rules) == 13, out["waived"]
+    # (the reference's waivers at the same sites) joined the 7 before,
+    # then the rendezvous FileStore's two (distributed/store.py, copied
+    # with the reference's waivers at the same sites)
+    assert len(rules) == 15, out["waived"]

@@ -11,7 +11,8 @@ package on the same numpy-seeded operations.
   access stream, for the ``freq`` and ``direct`` policies at assoc 1
   and 4;
 - ``autotune_cache_rows``, ``end_pass_rebalance``, ``store_from_flags``
-  (``n_shards > 1`` raises), ``describe`` and ``spill_stats``;
+  (``n_shards > 1`` builds a sharded store of spill shards),
+  ``describe`` and ``spill_stats``;
 - the two fault windows leave the authoritative rows intact;
 - two Trainer passes on a spill store whose cache holds under half the
   keys, bit-equal to the same passes on a ``HostEmbeddingStore``.
@@ -237,8 +238,12 @@ def test_autotune_rebalance_and_flags(tmp_path, monkeypatch):
     assert s["cache_misses"] == 64 and s["assoc"] == 4
     assert tiering.spill_stats(HostEmbeddingStore(cfg)) is None
     assert tiering.fault_in_seconds(st) > 0.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tiering.store_from_flags(cfg, n_shards=2)
+    # n_shards > 1: a sharded store, every shard spill-backed in its own
+    # shard-SS directory
+    sh = tiering.store_from_flags(cfg, n_shards=2)
+    assert sh.n_shards == 2 and tiering.describe(sh) == "sharded+spill"
+    sh.lookup_or_init(_keys(0, 64))
+    assert os.path.exists(tmp_path / "root" / "shard-01" / "rows.dat")
     monkeypatch.setattr(flags, "table_tiering", "ssd")
     with pytest.raises(ValueError, match="table_tiering"):
         tiering.store_from_flags(cfg)
