@@ -216,7 +216,35 @@ Phases, each of which exits non-zero on failure:
    and the two shards' rows within LOSS_TOL / TABLE_TOL of a one-rank run
    of the same global batches here. Prints each rank's step ms,
    all-to-all bytes a step, the gloo exchange's host-staged ms a step
-   (no NCCL number) and the routed step's share of device busy time.
+   (no NCCL number) and the routed step's share of device busy time;
+16. the resilient world, DeepFM at full width, ranks started as this
+   script with --resilience-worker (tests/torch_resilience_worker.py,
+   no JAX) on cuda:0 with a FileStore in a temp dir, every training
+   pass counted between a reset just before and a read just after (the
+   sums, every rank's, are the kernels line's phase16_launches): (a)
+   two ranks load halves of phase 5's one-hot records (ins_id 1..n, as
+   .pbar archives) over TcpShuffleService, ins_id-routed then random:
+   each round's union is the loaded multiset and every record sits on
+   its route's rank; each rank trains a pass on each arrival; (b) two
+   ranks write three checkpointed one-hot passes of 8 steps, rank 1's
+   newest dense.npz is truncated, and fresh processes'
+   Trainer.resume(collectives=) elect pass 2 on both and restore each
+   rank's live pass-2 state bit for bit; (c) two ranks train member
+   shards of one 2 x 16-step dataset with mid-pass snapshots every 4
+   steps (steps paused 0.4 s in generation 0, lost_after 3 s); rank 1
+   dies at trainer.step.pre at step 2 of pass 2; rank 0 must raise
+   PeerLostError naming it, drain-snapshot mid-pass, re-form generation
+   1 at world 1, resume, re-route rank 1's unconsumed tail and finish 3
+   passes with every plane bit-equal to the simulated shrink (the push
+   engine forced to scatter_accumulate); (d) two PSServer processes
+   (python -m paddlebox_tpu_torch.distributed.ps) hold the table: three
+   one-hot passes and a 4-step multi-hot pass through
+   RemoteEmbeddingStore and BoxPS on the card agree with the same
+   passes on a HostEmbeddingStore (LOSS_TOL / TABLE_TOL), then save ->
+   shrink -> load restores the rows bit for bit. Prints each exchange's
+   bytes and seconds, each save and resume, the recovery's and the
+   re-formation's seconds, the heartbeat's beat gaps, and each PS pass's
+   pull and write-back bytes and seconds.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -4342,6 +4370,339 @@ def mesh_phase(torch, kernels, card) -> dict[str, int]:
           f"{t1 - t0:.1f}, world {MESH_WORLD} {time.perf_counter() - t1:.1f}")
     return total
 
+# ---------------------------------------------------------------------------
+# phase 16: the resilient world
+# ---------------------------------------------------------------------------
+
+RES_STEPS = 8              # (b): steps a pass a rank
+ELASTIC_STEPS = 16         # (c): steps a rank a pass at world 2
+ELASTIC_LOST_S = 3.0       # (c): the watchdog's lost_after after pass 1
+ELASTIC_SLEEP_S = 0.4      # (c): the generation-0 step pause that lands
+                           # the survivor's detection inside its pass 2
+PS_MULTI_STEPS = 4         # (d): the multi-hot pass's steps
+
+
+def res_spec(lay, **kw) -> dict:
+    """A torch_resilience_worker spec at bench.py's full width on the
+    card."""
+    spec = {"device": "cuda", "slots": S, "dense": DENSE,
+            "hidden": list(HIDDEN), "dim": lay.dim, "batch": B,
+            "max_len": lay.max_len, "n_keys": lay.n_keys}
+    spec.update(kw)
+    return spec
+
+
+def res_worker():
+    """tests/torch_resilience_worker.py, this checkout's rank program of
+    the resilient world (no JAX); its ranks start as this script with
+    --resilience-worker. It lives beside the tests on purpose: like the
+    JAX package's tests/elastic_worker.py it is the elastic recovery loop
+    a job writes around the package's steps, and the CPU tests and this
+    phase drive that one loop."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_resilience_worker as w
+    w.RANK_CMD = [sys.executable, os.path.abspath(__file__),
+                  "--resilience-worker"]
+    return w
+
+
+def res_shuffle(torch, kernels, card, total: dict) -> None:
+    """(a) two ranks load halves of phase 5's one-hot records over
+    TcpShuffleService, ins_id-routed then random, and train a pass on
+    each arrival."""
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    w = res_worker()
+    keys, rng = draw_keys(ONEHOT.n_keys)
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=1)
+    records = make_records(schema, ONEHOT.steps * B, keys, rng, 1)
+    records.ins_id = np.arange(1, records.num + 1, dtype=np.uint64)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        infos = w.shuffle_drill(d, res_spec(ONEHOT, shuffle_seed=11),
+                                records, device_ranks=[0, 0])
+        t_world = time.perf_counter() - t0
+    for r, info in enumerate(infos):
+        check(not info["jax_loaded"], f"(a) rank {r} loaded jax")
+        steps = sum(x["steps"] for x in info["rounds"].values())
+        expect_launches(f"(a) rank {r}", info["launches"],
+                        {"binned_merge_acc": steps, "merge_update": steps})
+        add_counts(total, info["launches"])
+        for routing, x in info["rounds"].items():
+            print(f"  (a) rank {r}, {routing} routing ({card}): received "
+                  f"{len(x['ins_id'])} records | exchange sent "
+                  f"{x['sent_bytes']} B, received {x['received_bytes']} B "
+                  f"in {x['seconds']:.3f} s (load {x['load_seconds']:.3f} "
+                  f"s) | pass: {x['steps']} steps, loss mean "
+                  f"{x['loss_mean']:.6f}")
+    print(f"  (a) {records.num} records: each round's union is the loaded "
+          f"multiset and every record sits on its route's rank ok | "
+          f"world {t_world:.1f} s")
+
+
+def res_resume(torch, kernels, card, total: dict) -> None:
+    """(b) two ranks write three checkpointed passes; rank 1's newest
+    dense.npz is truncated; fresh processes elect pass 2 through
+    Trainer.resume(collectives=) and restore it bit for bit."""
+    w = res_worker()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        writers, restorers = w.resume_drill(
+            d, res_spec(ONEHOT, steps=RES_STEPS), device_ranks=[0, 0])
+        t_world = time.perf_counter() - t0
+    for r in range(2):
+        expect_launches(f"(b) rank {r}", writers[r]["launches"],
+                        {"binned_merge_acc": 3 * RES_STEPS,
+                         "merge_update": 3 * RES_STEPS})
+        add_counts(total, writers[r]["launches"])
+        sv = [writers[r][f"save_{p}"] for p in (1, 2, 3)]
+        saves = " ".join(f"pass {p}: {x.get('seconds', 0):.3f} s "
+                         f"{x.get('bytes', 0)} B"
+                         for p, x in zip((1, 2, 3), sv))
+        print(f"  (b) rank {r} ({card}): saves {saves} | resume(collectives=) "
+              f"elected {restorers[r]['elected']} (intact "
+              f"{restorers[r]['intact']}) in "
+              f"{restorers[r]['resume_seconds']:.3f} s | restored state "
+              f"bit-equal to the live pass-2 state ok")
+    print(f"  (b) both worlds {t_world:.1f} s")
+
+
+def res_elastic(torch, kernels, card, total: dict) -> None:
+    """(c) two ranks train member shards of one dataset; rank 1 dies at
+    trainer.step.pre in pass 2; rank 0 names it, drain-snapshots,
+    re-forms generation 1 at world 1, resumes, re-routes rank 1's tail
+    and finishes; its planes against the simulated shrink, bit for bit
+    (push engine forced to the deterministic scatter_accumulate)."""
+    w = res_worker()
+    spec = res_spec(ONEHOT, kind="elastic", n=2 * ELASTIC_STEPS * B,
+                    passes=3, midpass=4, lost_s=ELASTIC_LOST_S,
+                    step_sleep=ELASTIC_SLEEP_S, hb_interval=0.2,
+                    reform_timeout=10.0, push_engine="scatter_accumulate")
+    with tempfile.TemporaryDirectory() as d:
+        live, sim = os.path.join(d, "live"), os.path.join(d, "sim")
+        t0 = time.perf_counter()
+        codes, errs = w.run_world(live, spec, 2, {
+            "PBTPU_FAULTPOINT": "trainer.step.pre",
+            "PBTPU_FAULTPOINT_AFTER": str(ELASTIC_STEPS + 1),
+            "PBTPU_FAULTPOINT_ONLY_RANK": "1"}, timeout_s=600,
+            device_ranks=[0, 0])
+        t_live = time.perf_counter() - t0
+        check(codes == [0, 137], f"(c) ranks exited {codes}: {errs}")
+        info = w.read_info(live, 0)
+        err = info["peer_error"] or {}
+        check(err.get("type") == "PeerLostError" and err.get("ranks") == [1]
+              and err.get("pass") == 2,
+              f"(c) rank 0's failure {err}, expected PeerLostError [1] in "
+              f"pass 2")
+        drain = info["drain_snapshot"]
+        check(drain is not None and 0 < drain["mid_steps"] < ELASTIC_STEPS,
+              f"(c) no mid-pass drain snapshot: {drain}")
+        m = drain["mid_steps"]
+        check((info["gen"], info["members"]) == (1, [0]),
+              f"(c) formed gen {info['gen']} members {info['members']}")
+        check(info["elected"] == [1, m], f"(c) elected {info['elected']}")
+        resize = info["world_resize"]
+        check(len(resize) == 1 and resize[0]["departed"] == [1]
+              and resize[0]["to_world"] == 1, f"(c) world_resize {resize}")
+        check(not info["jax_loaded"], "(c) rank 0 loaded jax")
+        t1 = time.perf_counter()
+        codes, errs = w.run_world(sim, dict(spec, sim={
+            "orig_members": [0, 1], "dead": [1], "elected": [1, m]}), 1,
+            timeout_s=600, device_ranks=[0])
+        t_sim = time.perf_counter() - t1
+        check(codes == [0], f"(c) the simulated shrink exited {codes}: "
+              f"{errs}")
+        sinfo = w.read_info(sim, 0)
+        with np.load(os.path.join(live, "out_0.npz")) as a, \
+                np.load(os.path.join(sim, "out_0.npz")) as b:
+            check(sorted(a.files) == sorted(b.files), "(c) planes differ")
+            for k in b.files:
+                check(np.array_equal(a[k], b[k]), f"(c) plane {k} of the "
+                      f"recovered run differs from the simulated shrink's")
+            n_rows = len(b["keys"])
+    for label, launches in (("live", info["launches"]),
+                            ("simulated", sinfo["launches"])):
+        check(launches["scatter_accumulate"] > 0
+              and launches["binned_merge_acc"] == 0,
+              f"(c) {label} launches {launches}")
+        add_counts(total, launches)
+    j0, j1 = info["jitter"], info.get("jitter_final", {})
+    print(f"  (c) elastic shrink ({card}): rank 1 killed at step 2 of pass 2 "
+          f"(exit 137) | rank 0: {err['type']} naming {err['ranks']} after "
+          f"{err['steps']} steps of pass 2 | drain snapshot at step {m} | "
+          f"recover_world {info['recover_seconds']:.3f} s (drain, reform, "
+          f"election, restore), of which the re-formation "
+          f"{resize[0]['seconds']:.3f} s (world_resize, 2 -> 1, gen 1) | "
+          f"elected "
+          f"{info['elected']} | rank 1's tail re-routed, 3 passes finished "
+          f"| {n_rows} rows, dense, metric, step and pass planes bit-equal "
+          f"to the simulated shrink ok")
+    print(f"  (c) heartbeat jitter ({card}): generation 0, interval "
+          f"{j0.get('interval_s')} s, {j0.get('beats')} beats, gap mean "
+          f"{j0.get('mean_gap_s', float('nan')):.4f} p99 "
+          f"{j0.get('p99_gap_s', float('nan')):.4f} max "
+          f"{j0.get('max_gap_s', float('nan')):.4f} s | generation 1: "
+          f"{j1.get('beats')} beats, max gap "
+          f"{j1.get('max_gap_s', float('nan')):.4f} s | launches live "
+          f"{info['launches']}, simulated {sinfo['launches']} | live world "
+          f"{t_live:.1f} s, simulated {t_sim:.1f} s")
+
+
+def ps_pass_io(before: dict, after: dict) -> dict:
+    out = {}
+    for cmd in ("pull_rows", "write_rows"):
+        a, b = before.get(cmd, {}), after.get(cmd, {})
+        out[cmd] = {k: b.get(k, 0) - a.get(k, 0)
+                    for k in ("calls", "sent_bytes", "recv_bytes",
+                              "seconds")}
+    return out
+
+
+def res_ps(torch, kernels, card, total: dict) -> None:
+    """(d) two PSServer processes hold the table: three one-hot passes
+    and a multi-hot one through RemoteEmbeddingStore and BoxPS on the
+    card, against the same passes on a HostEmbeddingStore; then save ->
+    shrink -> load."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.distributed.ps import (PSClient,
+                                                    RemoteEmbeddingStore)
+    from paddlebox_tpu_torch.fleet import BoxPS
+    procs, client = [], None
+    try:
+        for _ in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "paddlebox_tpu_torch.distributed.ps",
+                 "--port", "0"], stdout=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        eps = []
+        for p in procs:
+            line = p.stdout.readline()
+            check(line.startswith("ps server listening on "),
+                  f"(d) a server printed {line!r}")
+            host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
+            eps.append((host, int(port)))
+        client = PSClient(eps, timeout_s=300)
+        for lay, passes, steps in ((ONEHOT, 3, ONEHOT.steps),
+                                   (MULTI, 1, PS_MULTI_STEPS)):
+            keys, _ = draw_keys(lay.n_keys)
+            runs = {}
+            for kind in ("remote", "host"):
+                fn = ((lambda cfg, lay=lay: RemoteEmbeddingStore(
+                    client, lay.name, cfg)) if kind == "remote" else None)
+                store, schema, tr = make_trainer(torch, lay, B, None,
+                                                 store_fn=fn)
+                box = BoxPS(store)
+                box.init_metric("auc")
+                outs = []
+                for p in range(passes):
+                    ds = SlotDataset(schema)
+                    ds.records = make_records(
+                        schema, steps * B, keys,
+                        np.random.default_rng(SEED + 40 + p), lay.max_len)
+                    io0 = client.io_snapshot()
+                    out, launches, _ = counted_pass(kernels, tr, ds, total,
+                                                    box=box)
+                    expect_launches(f"(d) {kind} {lay.name} pass {p + 1}",
+                                    launches, {k: steps for k in
+                                               lay.kernels})
+                    io = ps_pass_io(io0, client.io_snapshot())
+                    outs.append(out)
+                    if kind == "remote":
+                        pr, wr = io["pull_rows"], io["write_rows"]
+                        print(f"  (d) {lay.name} pass {p + 1} on the PS "
+                              f"({card}): loss mean {out['loss_mean']:.6f} "
+                              f"| {out['steps']} steps, "
+                              f"{out['step_seconds'] / out['steps'] * 1e3:.3f}"
+                              f" ms/step | pull {pr['recv_bytes']} B in "
+                              f"{pr['calls']} calls {pr['seconds']:.3f} s | "
+                              f"push (row write-back) {wr['sent_bytes']} B "
+                              f"in {wr['calls']} calls {wr['seconds']:.3f} s "
+                              f"| boundary "
+                              f"{tr.feed_mgr.last_boundary_seconds:.3f} s | "
+                              f"launches {launches}")
+                tr.flush_sparse()
+                runs[kind] = (outs, store, tr)
+            (ro, rstore, rtr), (ho, hstore, htr) = (runs["remote"],
+                                                    runs["host"])
+            for a, b in zip(ro, ho):
+                np.testing.assert_allclose(
+                    [a["loss_first"], a["loss_mean"]],
+                    [b["loss_first"], b["loss_mean"]], **LOSS_TOL)
+            all_keys = np.sort(hstore.keys())
+            got = rstore.peek_rows(all_keys)
+            want = hstore.get_rows(all_keys)
+            np.testing.assert_allclose(got, want, **TABLE_TOL)
+            check(len(rstore) == len(hstore),
+                  f"(d) {lay.name}: the servers hold {len(rstore)} rows, "
+                  f"the host store {len(hstore)}")
+            print(f"  (d) {lay.name}: {passes} pass(es) on the PS agree with "
+                  f"the HostEmbeddingStore's (LOSS_TOL; {len(all_keys)} rows "
+                  f"within TABLE_TOL, max abs diff "
+                  f"{float(np.abs(got - want).max()):.3g}) ok")
+            if lay is ONEHOT:
+                with tempfile.TemporaryDirectory() as d:
+                    t0 = time.perf_counter()
+                    files = rstore.save_base(os.path.join(d, "base"))
+                    t_save = time.perf_counter() - t0
+                    before = rstore.peek_rows(all_keys)
+                    min_show = float(np.median(before[:, 0]))
+                    t1 = time.perf_counter()
+                    evicted = rstore.shrink(min_show)
+                    t_shrink = time.perf_counter() - t1
+                    left = len(rstore)
+                    check(0 < evicted < len(all_keys)
+                          and left == len(all_keys) - evicted,
+                          f"(d) shrink evicted {evicted}, {left} left")
+                    t2 = time.perf_counter()
+                    rstore.load(os.path.join(d, "base"))
+                    t_load = time.perf_counter() - t2
+                    check(np.array_equal(rstore.peek_rows(all_keys), before)
+                          and len(rstore) == len(all_keys),
+                          "(d) load did not restore the saved rows")
+                    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                                 for r, _, fs in os.walk(d) for f in fs)
+                print(f"  (d) save -> shrink -> load ({card}): save_base "
+                      f"{len(files)} shards {nbytes} B in {t_save:.3f} s | "
+                      f"shrink(min_show {min_show:g}) evicted {evicted} in "
+                      f"{t_shrink:.3f} s | load {t_load:.3f} s, rows "
+                      f"bit-equal to the save ok")
+            del runs, rstore, hstore, rtr, htr
+            torch.cuda.empty_cache()
+        check(client.stop_servers() == [], "(d) a server was gone")
+        for p in procs:
+            check(p.wait(timeout=60) == 0, f"(d) a server exited "
+                  f"{p.returncode}")
+    finally:
+        if client is not None:
+            client.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+
+
+def resilience_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 16. Returns the launches of every kernel over the phase's
+    training passes (every rank's)."""
+    print(f"== the resilient world ({card}): DeepFM, {B} x {S} slots, "
+          f"ranks on cuda:0 (torch_resilience_worker), the table on PS "
+          f"processes")
+    total: dict[str, int] = {}
+    seconds = {}
+    for name, fn in (("shuffle", res_shuffle), ("resume", res_resume),
+                     ("elastic", res_elastic), ("ps", res_ps)):
+        t0 = time.perf_counter()
+        fn(torch, kernels, card, total)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    print(f"launches in phase 16: {total} | seconds: {seconds}")
+    return total
+
+
 
 def main() -> int:
     import torch
@@ -4374,6 +4735,7 @@ def main() -> int:
     monitored = monitor_phase(torch, kernels, card)
     dispatched = dispatch_phase(torch, kernels, card)
     meshed = mesh_phase(torch, kernels, card)
+    resilient = resilience_phase(torch, kernels, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
@@ -4381,10 +4743,11 @@ def main() -> int:
         r["phase13_launches"] = monitored.get(r["name"], 0)
         r["phase14_launches"] = dispatched.get(r["name"], 0)
         r["phase15_launches"] = meshed.get(r["name"], 0)
+        r["phase16_launches"] = resilient.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "phase11_launches", "phase12_launches", "phase13_launches",
-            "phase14_launches", "phase15_launches")
+            "phase14_launches", "phase15_launches", "phase16_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -4400,4 +4763,6 @@ if __name__ == "__main__":
         sys.exit(remote_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--resilience-worker"]:
+        sys.exit(res_worker().main())
     sys.exit(main())

@@ -135,6 +135,23 @@ class Flags:
     # mid-pass snapshot cadence (steps) of Trainer.enable_midpass_snapshots
     # when called without every_steps; 0 = pass-boundary snapshots only
     ckpt_midpass_every_steps: int = 0
+    # the heartbeat watchdog (distributed/resilience.HeartbeatMonitor):
+    # publish/scan period; a peer whose heartbeat sequence stops
+    # advancing this long is lost (its process is gone); a peer whose
+    # heartbeat beats but whose pass/step progress is frozen this long is
+    # stalled (hung)
+    heartbeat_interval_s: float = 2.0
+    heartbeat_lost_s: float = 30.0
+    heartbeat_stall_s: float = 120.0
+    # elastic shrink (distributed/resilience.ElasticWorld): the world-size
+    # floor below which survivors checkpoint and exit instead of
+    # re-forming; how long a survivor waits for its peers to arrive at
+    # (and ack) a proposed generation; the bounded retries around
+    # re-formation + election + restore, with a backoff that doubles
+    elastic_min_world: int = 1
+    elastic_reform_timeout_s: float = 30.0
+    elastic_max_reforms: int = 4
+    elastic_reform_backoff_s: float = 0.5
     # RecordEvent span ring capacity of utils.profiler: at most this many
     # spans are kept, oldest dropped first (profiler.dropped_spans counts
     # them); 0 = unbounded

@@ -13,12 +13,14 @@ loads the next pass on a background thread while this one trains
 
 Each load leaves its numbers in ``last_load_stats`` and counts
 ``dataset.records_loaded`` / ``dataset.feasigns_loaded`` in the monitor,
-as the JAX package does. Cross-host shuffling (the TCP shuffle service,
-its routing modes, ``member_shards`` and ``reroute_records``) is not
-ported yet and raises (ROADMAP, queue 1 item 6);
-``load_into_memory(global_shuffle=True)``
-on one host is the same local permutation the JAX package draws when it
-has no service.
+as the JAX package does. With a ``shuffle_service``
+(``data.shuffle.TcpShuffleService``) ``load_into_memory`` routes the
+records between hosts (``routing``: random from the persistent shuffle
+generator, or by ``ins_id`` / ``search_id``), exchanges them and draws
+this host's permutation over what it received; without one, the global
+shuffle is this host's permutation. ``member_shards`` and
+``reroute_records`` are the elastic shrink's views of the records
+(``distributed/resilience.py``).
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import (PackedBatch,
                                                   SlotRecordBatch,
                                                   batch_iterator)
+from paddlebox_tpu_torch.data.shuffle import (LocalShuffler, RoutingMode,
+                                              TcpShuffleService,
+                                              elastic_reroute,
+                                              route_records)
 from paddlebox_tpu_torch.monitor import counter_add as stat_add
-
-_TCP_SHUFFLE = ("the cross-host TCP shuffle (data/shuffle.py) is not "
-                "ported yet (ROADMAP, queue 1 item 6)")
 
 
 def parse_threads_per_file(n_file_threads: int) -> int:
@@ -52,29 +55,12 @@ def parse_threads_per_file(n_file_threads: int) -> int:
     return max(1, (os.cpu_count() or 1) // max(1, n_file_threads))
 
 
-class LocalShuffler:
-    """Single-host shuffle: a permutation from a persistent generator."""
-
-    def __init__(self, seed: int = 0):
-        self.rng = np.random.default_rng(seed)
-
-    def shuffle(self, batch: SlotRecordBatch) -> SlotRecordBatch:
-        return batch.shuffle(self.rng)
-
-    def state_dict(self) -> dict:
-        return self.rng.bit_generator.state
-
-    def load_state_dict(self, state: dict) -> None:
-        self.rng.bit_generator.state = state
-
-
 class SlotDataset:
     """One pass of training data, held columnar in host memory."""
 
-    def __init__(self, schema: DataFeedSchema, shuffle_service=None,
+    def __init__(self, schema: DataFeedSchema,
+                 shuffle_service: TcpShuffleService | None = None,
                  seed: int = 0):
-        if shuffle_service is not None:
-            raise NotImplementedError(f"shuffle_service: {_TCP_SHUFFLE}")
         self.schema = schema
         self.filelist: list[str] = []
         self.pipe_command: str | None = None
@@ -87,6 +73,7 @@ class SlotDataset:
         self._records: SlotRecordBatch | None = None
         self._preload: concurrent.futures.Future | None = None
         self._shuffler = LocalShuffler(seed)
+        self._service = shuffle_service
         # per-device slices set by prepare_train
         self._shards: list[SlotRecordBatch] = []
         self.last_load_stats: dict = {}
@@ -118,13 +105,12 @@ class SlotDataset:
     # ---- ingest ----
 
     def load_into_memory(self, global_shuffle: bool = True,
-                         routing: str = "random") -> None:
+                         routing: RoutingMode = "random") -> None:
         """Read the filelist on ``flags.dataset_load_thread_num`` threads,
         in file order, each file's native parse on
-        :func:`parse_threads_per_file` threads. ``routing`` other than
-        "random" routes records between hosts, which is not ported."""
-        if routing != "random":
-            raise NotImplementedError(f"routing={routing!r}: {_TCP_SHUFFLE}")
+        :func:`parse_threads_per_file` threads, then (``global_shuffle``)
+        shuffle: across hosts by ``routing`` through the shuffle service
+        when there is one, else this host's permutation."""
         t0 = time.perf_counter()
         n_threads = min(flags.dataset_load_thread_num,
                         max(1, len(self.filelist)))
@@ -144,7 +130,7 @@ class SlotDataset:
         batch = (SlotRecordBatch.concat(parts) if parts
                  else SlotRecordBatch.empty(self.schema))
         if global_shuffle and batch.num > 0:
-            batch = self._shuffler.shuffle(batch)
+            batch = self._global_shuffle(batch, routing)
         # the UnrollInstance hook: a parser plugin may carry an
         # `unroll(SlotRecordBatch) -> SlotRecordBatch` attribute (e.g.
         # expanding PV-merged page views back into instances), applied
@@ -165,6 +151,22 @@ class SlotDataset:
             "file_threads": n_threads,
             "parse_threads": parse_threads,
             **stats.as_dict()}
+        if self._service is not None and global_shuffle:
+            self.last_load_stats["exchange"] = dict(
+                self._service.last_exchange)
+
+    def _global_shuffle(self, batch: SlotRecordBatch,
+                        routing: RoutingMode) -> SlotRecordBatch:
+        if self._service is None:
+            return self._shuffler.shuffle(batch)
+        # random routing draws from the persistent shuffle generator, so
+        # shuffle_state() checkpoints the routing decisions too
+        routed = route_records(batch, self._service.world, routing,
+                               rng=self._shuffler.rng)
+        received = self._service.exchange(routed, self.schema)
+        merged = (SlotRecordBatch.concat(received) if received
+                  else SlotRecordBatch.empty(self.schema))
+        return self._shuffler.shuffle(merged) if merged.num else merged
 
     def preload_into_memory(self, **kw) -> None:
         """Load the next pass on a background thread while this one
@@ -203,10 +205,21 @@ class SlotDataset:
         self._shuffler.load_state_dict(state)
 
     def member_shards(self, world_size: int) -> list[SlotRecordBatch]:
-        raise NotImplementedError(f"member_shards: {_TCP_SHUFFLE}")
+        """Per-member slices of the current records, the round-robin
+        split ``prepare_train`` uses, returned instead of stored. Every
+        rank computes the same partition from the same shuffled records,
+        so after a rank loss the survivors know which records the
+        departed rank held without having talked to it."""
+        r = self._loaded()
+        return [r.select(np.arange(d, r.num, world_size))
+                for d in range(world_size)]
 
-    def reroute_records(self, batch: SlotRecordBatch, world_size: int):
-        raise NotImplementedError(f"reroute_records: {_TCP_SHUFFLE}")
+    def reroute_records(self, batch: SlotRecordBatch, world_size: int
+                        ) -> list[SlotRecordBatch | None]:
+        """``batch`` re-routed over ``world_size`` survivors from the
+        persistent shuffle generator (:meth:`shuffle_state`'s cursor):
+        ``data.shuffle.elastic_reroute``."""
+        return elastic_reroute(batch, world_size, self._shuffler.rng)
 
     def slots_shuffle(self, slot_names: Sequence[str], seed: int = 0) -> None:
         """Permute the values of the named sparse slots across examples

@@ -8,12 +8,15 @@
 - ``RoleMaker`` — rank / world from the launcher's environment, and
   ``init_distributed``, which joins the ``torch.distributed`` group;
 - ``launch`` — one process per card
-  (``python -m paddlebox_tpu_torch.distributed.launch``).
+  (``python -m paddlebox_tpu_torch.distributed.launch``);
+- ``resilience`` — the heartbeat watchdog (named dead or hung ranks
+  through every collective wait), the coordinated resume election and
+  the elastic world (shrink to N-1 and continue, admit to grow);
+- ``ps`` — the host parameter-server cluster (sharded sparse tables with
+  in-table optimizers, async dense tables, save/load/shrink over TCP).
 
 Device-side collectives never touch this: they run on the mesh's
-process group (``parallel.mesh``). Not ported yet (ROADMAP queue 1 item
-6): the heartbeat watchdog and coordinated resume (``resilience``) and
-the host parameter server (``ps``).
+process group (``parallel.mesh``).
 """
 
 from paddlebox_tpu_torch.distributed.store import FileStore  # noqa: F401
@@ -22,3 +25,10 @@ from paddlebox_tpu_torch.distributed.ownership import (  # noqa: F401
 from paddlebox_tpu_torch.distributed.collectives import (  # noqa: F401
     HostCollectives)
 from paddlebox_tpu_torch.distributed.role_maker import RoleMaker  # noqa: F401
+from paddlebox_tpu_torch.distributed.resilience import (  # noqa: F401
+    ElasticWorld, HeartbeatMonitor, PeerFailureError, PeerLostError,
+    PeerStalledError, WorldFencedError, WorldTooSmallError,
+    coordinated_resume)
+from paddlebox_tpu_torch.distributed.ps import (PSClient,  # noqa: F401
+                                                PSServer,
+                                                RemoteEmbeddingStore)

@@ -4,7 +4,9 @@ launch`` (the port of ``distributed/launch.py``).
 Spawns ``--nprocs`` workers with the rank, endpoint, coordinator, store
 and run-id variables ``RoleMaker.from_env`` reads, plus ``LOCAL_RANK``
 (``RoleMaker.init_distributed`` makes that card current before the
-process group forms). A worker that exits nonzero stops the others.
+process group forms). A worker that exits nonzero stops the others,
+unless ``fail_stop=False`` (an elastic launch, where one rank dying is
+the event under test).
 
 Usage:
     python -m paddlebox_tpu_torch.distributed.launch --nprocs 2 -- \\
@@ -39,12 +41,16 @@ def _free_ports(n: int) -> list[int]:
 
 def launch(nprocs: int, cmd: list[str], store_dir: str | None = None,
            base_env: dict | None = None, timeout_s: float | None = None,
-           local_ranks: list[int] | None = None) -> int:
-    """Spawn ``nprocs`` workers running ``cmd``; returns the first
-    nonzero exit code (the others are terminated then), 124 when
-    ``timeout_s`` ran out, else 0. ``local_ranks``: each worker's
-    ``LOCAL_RANK`` (default: its rank), e.g. ``[0, 0]`` for two ranks on
-    one card."""
+           local_ranks: list[int] | None = None, fail_stop: bool = True):
+    """Spawn ``nprocs`` workers running ``cmd``.
+
+    ``fail_stop=True``: returns the first nonzero exit code (the others
+    are terminated then), 124 when ``timeout_s`` ran out, else 0.
+    ``fail_stop=False`` (elastic launches): waits for every worker to
+    exit on its own (up to ``timeout_s``, then the live ones are
+    terminated) and returns the list of per-rank exit codes.
+    ``local_ranks``: each worker's ``LOCAL_RANK`` (default: its rank),
+    e.g. ``[0, 0]`` for two ranks on one card."""
     store_dir = store_dir or tempfile.mkdtemp(prefix="pbt_store_")
     ports = _free_ports(nprocs + 1)
     endpoints = ",".join(f"127.0.0.1:{p}" for p in ports[:nprocs])
@@ -66,18 +72,20 @@ def launch(nprocs: int, cmd: list[str], store_dir: str | None = None,
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     try:
         live = set(range(nprocs))
-        while live and code == 0:
+        while live and (code == 0 or not fail_stop):
             if deadline is not None and time.monotonic() > deadline:
-                code = 124
+                if fail_stop:
+                    code = 124
                 break
             for i in sorted(live):
                 rc = procs[i].poll()
                 if rc is None:
                     continue
                 live.discard(i)
-                if rc != 0:
+                if rc != 0 and code == 0:
                     code = rc
-                    break
+                    if fail_stop:
+                        break
             else:
                 time.sleep(0.05)
     finally:
@@ -90,6 +98,8 @@ def launch(nprocs: int, cmd: list[str], store_dir: str | None = None,
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+    if not fail_stop:
+        return [p.returncode for p in procs]
     return code
 
 

@@ -56,6 +56,24 @@ class RoleMaker:
     def is_first_worker(self) -> bool:
         return self.rank == 0
 
+    def with_members(self, members: list[int]) -> "RoleMaker":
+        """A shrunk view of this role after an elastic re-formation:
+        ``members`` are the surviving original ranks; the survivors keep
+        their endpoints and renumber densely (the new rank is the index
+        in the sorted member list), so everything built from a RoleMaker
+        (shuffle services, PS maps, collectives) sees an ordinary world
+        of the new size."""
+        members = sorted(int(m) for m in members)
+        if self.rank not in members:
+            raise ValueError(
+                f"rank {self.rank} is not among surviving members "
+                f"{members} — a fenced rank has no shrunk role")
+        return RoleMaker(rank=members.index(self.rank),
+                         endpoints=[self.endpoints[m] for m in members],
+                         store_dir=self.store_dir, run_id=self.run_id,
+                         coordinator=self.coordinator,
+                         local_rank=self.local_rank)
+
     def _check_store_env(self) -> None:
         if self.world_size > 1 and not self.store_dir:
             raise ValueError(
@@ -82,6 +100,17 @@ class RoleMaker:
     def collectives(self, timeout_s: float = 300.0) -> HostCollectives:
         return HostCollectives(self.base_store(timeout_s), self.rank,
                                self.world_size)
+
+    def elastic_world(self, timeout_s: float = 300.0, **kw):
+        """An :class:`~paddlebox_tpu_torch.distributed.resilience.
+        ElasticWorld` for this launch: generation 0 spans every launched
+        rank; on a peer failure the training loop calls ``world.reform``
+        (usually through ``Trainer.recover_world``) to shrink and go on.
+        Heartbeat and re-formation tunables pass through ``**kw``."""
+        from paddlebox_tpu_torch.distributed.resilience import ElasticWorld
+        return ElasticWorld(self.base_store(timeout_s), self.rank,
+                            list(range(self.world_size)),
+                            collectives_timeout_s=timeout_s, **kw)
 
     def init_distributed(self, backend: str | None = None,
                          device: str | None = None,

@@ -39,8 +39,11 @@ scope without one; ``flip_phase`` emits ``flip_phase``.
 On a mesh, ``attach_collectives`` makes ``begin_pass`` and ``end_pass``
 barrier over the world, and ``end_pass(trainer=)`` runs the trainer's
 exchange-wire adaptation (``Trainer.adapt_wire_boundary``) before the
-flight record commits. Not ported yet: the heartbeat watchdog (ROADMAP
-queue 1 item 6) and the self-healing boundary hook (item 7).
+flight record commits. With a heartbeat (``attach_collectives(col,
+heartbeat=hb)``, a ``distributed.resilience.HeartbeatMonitor``) those
+barriers poll its watchdog, so a dead or hung peer fails them by name,
+and each boundary publishes a fresh beat. Not ported yet: the
+self-healing boundary hook (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -72,22 +75,32 @@ class BoxPS:
         self.in_pass = False
         self._pass_t0 = 0.0
         # the multi-host lifecycle (attach_collectives): lockstep barriers
-        # at the pass boundaries
+        # at the pass boundaries, and the heartbeat watchdog they poll
         self._col = None
+        self._heartbeat = None
 
     def attach_collectives(self, collectives, heartbeat=None) -> None:
         """Make the pass lifecycle world-synchronous: ``begin_pass`` and
         ``end_pass`` barrier over the collectives (a ``HostCollectives``
         or a mesh's ``collectives()``), so no rank trains a pass the world
         has not entered (the reference's MPICluster barrier around
-        BeginPass/EndPass, box_wrapper.h:415). Re-attachable. The
-        heartbeat watchdog (``heartbeat=``) is resilience work, not
-        ported yet (ROADMAP queue 1 item 6)."""
-        if heartbeat is not None:
-            raise NotImplementedError(
-                "BoxPS.attach_collectives(heartbeat=...): the heartbeat "
-                "watchdog is not ported yet (ROADMAP, queue 1 item 6)")
+        BeginPass/EndPass, box_wrapper.h:415).
+
+        With ``heartbeat`` (a ``HeartbeatMonitor``) the barriers poll its
+        watchdog — a dead or stalled peer raises PeerLost/PeerStalled
+        naming the ranks instead of the store's timeout — unless the
+        collectives already carry one, and each boundary publishes a
+        fresh beat, so peers see this rank's pass at once.
+
+        Re-attachable: after an elastic re-formation the training loop (or
+        ``Trainer.recover_world``) attaches the new generation's
+        collectives and heartbeat, whose barriers ride that generation's
+        store scope."""
         self._col = collectives
+        self._heartbeat = heartbeat
+        if heartbeat is not None and getattr(collectives, "watchdog",
+                                             None) is None:
+            collectives.watchdog = heartbeat
 
     @property
     def phase(self) -> int:
@@ -110,6 +123,8 @@ class BoxPS:
         self.store.boundary_owner = self
         self.pass_id += 1
         self._pass_t0 = time.time()
+        if self._heartbeat is not None:
+            self._heartbeat.publish()     # peers see the new pass at once
 
     def abort_pass(self, reason: str = "") -> None:
         """Close an open pass without the end-of-pass snapshot: the pass
@@ -187,6 +202,8 @@ class BoxPS:
         # the flight record commits last: the snapshot's, the publish's
         # and the tiers' counters above land in this pass's stats_delta
         out["flight_record"] = monitor.hub().end_pass(metrics=self.metrics)
+        if self._heartbeat is not None:
+            self._heartbeat.publish()
         if self._col is not None:
             self._col.barrier("end_pass")
         return out

@@ -16,7 +16,9 @@ adagrad  (initial accumulator 0.1, eps 1e-7): s += g²;
          u = -lr g rsqrt(s + eps) where s > 0, else 0
 rmsprop  (decay 0.9, eps 1e-8): nu = (1-d) g² + d nu;
          u = -lr g rsqrt(nu + eps)  (eps_in_sqrt=False: g / (sqrt(nu)+eps));
-         with ``momentum``, a trace after the lr scale
+         centered: mu = (1-d) g + d mu, and nu - mu² in place of nu;
+         bias_correction: nu (and mu) over 1-d^t; with ``momentum``, a
+         trace after the lr scale
 ftrl     FTRL-proximal over ``ops/ftrl.py``; u = new_w - w
 
 ``state_leaves`` gives each optimizer's state in the shape of optax's
@@ -24,7 +26,8 @@ state tree — a tuple per ``optax.chain``, a dict per state namedtuple
 (fields by name), a per-parameter list of tensors per moment, an int per
 step count: adam ``({count, mu, nu}, ())``, sgd ``((), ())``, momentum
 ``({trace}, ())``, adagrad ``({sum_of_squares}, ())``, rmsprop
-``({nu}, (), ())`` (the last ``{trace}`` with momentum), ftrl ``{z, n}``.
+``({[count,] [mu,] nu}, (), ())`` (count with bias_correction, mu when
+centered, the last ``{trace}`` with momentum), ftrl ``{z, n}``.
 ``weights.py`` lays the lists out as parameter trees;
 ``load_state_leaves`` takes the same structure back.
 """
@@ -155,22 +158,22 @@ class Adagrad:
 
 
 class RmsProp:
-    """optax.rmsprop (not centered, no bias correction): scale_by_rms,
-    the learning rate, then a momentum trace when ``momentum`` is
-    given."""
+    """optax.rmsprop: scale_by_rms (``centered``: scale_by_stddev), the
+    learning rate, then a momentum trace when ``momentum`` is given.
+    ``bias_correction`` divides each moment by 1 - decay^t (a step count
+    joins the state)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
                  decay: float = 0.9, eps: float = 1e-8,
                  initial_scale: float = 0.0, eps_in_sqrt: bool = True,
                  centered: bool = False, momentum: float | None = None,
                  nesterov: bool = False, bias_correction: bool = False):
-        if centered or bias_correction:
-            raise NotImplementedError(
-                "rmsprop(centered=True) and rmsprop(bias_correction=True) "
-                "are not ported")
         self.params = list(params)
         self.lr, self.decay, self.eps = lr, decay, eps
         self.eps_in_sqrt = eps_in_sqrt
+        self.centered, self.bias_correction = centered, bias_correction
+        self.count = 0
+        self.mu = _zeros(self.params) if centered else None
         self.nu = [torch.full_like(p, initial_scale) for p in self.params]
         self.trace = (None if momentum is None
                       else _Trace(self.params, momentum, nesterov))
@@ -178,20 +181,45 @@ class RmsProp:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         d = self.decay
+        if self.bias_correction:
+            self.count += 1
+            bc = _bias_correction(d, self.count)
         for i, (p, g, nu) in enumerate(zip(self.params, grads, self.nu)):
             nu.mul_(d).add_((1 - d) * (g * g))
-            scale = (torch.rsqrt(nu + self.eps) if self.eps_in_sqrt
-                     else 1 / (torch.sqrt(nu) + self.eps))
+            nu_hat = nu / bc if self.bias_correction else nu
+            if self.centered:
+                mu = self.mu[i]
+                mu.mul_(d).add_((1 - d) * g)
+                mu_hat = mu / bc if self.bias_correction else mu
+                var = nu_hat - mu_hat * mu_hat
+            else:
+                var = nu_hat
+            scale = (torch.rsqrt(var + self.eps) if self.eps_in_sqrt
+                     else 1 / (torch.sqrt(var) + self.eps))
             u = -self.lr * (scale * g)
             if self.trace is not None:
                 u = self.trace(i, u)
             p.add_(u)
 
+    def _moments(self) -> dict:
+        """The first transform's state fields, in optax's order."""
+        st: dict = {}
+        if self.bias_correction:
+            st["count"] = self.count
+        if self.centered:
+            st["mu"] = self.mu
+        st["nu"] = self.nu
+        return st
+
     def state_leaves(self):
         trace = () if self.trace is None else {"trace": self.trace.trace}
-        return ({"nu": self.nu}, (), trace)
+        return (self._moments(), (), trace)
 
     def load_state_leaves(self, st) -> None:
+        if self.bias_correction:
+            self.count = int(st[0]["count"])
+        if self.centered:
+            _load(self.mu, st[0]["mu"])
         _load(self.nu, st[0]["nu"])
         if self.trace is not None:
             _load(self.trace.trace, st[2]["trace"])

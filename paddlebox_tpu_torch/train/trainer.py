@@ -78,7 +78,16 @@ with each save's seconds and bytes) — so a crash resumes through
 ``train_pass(skip_steps=mid_steps)`` instead of replaying the pass.
 ``drain_and_snapshot`` commits the same kind of snapshot after a pass
 raised. The dense optimizer updates the model in place, so the live
-dense state at any step is ``dense_state()``.
+dense state at any step is ``dense_state()`` (async dense sync flushes
+the host table first; a kstep cadence must land on a sync boundary, and
+a kstep drain between syncs is skipped with ``drain_snapshot_skipped``).
+
+Resilience (``distributed/resilience.py``): ``peer_check`` (an
+``ElasticWorld.check``) is polled before each dispatch, so a dead or
+hung peer aborts the pass at a step boundary; ``recover_world`` then
+drain-snapshots, re-forms the world without the dead ranks and reruns
+the coordinated resume election; ``resume(collectives=)`` is that
+election on a fixed world.
 
 Dispatch modes, the reference's two other ways to run the same step
 (they exclude each other, ``_select_push_overlap``):
@@ -134,9 +143,6 @@ histogram before the first step; ``_check_dropped`` counts
 ``exchange.overflow_dropped``, emits ``exchange_overflow``, and doubles
 the factor for the next pass; an eval pass that dropped re-runs in
 place).
-
-Not ported yet (ROADMAP queue 1 item 6): the coordinated multi-host
-resume (``resume(collectives=...)``).
 """
 
 from __future__ import annotations
@@ -337,6 +343,11 @@ class Trainer:
         # it got through (skipped ones included) and whether it raised
         self.last_pass_steps = 0
         self._pass_aborted = False
+        # the elastic watchdog (ElasticWorld.check, set by the training
+        # loop or recover_world): polled before each dispatch, so a dead
+        # or hung peer aborts the pass at a step boundary (the loop's
+        # finally then lands the pending push), not at the next barrier
+        self.peer_check = None
         # the deferred sparse push (flags.push_overlap): the pending
         # step's operands, the working set they apply to while a pass is
         # open or a push is pending, and the applies launched
@@ -632,6 +643,7 @@ class Trainer:
 
     def _pack_host(self, ws: PassWorkingSet, pb: PackedBatch,
                    with_plan: bool = True, pin: bool = True) -> tuple:
+        faultpoint.hit("trainer.pack.pre")
         with self.timers("translate"):
             idx = ws.translate(pb.ids, pb.mask)
             labels, dense = self.split_floats(pb.floats)
@@ -1108,6 +1120,13 @@ class Trainer:
                     skip -= len(pbs)
                     pass_step += len(pbs)
                     continue
+                # the elastic watchdog, once a dispatch (a superstep
+                # group is one, as in the JAX package): a dead or stalled
+                # peer aborts here, before this batch launches
+                mon_ctx.set_step(self.global_step)
+                if self.peer_check is not None:
+                    self.peer_check()
+                faultpoint.hit("trainer.step.pre")
                 # a superstep's k steps run back to back, no host sync
                 for i, pb in enumerate(pbs):
                     mon_ctx.set_step(self.global_step)
@@ -1464,7 +1483,12 @@ class Trainer:
     def set_shard_ownership(self, ownership) -> None:
         """Bind the per-host shard ownership (``distributed.
         ShardOwnership``) on the feed manager: every feed builds only the
-        keys of this rank's store shards."""
+        keys of this rank's store shards. ``recover_world`` rebinds the
+        feed manager directly after an elastic re-formation, so a shrink
+        never reaches the faultpoint: it is the crash window of the
+        elastic grow's rebind (``RemediationController.poll_grow``, the
+        monitor's read side, not ported yet)."""
+        faultpoint.hit("elastic.ownership.rebind.pre")
         self.feed_mgr.set_ownership(ownership)
 
     # ------------------------------------------------------------------
@@ -1579,11 +1603,19 @@ class Trainer:
         None on a fresh start. The store's restore is a mutation the
         stale-key log cannot bound, so the feed manager drops any resident
         rows unflushed and the next pass rebuilds its working set in
-        full."""
-        if collectives is not None:
-            raise NotImplementedError(
-                "coordinated multi-host resume (collectives=...) is not "
-                "ported yet (ROADMAP, queue 1 item 6: multi-GPU)")
+        full.
+
+        ``collectives`` (a HostCollectives with world > 1) makes it the
+        coordinated multi-host resume
+        (``distributed.resilience.coordinated_resume``): every rank
+        publishes its intact snapshot cursors, the world elects the
+        highest one every rank holds intact, and all ranks restore that
+        same snapshot, so a torn newest snapshot on one rank rolls the
+        whole world back together."""
+        if collectives is not None and collectives.world > 1:
+            from paddlebox_tpu_torch.distributed import resilience
+            return resilience.coordinated_resume(
+                checkpointer, self, collectives, box=box, metrics=metrics)
         return checkpointer.resume(self, box=box, metrics=metrics)
 
     # ------------------------------------------------------------------
@@ -1602,10 +1634,17 @@ class Trainer:
         ones of a resumed pass included) and the shuffle state the caller
         put in ``midpass_cursor_extra["shuffle_state"]``, so a kill
         between pass boundaries resumes through
-        ``train_pass(skip_steps=mid_steps)``. One card, allreduce: with
-        ``steps_per_dispatch`` k > 1 the cadence must land on the dispatch
-        boundary (a multiple of k: a superstep commits k steps at once,
-        so no cursor exists between them); any cadence otherwise."""
+        ``train_pass(skip_steps=mid_steps)``.
+
+        The dense-sync modes (JAX trainer.py:2155-2186): ``allreduce``
+        takes any cadence; ``kstep`` needs a multiple of
+        ``param_sync_step`` (between syncs the replicas' cadence would
+        diverge from the uninterrupted run on resume); ``async``
+        quiesces the host dense table (``flush``) before each save and
+        stores its state with the params it holds. With
+        ``steps_per_dispatch`` k > 1 the cadence must also land on the
+        dispatch boundary (a multiple of k: a superstep commits k steps
+        at once, so no cursor exists between them)."""
         if every_steps is None:
             every_steps = int(flags.ckpt_midpass_every_steps)
         if every_steps <= 0:
@@ -1618,6 +1657,14 @@ class Trainer:
                 f"on the dispatch boundary: every_steps={every_steps} is "
                 f"not a multiple of it — the k-step superstep commits k "
                 f"steps at once, so no cursor exists between them")
+        if (self.cfg.dense_sync_mode == "kstep"
+                and every_steps % self.cfg.param_sync_step):
+            raise NotImplementedError(
+                f"kstep mid-pass snapshots must land on the K-step sync "
+                f"boundary: every_steps={every_steps} is not a multiple "
+                f"of param_sync_step={self.cfg.param_sync_step} — "
+                f"between syncs the replicas' consistency cadence would "
+                f"diverge from the uninterrupted run on resume")
         if box is None:
             raise ValueError("enable_midpass_snapshots needs a BoxPS "
                              "(the cursor's pass identity)")
@@ -1645,6 +1692,11 @@ class Trainer:
         # covers it too
         self.flush_push()
         wait = self._quiesce_steps()
+        if self.dense_table is not None:
+            # async: every pushed grad applied, and the params saved are
+            # the table's, so the state dict IS the dense state here
+            self.dense_table.flush()
+            self._pull_async_params()
         ds = self.dense_state()
         self.feed_mgr.end_pass(ws, ws.table)
         snap = checkpointer.save(
@@ -1682,13 +1734,22 @@ class Trainer:
         closed the pack pipeline and left its crumbs
         (``last_pass_steps``, the aborted mark). Returns the snapshot
         directory, or None when there is nothing to snapshot (no open
-        BoxPS pass, a pass that did not raise, or no step taken). Close
-        the pass with ``box.abort_pass`` afterwards."""
+        BoxPS pass, a pass that did not raise, no step taken, or a kstep
+        pass stopped between sync boundaries: the uninterrupted run's
+        cadence cannot be reproduced from there, so the election falls
+        back to the newest committed snapshot, and a
+        ``drain_snapshot_skipped`` event says so). Close the pass with
+        ``box.abort_pass`` afterwards."""
         if box is None or not box.in_pass or not self._pass_aborted:
             return None
         steps = int(self.last_pass_steps)
         ws = self.last_ws
         if steps <= 0 or ws is None:
+            return None
+        if (self.cfg.dense_sync_mode == "kstep"
+                and steps % self.cfg.param_sync_step):
+            monitor.event("drain_snapshot_skipped",
+                          reason="kstep_off_sync_boundary", steps=steps)
             return None
         info = self._snapshot_open_pass(checkpointer, box, metrics, ws,
                                         steps)
@@ -1697,3 +1758,67 @@ class Trainer:
         monitor.event("drain_snapshot", type="lifecycle",
                       snapshot=info["snapshot"], mid_steps=steps)
         return info["snapshot"]
+
+    def recover_world(self, world, failure, checkpointer, box,
+                      metrics=None):
+        """The elastic catch arm (JAX trainer.py:2284): a
+        ``PeerFailureError`` escaped the pass loop — drain-snapshot,
+        re-form the world without the dead ranks, rerun the coordinated
+        resume election over the survivors, and return ``(new_world,
+        cursor)`` for the training loop to continue from (``cursor``
+        None: the survivors hold no common snapshot, a whole-world fresh
+        start).
+
+        A further failure inside re-formation or the election escalates
+        the generation and retries, up to ``flags.elastic_max_reforms``
+        times with a doubling backoff; exhaustion re-raises the failure
+        (fail-stop). Survivors below ``flags.elastic_min_world`` return
+        ``(None, None)`` after the drain snapshot, for a clean exit. A
+        ``WorldFencedError`` propagates: this rank's timeline was
+        abandoned.
+
+        The world is the host control plane: an elastic rank trains on
+        its own card without a ``mesh``. A trainer's ``torch.distributed``
+        group is not re-formed here, as the JAX package re-forms no
+        device mesh."""
+        from paddlebox_tpu_torch.distributed import resilience
+        self.drain_and_snapshot(checkpointer, box, metrics=metrics)
+        if box is not None and box.in_pass:
+            box.abort_pass(reason=repr(failure))
+        dead = sorted(set(int(r) for r in failure.ranks))
+        backoff = float(flags.elastic_reform_backoff_s)
+        for attempt in range(max(1, int(flags.elastic_max_reforms))):
+            if attempt:
+                time.sleep(backoff)
+                backoff *= 2.0
+            try:
+                new_world = world.reform(dead)
+            except resilience.WorldTooSmallError as e:
+                monitor.event("elastic_min_world_exit", type="lifecycle",
+                              survivors=e.survivors, floor=e.floor)
+                return None, None
+            self.peer_check = new_world.check
+            own = self.feed_mgr.ownership
+            if own is not None:
+                # the re-formed world re-deals the store shards: the next
+                # begin_pass builds exactly this rank's new shards
+                self.feed_mgr.set_ownership(
+                    own.with_world(new_world.world, new_world.rank))
+            if box is not None:
+                box.attach_collectives(new_world.collectives,
+                                       heartbeat=new_world.heartbeat)
+            try:
+                cursor = resilience.coordinated_resume(
+                    checkpointer, self, new_world.collectives, box=box,
+                    metrics=(metrics if metrics is not None
+                             else (box.metrics if box is not None
+                                   else None)))
+                monitor.counter_add("resilience.elastic_recoveries")
+                return new_world, cursor
+            except resilience.PeerFailureError as e:
+                # another rank died inside the election or restore (the
+                # restore is idempotent): escalate without it
+                world = new_world
+                dead = sorted(set(int(r) for r in e.ranks))
+                failure = e
+        raise failure

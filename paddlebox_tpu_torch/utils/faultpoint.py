@@ -99,6 +99,44 @@ POINTS: tuple[str, ...] = (
     # and the next one open (writer thread). A fault here latches the
     # sink's error: telemetry stops, training does not.
     "telemetry.rotate.pre",
+    # train/trainer._pack_host: a batch's translate and plan are about to
+    # run on the pack thread — a mid-pass kill in the host pipeline.
+    "trainer.pack.pre",
+    # train/trainer step loop: this batch's step is about to launch, just
+    # after the peer check — the tightest mid-pass kill window.
+    "trainer.step.pre",
+    # distributed/resilience.ElasticWorld._attempt, the re-formation
+    # window: drained and snapshotted, about to arrive; membership sealed
+    # or read, ack not sent; acked, peers maybe not. A kill at any of
+    # them must leave the survivors on ONE next generation without this
+    # rank, never a mixed world.
+    "elastic.reform.pre_arrive",
+    "elastic.reform.post_seal",
+    "elastic.reform.post_ack",
+    # distributed/resilience.ElasticWorld.admit, the grow window: about to
+    # register the admit request; acked a generation that includes this
+    # joiner.
+    "elastic.admit.pre_register",
+    "elastic.admit.post_ack",
+    # train/trainer.set_shard_ownership: the build partition is about to
+    # rebind after an elastic resize.
+    "elastic.ownership.rebind.pre",
+)
+
+# points that fire only inside an elastic re-formation (no plain
+# kill -> resume run reaches them)
+ELASTIC_POINTS: tuple[str, ...] = (
+    "elastic.reform.pre_arrive",
+    "elastic.reform.post_seal",
+    "elastic.reform.post_ack",
+)
+
+# points that fire only inside an elastic admit (world grow) or the
+# ownership rebind after one
+ADMIT_POINTS: tuple[str, ...] = (
+    "elastic.admit.pre_register",
+    "elastic.admit.post_ack",
+    "elastic.ownership.rebind.pre",
 )
 
 

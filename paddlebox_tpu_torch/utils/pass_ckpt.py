@@ -645,6 +645,14 @@ class PassCheckpointer:
             self.last_resume["remote_download"] = self.last_download
         return cursor
 
+    def discard_all_snapshots(self) -> None:
+        """Remove every local snapshot (and mask every remote donefile
+        entry with a reset line): the fresh-start arm of the multi-host
+        election (JAX pass_ckpt.py:661). A stale pass-N snapshot left on
+        one rank could match a freshly retrained pass N on another at
+        the next election. (-1, 0) sorts below every real cursor."""
+        self._discard_newer_than((-1, 0))
+
     def _discard_newer_than(self, at: tuple[int, int]) -> None:
         """Remove snapshots newer than ``at``: they belong to an abandoned
         timeline and must never win a later newest-first walk. A remote

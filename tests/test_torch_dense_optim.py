@@ -59,7 +59,11 @@ KWARGS = {
     "adagrad": [{}, dict(initial_accumulator_value=0.5, eps=1e-5)],
     "rmsprop": [{}, dict(decay=0.95, eps=1e-6, initial_scale=0.1,
                          eps_in_sqrt=False),
-                dict(momentum=0.9, nesterov=True)],
+                dict(momentum=0.9, nesterov=True),
+                dict(centered=True, initial_scale=0.5),
+                dict(bias_correction=True, eps_in_sqrt=False),
+                dict(centered=True, bias_correction=True, momentum=0.5,
+                     initial_scale=0.5)],
     "ftrl": [{}, dict(l1=0.01, l2=0.1, beta=0.5)],
 }
 CASES = [(n, i) for n, kws in KWARGS.items() for i in range(len(kws))]
@@ -111,9 +115,22 @@ def test_dense_optimizer_matches_reference(name, which):
 
 
 def test_unported_options_raise():
+    """Unknown names and keywords raise; rmsprop's ``centered`` and
+    ``bias_correction`` (refused before the port had them) step as
+    optax's do."""
     p = [torch.zeros(3)]
-    with pytest.raises(NotImplementedError, match="centered"):
-        optimizers.make("rmsprop", 0.1, p, centered=True)
+    for kw in (dict(centered=True), dict(bias_correction=True),
+               dict(centered=True, bias_correction=True)):
+        w = torch.tensor([0.5, -1.0, 2.0])
+        opt = optimizers.make("rmsprop", 0.1, [w], **kw)
+        tx = optax.rmsprop(0.1, **kw)
+        jw = jnp.asarray([0.5, -1.0, 2.0])
+        state = tx.init(jw)
+        for g in ([0.3, -0.2, 0.1], [0.1, 0.4, -0.5]):
+            opt.step([torch.tensor(g)])
+            upd, state = tx.update(jnp.asarray(g), state, jw)
+            jw = optax.apply_updates(jw, upd)
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), **OPT_TOL)
     with pytest.raises(ValueError, match="adam\\|sgd\\|momentum"):
         optimizers.make("lamb", 0.1, p)
     with pytest.raises(TypeError):

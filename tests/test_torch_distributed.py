@@ -369,24 +369,39 @@ def test_data_generator_pipe(tmp_path):
 
 def test_boxps_attach_collectives_barriers_the_pass():
     """``attach_collectives`` puts a world barrier at ``begin_pass`` and
-    ``end_pass`` (the JAX package's lifecycle); the heartbeat watchdog
-    is not ported and refuses, naming its ROADMAP item."""
+    ``end_pass`` (the JAX package's lifecycle); with a heartbeat, each
+    boundary publishes a beat first and collectives without a watchdog
+    get the heartbeat as theirs, as in the JAX package."""
     from paddlebox_tpu_torch.embedding.config import EmbeddingConfig
     from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
     from paddlebox_tpu_torch.fleet import BoxPS
 
     class Recorder:
-        def __init__(self):
-            self.calls = []
+        def __init__(self, calls):
+            self.calls = calls
+            self.watchdog = None
 
         def barrier(self, name="barrier"):
             self.calls.append(name)
 
+    class Beat:
+        def __init__(self, calls):
+            self.calls = calls
+
+        def publish(self):
+            self.calls.append("publish")
+
     box = BoxPS(HostEmbeddingStore(EmbeddingConfig(dim=4)))
-    rec = Recorder()
+    calls = []
+    rec = Recorder(calls)
     box.attach_collectives(rec)
     box.begin_pass()
     box.end_pass()
-    assert rec.calls == ["begin_pass", "end_pass"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        box.attach_collectives(rec, heartbeat=object())
+    assert calls == ["begin_pass", "end_pass"]
+    calls.clear()
+    beat = Beat(calls)
+    box.attach_collectives(rec, heartbeat=beat)
+    assert rec.watchdog is beat
+    box.begin_pass()
+    box.end_pass()
+    assert calls == ["begin_pass", "publish", "publish", "end_pass"]

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: every module of it (found by walking
 the package; the mesh's ``parallel`` and ``distributed`` modules among
-them) and the multi-rank tests' rank program (tests/
-torch_multirank_worker.py) import with jax, jaxlib, optax and
-paddlebox_tpu blocked,
+them) and the multi-rank tests' rank programs (tests/
+torch_multirank_worker.py, tests/torch_resilience_worker.py) import
+with jax, jaxlib, optax and paddlebox_tpu blocked, the parameter server
+serves there,
 it parses through its native parser and runs a MultiSlotDataGenerator
 pipe command (itself blocked the same way) there, the serving CLI
 starts there, it names none of them in any import, and its entry points
@@ -62,7 +63,11 @@ for name in ("paddlebox_tpu_torch.serving.server",
              "paddlebox_tpu_torch.distributed.collectives",
              "paddlebox_tpu_torch.distributed.ownership",
              "paddlebox_tpu_torch.distributed.role_maker",
-             "paddlebox_tpu_torch.distributed.launch"):
+             "paddlebox_tpu_torch.distributed.launch",
+             "paddlebox_tpu_torch.distributed.resilience",
+             "paddlebox_tpu_torch.distributed.ps",
+             "paddlebox_tpu_torch.data.shuffle",
+             "paddlebox_tpu_torch.monitor.trace"):
     assert name in walked, (name, walked)
 # the multi-rank tests' rank program and its helpers: a spawned rank
 # imports no JAX
@@ -70,7 +75,7 @@ tests_dir = os.path.join(os.path.dirname(paddlebox_tpu_torch.__path__[0]),
                          "tests")
 sys.path.insert(0, tests_dir)
 for name in ("torch_multirank_common", "torch_multirank_spawn",
-             "torch_multirank_worker"):
+             "torch_multirank_worker", "torch_resilience_worker"):
     importlib.import_module(name)
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
@@ -138,7 +143,8 @@ def _port_sources():
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out) + [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tests", f"torch_multirank_{m}.py")
-        for m in ("common", "spawn", "worker")]
+        for m in ("common", "spawn", "worker")] + [
+        os.path.join(REPO, "tests", "torch_resilience_worker.py")]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -191,6 +197,33 @@ print("OK")
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "--health-port" in r.stdout and r.stdout.strip().endswith("OK")
+
+
+def test_ps_server_runs_with_jax_blocked():
+    """``python -m paddlebox_tpu_torch.distributed.ps`` serves with the
+    JAX package blocked: a port client creates a table on it, pulls,
+    and stops it."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    script = _BLOCKER + """
+import runpy, threading, time
+import numpy as np
+sys.argv = ["ps", "--port", "0"]
+from paddlebox_tpu_torch.distributed import ps
+srv = ps.PSServer("127.0.0.1", 0).start()
+c = ps.PSClient([(srv.host, srv.port)])
+from paddlebox_tpu_torch.embedding import EmbeddingConfig
+c.create_sparse_table("e", EmbeddingConfig(dim=2))
+assert c.pull_sparse("e", np.arange(1, 3, dtype=np.uint64)).shape == (2, 5)
+c.stop_servers()
+srv.stop()
+bad = [m for m in sys.modules if m.partition(".")[0] in BLOCKED]
+assert not bad, bad
+print("OK")
+"""
+    r = subprocess.run([sys.executable, "-c", script], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("OK")
 
 
 def test_serving_entry_points_refuse_without_a_card(tmp_path):

@@ -537,17 +537,48 @@ def test_remote_paths_raise_not_ported(tmp_path):
         fs_lib._REGISTRY.pop("hdfs", None)
 
 
-def test_tcp_shuffle_parts_raise_not_ported():
-    schema, _ = schemas()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        SlotDataset(schema, shuffle_service=object())
-    ds = SlotDataset(schema)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ds.load_into_memory(routing="ins_id")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ds.member_shards(2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ds.reroute_records(None, 2)
+def test_tcp_shuffle_parts_raise_not_ported(tmp_path):
+    """Parity, not a refusal: the name stays from when the port refused
+    these parts. The cross-host shuffle's dataset parts, held against
+    the JAX package's: a dataset on a world-of-one TcpShuffleService
+    loads the records the JAX one does, routing by ins_id without a
+    service is the same local permutation, and member_shards /
+    reroute_records from one shuffle state split and re-route the same
+    records."""
+    from paddlebox_tpu.data.shuffle import \
+        TcpShuffleService as JaxShuffleService
+    from paddlebox_tpu_torch.data.shuffle import TcpShuffleService
+    from paddlebox_tpu_torch.distributed.launch import _free_ports
+    files = _write_text_files(tmp_path, with_ins_id=True)
+    schema, jschema = schemas()
+    ports = _free_ports(2)
+    svc = TcpShuffleService(0, [f"127.0.0.1:{ports[0]}"])
+    jsvc = JaxShuffleService(0, [f"127.0.0.1:{ports[1]}"])
+    try:
+        pairs = [(SlotDataset(schema, shuffle_service=svc, seed=3),
+                  JaxDataset(jschema, shuffle_service=jsvc, seed=3),
+                  {"routing": "random"}),
+                 (SlotDataset(schema, seed=3), JaxDataset(jschema, seed=3),
+                  {"routing": "ins_id"})]
+        for ours, ref, kw in pairs:
+            for ds in (ours, ref):
+                ds.with_ins_id = True
+                ds.set_filelist(files)
+                ds.load_into_memory(**kw)
+            assert_records_identical(ours.records, ref.records)
+            for got, want in zip(ours.member_shards(3),
+                                 ref.member_shards(3), strict=True):
+                assert_records_identical(got, want)
+            tail = ours.member_shards(3)[1]
+            jtail = ref.member_shards(3)[1]
+            for got, want in zip(ours.reroute_records(tail, 2),
+                                 ref.reroute_records(jtail, 2),
+                                 strict=True):
+                assert_records_identical(got, want)
+            assert ours.shuffle_state() == ref.shuffle_state()
+    finally:
+        svc.close()
+        jsvc.close()
 
 
 @pytest.mark.parametrize("parse_threads", [0, 1, 5])

@@ -335,12 +335,15 @@ def test_flush_push_refuses_inside_a_pass():
 def test_push_apply_fault_point_and_counter():
     store, tr, box = _job("on")
     before = monitor.STATS.get("trainer.push_applies")
+    # hit counts are per process and cumulative: an earlier test in this
+    # worker may have trained while another point was armed
+    hits = faultpoint.hit_count("trainer.push_apply.pre")
     faultpoint.arm("trainer.push_apply.pre", action="ioerror", after=2)
     box.begin_pass()
     with pytest.raises(faultpoint.FaultInjected):
         tr.train_pass(_dataset("port", tr, 1), metrics=box.metrics)
     box.abort_pass("test")
-    assert faultpoint.hit_count("trainer.push_apply.pre") == 3
+    assert faultpoint.hit_count("trainer.push_apply.pre") == hits + 3
     assert tr.push_applies == 2
     assert monitor.STATS.get("trainer.push_applies") == before + 2
 

@@ -410,11 +410,14 @@ def test_foreign_save_forces_a_base(tmp_path):
     assert ckpt.last_save["sparse_member"] == "base.npz"
 
 
-def test_end_pass_refuses_publisher_and_remote_resume():
-    """Publishing is ported: end_pass refuses a publisher without the
-    trainer whose dense params it publishes, and a publisher that fails
-    degrades to {"error": ...} with a warning instead of raising.
-    Multi-host resume still raises."""
+def test_end_pass_refuses_publisher_and_remote_resume(tmp_path):
+    """The remote resume half is parity, not a refusal: the name stays
+    from when the port refused it. Publishing is ported: end_pass
+    refuses a publisher without the trainer whose dense params it
+    publishes, and a publisher that fails degrades to {"error": ...}
+    with a warning instead of raising. ``resume(collectives=)`` on a
+    world of one is the plain resume, as in the JAX package
+    (tests/test_torch_resilience.py runs the coordinated one)."""
     store, tr, box = _make("port", carry=False)
     box.begin_pass()
     with pytest.raises(ValueError, match="needs trainer"):
@@ -423,8 +426,13 @@ def test_end_pass_refuses_publisher_and_remote_resume():
     with pytest.warns(UserWarning, match="publish failed"):
         out = box.end_pass(publisher=object(), trainer=tr)
     assert "error" in out["publish"]
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        tr.resume(None, collectives=object())
+    from paddlebox_tpu_torch.distributed import FileStore, HostCollectives
+    col = HostCollectives(FileStore(str(tmp_path / "store")), 0, 1)
+    assert tr.resume(_ckpt("port", str(tmp_path / "none")),
+                     collectives=col) is None
+    jstore, jtr, jbox = _make("jax", carry=False)
+    assert jtr.resume(_ckpt("jax", str(tmp_path / "jnone")),
+                      collectives=col) is None
 
 
 def test_shuffle_state_replays_the_same_permutations():
