@@ -173,7 +173,7 @@ Phases, each of which exits non-zero on failure:
    every training pass counted between a reset just before and a read
    just after (the sums are the kernels line's phase14_launches): (a) on
    each layout, push overlap off and on (flags.push_overlap, read when
-   the Trainer is built), a warm-up pass each then 3 alternating 16-step
+   the Trainer is built), a warm-up pass each then 2 alternating 16-step
    passes each: the layout's kernels 16 each and push_applies 16 (on) /
    0 (off) a pass, the two runs' losses and rows within LOSS_TOL /
    TABLE_TOL, then a profiled pass (device kernels' busy ms/step, idle
@@ -244,7 +244,36 @@ Phases, each of which exits non-zero on failure:
    shrink -> load restores the rows bit for bit. Prints each exchange's
    bytes and seconds, each save and resume, the recovery's and the
    re-formation's seconds, the heartbeat's beat gaps, and each PS pass's
-   pull and write-back bytes and seconds.
+   pull and write-back bytes and seconds;
+17. the monitor's read side, DeepFM at full width, every kernel count
+   reset just before and read just after each part (the sums, both
+   ranks' in (c), are the kernels line's phase17_launches): (a) on each
+   layout a 16-step pass for the step loop's wall, then
+   utils.step_probe.attribute_step on one staged batch (device seconds
+   by telescoping ablation, k = 1 step a timed window, 6 windows a
+   stage): the launches must equal what its call counts predict
+   (gather_pool 0 on one-hot), the single-step anchor within 0.5-3x of
+   phase 5's profiled busy; push_floor_analysis at the card's peaks,
+   the running engine's floor within 25% of phase 4's bounds of the
+   same kernels, and the doctor's push-floor verdict on it; (b) five
+   8-step one-hot passes over disjoint 2^19-key windows through
+   BoxPS.end_pass with flags.incremental_feed off, the first four with
+   the world trace, the per-pass device capture, the live doctor and
+   the self-healing loop on: each capture must hold the pass's
+   binned_merge_acc and merge_update launches with no capture error,
+   and the boundary-wall rule's action (incremental_feed back on) must
+   apply at pass 3's or 4's boundary (sustain 2; a boundary's doctor
+   reads the passes before it) under the parity guard and ride its
+   flight record; the fifth pass, the read side off, is the cost A/B;
+   (c) two ranks on cuda:0 over gloo (this script with
+   --trace-worker), one traced 8-step one-hot pass on the sharded
+   layout with the heartbeat publishing every 0.2 s: the port's trace
+   CLI must merge one exchange arrow a step, and the doctor CLI reads
+   both roots; (d) phase 11's frontend under
+   flags.serving_trace_sample = 1, 4 x 1024 requests (32 in flight a
+   client) across pass 2's published delta and its swap: the serve/wait
+   and serve/score spans' p50/p99, and the merged trace's publish arrow
+   from the pass to the swap.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -266,13 +295,15 @@ import time
 
 import numpy as np
 
+# the card's peak rates and the sector size, and the device timer: one
+# source with the package's step probe (its push floors use the same)
+from paddlebox_tpu_torch.utils.step_probe import (FP32_OPS_PER_S,
+                                                  HBM_BYTES_PER_S, SECTOR,
+                                                  time_ms)
+
 SEED = 0
 B, S, DENSE = 8192, 26, 13                # bench.py's Criteo DeepFM
 HIDDEN = (400, 400, 400)
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12
-SECTOR = 32                               # bytes the memory system moves
-                                          # at the least (one L2 sector)
 GATHER_TOL = dict(rtol=1e-6, atol=1e-6)   # test_gather_pool.py
 SCATTER_TOL = dict(rtol=1e-5, atol=1e-6)  # test_scatter_accumulate.py
 MERGE_TOL = dict(rtol=1e-6, atol=1e-6)    # test_pallas_kernels.py
@@ -308,6 +339,11 @@ ONEHOT = Layout("onehot_dim8", 8, 1, 1 << 19, 16,
                 ("binned_merge_acc", "merge_update"), "binned_kernel")
 
 
+# each layout's profiled device busy ms a step (phase 5's breakdown):
+# phase 17's step attribution holds its unablated anchor against it
+PHASE5_BUSY_MS: dict[str, float] = {}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -339,44 +375,6 @@ def assert_close(name, got, want, tol) -> float:
     print(f"  {name}: max abs err {err:.3g} (tolerance rtol "
           f"{tol['rtol']:g} atol {tol['atol']:g}) ok")
     return err
-
-
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device ms per call over ``iters`` calls between CUDA events.
-
-    The calls are queued behind a device-side sleep longer than their
-    host dispatch, so the events time the device's work and not the
-    wrappers' Python overhead (a 0.03 ms kernel behind a 0.1 ms wrapper
-    would otherwise read 0.1 ms). If the device catches up with the queue
-    anyway, because the calls hold more launches than CUDA keeps
-    pending, the count drops to a quarter and the timing repeats; a
-    function that waits for the device itself (a boolean-mask index does)
-    is timed with its waits, and a line says so."""
-    import torch
-    t = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    host_s = (time.perf_counter() - t) / warmup   # dispatch + any waits
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    while True:
-        torch.cuda.synchronize()
-        # 2e9 cycles/s is at least the SM clock: the sleep is no shorter
-        torch.cuda._sleep(int((2 * iters * host_s + 0.005) * 2e9))
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        drained = t0.query()     # the device reached t0 before the host
-        torch.cuda.synchronize()  # had queued every call
-        ms = t0.elapsed_time(t1) / iters
-        if not drained:
-            return ms
-        if iters == 1:
-            print(f"  ({ms:.4f} ms includes host waits: the function "
-                  f"waits for the device)")
-            return ms
-        iters = max(1, iters // 4)
 
 
 def sector_ids(torch, starts, length: int):
@@ -1028,7 +1026,8 @@ def main_path(torch, kernels, lay, keep: dict | None = None
     if keep is not None:
         keep.update(out=out, keys=ws_keys, rows=rows)
     eval_check(kernels, lay, tr, schema, keys, rng)
-    breakdown(torch, tr, ds, out["step_seconds"] / steps * 1e3)
+    PHASE5_BUSY_MS[lay.name] = breakdown(torch, tr, ds,
+                                         out["step_seconds"] / steps * 1e3)
     if lay is ONEHOT:
         engine_ab(torch, tr, ds)
     return {k: launches[k] for k in lay.kernels}
@@ -1102,13 +1101,14 @@ def step_syncs(torch, tr, staged) -> list:
     return syncs
 
 
-def breakdown(torch, tr, ds, loop_ms: float) -> None:
+def breakdown(torch, tr, ds, loop_ms: float) -> float:
     """Where a main-path step's time goes: the host pack of one batch
     (translate + push plan + pin, the pack thread's work), the device
     step alone on pre-staged batches, the profiler's split of the device
     time by kernel, and the step loop of a second pass with the pack
     inline instead of on its thread. Runs after the main path's launch
-    counts are read, on its last working set."""
+    counts are read, on its last working set. Returns the profiled
+    device busy ms a step."""
     ws = tr.last_ws
     n = 4
     clock = time.perf_counter
@@ -1159,6 +1159,7 @@ def breakdown(torch, tr, ds, loop_ms: float) -> None:
         flags.prefetch_batches = depth
     print(f"breakdown: step loop without the pack thread "
           f"{out['step_seconds'] / out['steps'] * 1e3:.3f} ms/step")
+    return busy_ms
 
 
 def engine_ab(torch, tr, ds) -> None:
@@ -3691,7 +3692,7 @@ def profiled_pass(torch, kernels, tr, box, ds, total: dict
 def mode_ab(torch, kernels, card, lay, total: dict, tag: str,
             modes: dict, applies: dict) -> None:
     """Two dispatch modes of one job (``modes``: label -> (push_overlap,
-    steps_per_dispatch)), alternating after a warm-up pass each, 3 passes
+    steps_per_dispatch)), alternating after a warm-up pass each, 2 passes
     each: the layout's kernels 16 each a pass, ``applies[label]``
     deferred applies a pass, the two runs' losses and final rows within
     LOSS_TOL / TABLE_TOL (the kernels' f32 atomics reorder sums), then a
@@ -3707,7 +3708,7 @@ def mode_ab(torch, kernels, card, lay, total: dict, tag: str,
     want = {k: 16 for k in lay.kernels}
     runs: dict = {m: [] for m in modes}
     losses: dict = {m: [] for m in modes}
-    for i, m in enumerate(list(modes) * 4):
+    for i, m in enumerate(list(modes) * 3):
         _, _, tr, box, ds = jobs[m]
         a0 = tr.push_applies
         out, launches, _ = counted_pass(kernels, tr, ds, total, box=box)
@@ -4704,6 +4705,548 @@ def resilience_phase(torch, kernels, card) -> dict[str, int]:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the monitor's read side
+# ---------------------------------------------------------------------------
+
+PROBE_K = 1                # steps a timed window (CUDA's launch queue)
+PROBE_WINDOWS = 6          # windows a stage, the fastest kept
+FLOOR_TOL = 0.25           # push floor vs phase 4's bounds, relative
+READ_STEPS = 8             # (b): steps a pass (the boundary-wall rule
+                           # needs the boundary at 25% of the pass wall)
+READ_PASSES = 4            # (b): passes with the read side on
+TRACE_STEPS = 8            # (c): steps of the two-rank traced pass
+SERVE_CLIENTS, SERVE_REQS = 4, 1024   # (d): requests a client
+SERVE_INFLIGHT = 32        # (d): a client's requests in flight (batches
+                           # of ~4 x 32: enough spans for a p99)
+
+
+def probe_launches(lay, calls: dict) -> dict:
+    """The launches attribute_step's calls make, from its call counts:
+    the push kernels once a full step, a deferred apply and an isolated
+    push; gather_pool (multi-hot) once a step that pulls — the full
+    step, the push-ablated one, both deferred timings and the isolated
+    lookup."""
+    push = (calls["step"] + calls.get("overlap_applies", 0)
+            + calls["isolated_push"])
+    want = {k: 0 for k in SOURCES}
+    if lay is MULTI:
+        want["scatter_accumulate"] = push
+        want["gather_pool"] = (calls["step"] + calls["ablate_push"]
+                               + calls.get("overlap_pair", 0)
+                               + calls.get("overlap_loss_path", 0)
+                               + calls["isolated_lookup"])
+    else:
+        want["binned_merge_acc"] = want["merge_update"] = push
+    return want
+
+
+def step_attribution(torch, kernels, card, lay, bounds: dict,
+                     total: dict) -> None:
+    """(a) one layout: a 16-step pass for the step loop's wall, then
+    step_probe.attribute_step on one staged batch of its working set and
+    push_floor_analysis at the card's peaks, every kernel count reset
+    just before the probe and read just after."""
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.monitor import doctor
+    from paddlebox_tpu_torch.utils import step_probe
+    keys, rng = draw_keys(lay.n_keys)
+    store, schema, tr = make_trainer(torch, lay, B, None)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
+    out = tr.train_pass(ds)
+    loop_s = out["step_seconds"] / out["steps"]
+    ws = tr.last_ws
+    pb = next(iter(ds.batches(B)))
+    idx = ws.translate(pb.ids, pb.mask)
+    labels, dense = tr.split_floats(pb.floats)
+    staged = tr.stage(tr.pack_arrays(ws, idx, pb.mask, dense, labels))
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    att = step_probe.attribute_step(tr, ws, staged, loop_s, k=PROBE_K,
+                                    windows=PROBE_WINDOWS)
+    launches = launch_counts(kernels)
+    wall = time.perf_counter() - t0
+    add_counts(total, launches)
+    want = probe_launches(lay, att["calls"])
+    check(launches == want, f"(a) {lay.name}: the probe launched "
+          f"{launches}, its calls {att['calls']} predict {want}")
+    if lay is ONEHOT:
+        check(launches["gather_pool"] == 0, "(a) one-hot launched "
+              "gather_pool")
+    st, iso = att["stages"], att["isolated"]
+    single_ms = att["single_step_seconds"] * 1e3
+    busy = PHASE5_BUSY_MS.get(lay.name)
+    busy = None if busy is None else round(busy, 3)
+    check(busy is None or 0.5 <= single_ms / busy <= 3.0,
+          f"(a) {lay.name}: the probe's single step {single_ms:.3f} ms "
+          f"against phase 5's profiled busy {busy} ms")
+    check(att["coverage"] > 0.99, f"(a) {lay.name}: coverage "
+          f"{att['coverage']}")
+
+    def ms(x):
+        return f"{x * 1e3:.4f}"
+    print(f"  (a) {lay.name} step attribution ({card}): " + " | ".join(
+        f"{k} {ms(v)} ms" for k, v in st.items())
+        + f" | single step {single_ms:.4f} ms (phase 5's profiled busy "
+        f"{busy} ms) | coverage {att['coverage']} | headline (step "
+        f"loop wall) {att['headline_step_seconds'] * 1e3:.3f} ms, "
+        f"unattributed (the host's share) "
+        f"{att['unattributed_seconds'] * 1e3:.3f} ms")
+    print(f"  (a) {lay.name} isolated: " + " | ".join(
+        f"{k} {ms(v)} ms" for k, v in iso.items()))
+    ab = att["overlap_ab"]
+    if ab is not None:
+        print(f"  (a) {lay.name} overlap_ab (push_overlap "
+              f"{att['push_overlap']}): inline {ms(ab['inline_single_step'])}"
+              f" ms | deferred apply+step "
+              f"{ms(ab['deferred_step_plus_apply'])} ms | deferred loss "
+              f"path {ms(ab['deferred_loss_path_step'])} ms")
+    print(f"  (a) {lay.name} launches (k {PROBE_K}, {PROBE_WINDOWS} "
+          f"windows a stage, calls {att['calls']}): {launches} = the "
+          f"calls' prediction ok ({wall:.1f} s)")
+    engine = tr.resolved_push_engine(ws)
+    flat = idx.reshape(-1)
+    # the rows the push touches (the premerged plan pads its unique
+    # lanes to the token count; phase 4 counts the valid ones)
+    lanes = int(np.unique(flat).size)
+    fl = step_probe.push_floor_analysis(
+        store.cfg, ws.padded_rows, int(flat.size),
+        peaks=step_probe.device_peaks(),
+        measured_push=st["sparse_push"], premerged=tr.push_premerged(),
+        table_width=int(ws.table.shape[1]), unique_lanes=lanes)
+    check(fl["engine"] == engine, f"(a) {lay.name}: the floor models "
+          f"{fl['engine']}, the step ran {engine}")
+    check(fl["floor_seconds"] is not None, f"(a) {lay.name}: no peaks "
+          f"for {card}")
+    mine = ("scatter_accumulate",) if lay is MULTI else (
+        "binned_merge_acc", "merge_update")
+    b4 = sum(bounds[k] for k in mine)
+    floor_ms = fl["engines"][fl["engine"]]["floor_seconds"] * 1e3
+    ratio = floor_ms / b4
+    check(abs(ratio - 1.0) <= FLOOR_TOL, f"(a) {lay.name}: {engine} floor "
+          f"{floor_ms:.4f} ms vs phase 4's bound {b4:.4f} ms")
+    rep = doctor.diagnose(detail={"push_floor": fl, "push_engine": engine})
+    status = {r["rule"]: r["status"] for r in rep["rules"]}["push-floor"]
+    print(f"  (a) {lay.name} push floor ({card}): {engine} "
+          f"{floor_ms:.4f} ms (" + ", ".join(
+              f"{k} {v['bound_seconds'] * 1e3:.4f} ms"
+              for k, v in fl["stages"].items()
+              if v.get("bound_seconds") is not None) + f") vs phase 4's "
+          f"bound {' + '.join(mine)} {b4:.4f} ms: ratio {ratio:.3f} "
+          f"within {FLOOR_TOL:.0%} ok | {lanes} lanes of {flat.size} "
+          f"tokens | every engine: " + ", ".join(
+              f"{k} {v['floor_seconds'] * 1e3:.4f} ms"
+              for k, v in fl["engines"].items())
+          + f" | measured push {st['sparse_push'] * 1e3:.4f} ms, closed: "
+          f"{fl['closed']} | best {fl.get('best_engine')} | doctor "
+          f"push-floor: {status}")
+    del store, tr, ds, ws, staged
+    torch.cuda.empty_cache()
+
+
+def key_windows(n: int, count: int) -> list:
+    """``count`` disjoint key sets of ``n`` keys: passes over them reuse no
+    resident row."""
+    rng = np.random.default_rng(SEED + 17)
+    keys = np.unique(rng.integers(1, 1 << 50, count * n + 8192,
+                                  dtype=np.uint64))[:count * n]
+    rng.shuffle(keys)
+    return [keys[i * n:(i + 1) * n] for i in range(count)]
+
+
+READ_FLAGS = ("trace", "trace_device", "trace_device_dir", "doctor_live",
+              "self_healing", "self_healing_sustain", "incremental_feed",
+              "serving_trace_sample", "table_layout")
+
+
+def read_side_run(torch, kernels, card, total: dict, d: str) -> None:
+    """(b) four 8-step one-hot passes through BoxPS.end_pass with the
+    world trace, the per-pass device capture, the live doctor and the
+    self-healing loop on, over disjoint key windows with
+    flags.incremental_feed off (no resident row reused: the boundary-wall
+    rule's reuse-off arm), then a fifth pass with the read side off. A
+    boundary's doctor reads the passes committed before it, and the
+    first pass's wall may hold the profiler's first start on this
+    process, so the action lands at pass 3's boundary or pass 4's."""
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.config import flags, set_flags
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.monitor import doctor
+    from paddlebox_tpu_torch.monitor import trace as trace_lib
+    store, schema, tr = make_trainer(torch, ONEHOT, B, None)
+    box = BoxPS(store)
+    box.init_metric("auc")
+    windows = key_windows(ONEHOT.n_keys, READ_PASSES + 1)
+    rng = np.random.default_rng(SEED + 18)
+    datasets = []
+    for w in windows:
+        ds = SlotDataset(schema)
+        ds.records = make_records(schema, READ_STEPS * B, w, rng, 1)
+        datasets.append(ds)
+    hub = monitor.hub()
+    # the live doctor reads the hub's ring of flight records: this run's
+    hub._flight_records.clear()
+    errs0 = monitor.STATS.get("trace.device_capture_errors")
+    set_flags(trace=True, trace_device=True,
+              trace_device_dir=os.path.join(d, "device"), doctor_live=True,
+              self_healing=True, self_healing_sustain=2,
+              incremental_feed=False)
+    ctl = tr.enable_self_healing()
+    hub.enable(monitor.JsonlSink(os.path.join(d, "rank0", "events.jsonl")))
+    rows = []
+    try:
+        for p in range(READ_PASSES + 1):
+            if p == READ_PASSES:     # the read side off: the A/B pass
+                set_flags(trace=False, trace_device=False,
+                          doctor_live=False, self_healing=False)
+            box.begin_pass()
+            reset_counts(kernels)
+            out = tr.train_pass(datasets[p], metrics=box.metrics)
+            launches = launch_counts(kernels)
+            add_counts(total, launches)
+            expect_launches(f"(b) pass {p + 1}", launches,
+                            {k: READ_STEPS for k in ONEHOT.kernels})
+            t0 = time.perf_counter()
+            end = box.end_pass(trainer=tr)
+            end_s = time.perf_counter() - t0
+            fr = end["flight_record"]
+            row = {"pass": p + 1, "wall": fr["seconds"], "end_s": end_s,
+                   "boundary": fr["extra"].get("boundary_seconds", 0.0),
+                   "step_ms": out["step_seconds"] / out["steps"] * 1e3,
+                   "findings": [f["rule"] for f in end.get("doctor", [])],
+                   "remediation": end.get("remediation"),
+                   "fr_remediation": fr["extra"].get("remediation")}
+            if p < READ_PASSES:
+                cap = trace_lib.last_device_trace
+                check(cap is not None and os.path.dirname(cap).endswith(
+                    f"pass-{box.pass_id:05d}"), f"(b) pass {p + 1}: no "
+                    f"device capture ({cap})")
+                with open(cap) as f:
+                    names = [str(e.get("name", ""))
+                             for e in json.load(f)["traceEvents"]]
+                n_acc = sum("binned_merge_acc_kernel" in n for n in names)
+                n_mu = sum("merge_update_kernel" in n for n in names)
+                check(n_acc >= READ_STEPS and n_mu >= READ_STEPS,
+                      f"(b) pass {p + 1}: the capture holds {n_acc} "
+                      f"binned_merge_acc and {n_mu} merge_update launches")
+                row.update(capture_bytes=os.path.getsize(cap),
+                           capture_acc=n_acc, capture_mu=n_mu)
+                t0 = time.perf_counter()
+                doctor.diagnose_hub(hub)
+                row["doctor_ms"] = (time.perf_counter() - t0) * 1e3
+            rows.append(row)
+    finally:
+        hub.disable()
+        for k in ("trace", "trace_device", "doctor_live", "self_healing"):
+            flags.set(k, False)
+        flags.set("incremental_feed", True)
+        flags.set("trace_device_dir", "")
+    errs = monitor.STATS.get("trace.device_capture_errors") - errs0
+    check(errs == 0, f"(b) trace.device_capture_errors {errs}")
+    for r in rows:
+        share = r["boundary"] / r["wall"] if r["wall"] else 0.0
+        print(f"  (b) pass {r['pass']} ({card}): wall {r['wall']:.3f} s, "
+              f"boundary {r['boundary']:.3f} s (share {share:.3f}), step "
+              f"loop {r['step_ms']:.3f} ms/step, end_pass "
+              f"{r['end_s']:.3f} s | findings {r['findings']} | "
+              f"remediation {r['remediation']}"
+              + (f" | capture {r['capture_bytes']} bytes, "
+                 f"{r['capture_acc']} binned_merge_acc_kernel and "
+                 f"{r['capture_mu']} merge_update_kernel launches | doctor "
+                 f"{r['doctor_ms']:.2f} ms" if "capture_bytes" in r
+                 else " | read side off"))
+    hist = [(r["findings"], r["remediation"]) for r in rows]
+    i = next((i for i, r in enumerate(rows) if r["remediation"]), None)
+    rem = rows[i]["remediation"] if i is not None else None
+    check(i in (2, 3) and rem.get("status") == "applied"
+          and rem.get("rule") == "boundary-wall"
+          and rem.get("action") == "enable-incremental-feed",
+          f"(b) no applied boundary-wall action at pass 3 or 4: {hist}")
+    check(rows[i]["fr_remediation"] == rem, "(b) the flight record's "
+          "extra['remediation'] is not the applied action")
+    if i + 1 < READ_PASSES:
+        after = rows[i + 1]["remediation"]
+        check(after and after.get("after") is not None,
+              f"(b) the settling pass carries no after-window: {after}")
+    check(flags.incremental_feed and not ctl.quarantined,
+          f"(b) the parity guard reverted: quarantined {ctl.quarantined}")
+    on = rows[READ_PASSES - 1]
+    off = rows[READ_PASSES]
+    fired = [r["pass"] for r in rows if "boundary-wall" in r["findings"]]
+    print(f"  (b) self-healing ({card}): boundary-wall in the live "
+          f"doctor's findings after passes {fired}, "
+          f"enable-incremental-feed applied at pass {i + 1}'s boundary "
+          f"(sustain 2) with the parity guard holding (the dense params' "
+          f"bytes equal across the apply), extra['remediation'] on pass "
+          f"{i + 1}'s flight record: {rem} ok")
+    print(f"  (b) read side cost per pass ({card}): end_pass {on['end_s']:.3f}"
+          f" s on (live doctor {on['doctor_ms']:.2f} ms, device capture "
+          f"stop + write {on['capture_bytes']} bytes) vs {off['end_s']:.3f} "
+          f"s off | pass wall {on['wall']:.3f} s on vs {off['wall']:.3f} s "
+          f"off | step loop {on['step_ms']:.3f} vs {off['step_ms']:.3f} "
+          f"ms/step")
+
+
+def trace_worker(argv: list[str]) -> int:
+    """One rank of (c): joins the world over gloo on the current card and
+    trains one traced one-hot pass of TRACE_STEPS steps on the sharded
+    layout, its heartbeat publishing every 0.2 s (the clock probes) and
+    its hub writing <dir>/rank<r>/events.jsonl; writes <dir>/rank<r>.json."""
+    import torch
+
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.distributed import RoleMaker
+    from paddlebox_tpu_torch.distributed.resilience import HeartbeatMonitor
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.ops import kernels
+    from paddlebox_tpu_torch.parallel import make_mesh
+    work = argv[0]
+    rm = RoleMaker.from_env()
+    rm.init_distributed(backend="gloo")
+    mesh = make_mesh(backend="gloo")
+    kernels.build_kernels()          # built by the parent: loads only
+    flags.table_layout = "sharded"
+    flags.trace = True
+    store, tr, _ = mesh_trainer(torch, ONEHOT, mesh=mesh)
+    keys, rng = draw_keys(ONEHOT.n_keys)
+    ds = SlotDataset(tr.schema)
+    ds.records = make_records(tr.schema, TRACE_STEPS * B, keys, rng, 1)
+    hb = HeartbeatMonitor(rm.base_store(), mesh.rank, mesh.world,
+                          run_id="trace", interval_s=0.2)
+    box = BoxPS(store)
+    box.attach_collectives(rm.collectives(), heartbeat=hb)
+    hub = monitor.hub()
+    hub.enable(monitor.JsonlSink(os.path.join(work, f"rank{mesh.rank}",
+                                              "events.jsonl")))
+    try:
+        box.begin_pass()
+        reset_counts(kernels)
+        out = tr.train_pass(ds)
+        launches = launch_counts(kernels)
+        box.end_pass(trainer=tr)
+        time.sleep(1.0)              # a few more beats: the clock probes
+    finally:
+        hub.disable()
+        hb.close()
+    with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump({"launches": launches, "steps": out["steps"],
+                   "loss_mean": out["loss_mean"],
+                   "table_layout": tr.table_layout,
+                   "jax_loaded": "jax" in sys.modules}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_rank_trace(torch, kernels, card, total: dict, d: str) -> None:
+    """(c) two ranks on this card over gloo (trace_worker), their streams
+    merged by the port's trace CLI and diagnosed by its doctor CLI."""
+    from paddlebox_tpu_torch.distributed.launch import launch
+    torch.cuda.empty_cache()
+    work = os.path.join(d, "world")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    code = launch(2, [sys.executable, os.path.abspath(__file__),
+                      "--trace-worker", work],
+                  store_dir=os.path.join(work, "store"),
+                  base_env={"PBTPU_EXCHANGE_WIRE": "f32",
+                            "GLOO_SOCKET_IFNAME": "lo"},
+                  timeout_s=600, local_ranks=[0, 0])
+    check(code == 0, f"(c) a rank exited {code}")
+    t_world = time.perf_counter() - t0
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            info = json.load(f)
+        add_counts(total, info["launches"])
+        expect_launches(f"(c) rank {r}", info["launches"],
+                        {"scatter_accumulate": TRACE_STEPS})
+        check(info["steps"] == TRACE_STEPS and not info["jax_loaded"]
+              and info["table_layout"] == "sharded", f"(c) rank {r}: {info}")
+    roots = [os.path.join(work, f"rank{r}") for r in range(2)]
+    out = os.path.join(work, "world_trace.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddlebox_tpu_torch.monitor.trace", *roots,
+         "-o", out, "--json"], capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"(c) trace CLI: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    edges = [e for e in summary["flow_edges"] if e["kind"] == "exchange"]
+    keys = sorted(e["key"] for e in edges)
+    check(len(edges) == TRACE_STEPS and len(set(keys)) == TRACE_STEPS
+          and all({e["src_rank"], e["dst_rank"]} == {0, 1} for e in edges),
+          f"(c) {len(edges)} exchange arrows ({keys}) for {TRACE_STEPS} "
+          f"steps")
+    with open(out) as f:
+        tr_json = json.load(f)
+    s_ids = {e["id"] for e in tr_json["traceEvents"] if e.get("ph") == "s"}
+    f_ids = {e["id"] for e in tr_json["traceEvents"] if e.get("ph") == "f"}
+    check(s_ids == f_ids and len(s_ids) >= TRACE_STEPS,
+          "(c) the Chrome flow events do not pair")
+    lat = [e["latency_s"] * 1e3 for e in edges]
+    probes = []
+    for root in roots:
+        with open(os.path.join(root, "events.jsonl")) as f:
+            probes += [json.loads(line)["fields"] for line in f
+                       if '"trace.clock_probe"' in line]
+    rtt = [p["rtt_s"] * 1e3 for p in probes]
+    print(f"  (c) two ranks over gloo on cuda:0 ({card}): {t_world:.1f} s "
+          f"for the world | merged trace {os.path.getsize(out)} bytes, "
+          f"{summary['spans']} spans, {len(edges)} exchange arrows (one a "
+          f"step) ok | clock offsets {summary['clock_offsets_s']} s "
+          f"(corrected ranks {summary['clock_corrected_ranks']}) from "
+          f"{len(probes)} heartbeat probes, rtt ms median "
+          f"{float(np.median(rtt)) if rtt else float('nan'):.3f} max "
+          f"{max(rtt) if rtt else float('nan'):.3f} (one host: the true "
+          f"offset is 0, the estimate's error is within rtt/2) | edge "
+          f"latency ms min {min(lat):.3f} median {float(np.median(lat)):.3f}"
+          f" max {max(lat):.3f}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddlebox_tpu_torch.monitor.doctor", *roots],
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"(c) doctor CLI: {proc.stderr[-2000:]}")
+    print("  (c) doctor CLI over both roots:")
+    for line in proc.stdout.strip().splitlines():
+        print(f"    {line[:300]}")
+
+
+def span_stats(records: list, name: str) -> tuple[int, float, float]:
+    ms = np.array([r["dur_s"] * 1e3 for r in records
+                   if r.get("type") == "span" and r.get("name") == name])
+    check(ms.size > 0, f"(d) no {name} span in the stream")
+    return int(ms.size), float(np.percentile(ms, 50)), float(
+        np.percentile(ms, 99))
+
+
+def serving_spans(torch, kernels, card, total: dict, d: str) -> None:
+    """(d) phase 11's frontend (max_batch 1024, max_wait_s 0.002) under
+    flags.serving_trace_sample = 1, SERVE_CLIENTS clients of SERVE_REQS
+    single-example requests, across pass 2's published delta and its
+    swap: the serve/wait and serve/score spans' p50/p99, and the merged
+    trace's publish arrow from the pass to the swap."""
+    import threading
+
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.monitor import trace as trace_lib
+    from paddlebox_tpu_torch.serving import (BatchingFrontend,
+                                             ServingPublisher,
+                                             ServingServer)
+    store, schema, tr, box, ds = monitor_job(torch, ONEHOT)
+    root = os.path.join(d, "serve")
+    pub = ServingPublisher(root, tr.model, schema, quant="int8",
+                           publish_base_every=2, hot_top_k=1024)
+    sdir = os.path.join(d, "serve_rank0")
+    hub = monitor.hub()
+    flags.trace = True
+    flags.serving_trace_sample = 1
+    hub.enable(monitor.JsonlSink(os.path.join(sdir, "events.jsonl")))
+    try:
+        box.begin_pass()
+        reset_counts(kernels)
+        tr.train_pass(ds, metrics=box.metrics)
+        add_counts(total, launch_counts(kernels))
+        box.end_pass(trainer=tr, publisher=pub)          # v1, a base
+        srv = ServingServer(root)
+        check(srv.poll_once() == 1, "(d) the first poll loaded nothing")
+        box.begin_pass()
+        reset_counts(kernels)
+        tr.train_pass(ds, metrics=box.metrics)
+        add_counts(total, launch_counts(kernels))
+        it = ds.batches(B)
+        reqs = [request_arrays(tr, next(it)) for _ in range(SERVE_CLIENTS)]
+        fe = BatchingFrontend(srv, max_batch=1024, max_wait_s=0.002).start()
+        sent = [0] * SERVE_CLIENTS
+        errors = []
+
+        def client(c):
+            ids, mask, dense = reqs[c]
+            try:
+                futs = []
+                for i in range(SERVE_REQS):
+                    futs.append(fe.submit(ids[i], mask[i], dense[i]))
+                    sent[c] += 1
+                    if len(futs) >= SERVE_INFLIGHT:
+                        check(np.isfinite(futs.pop(0).result(timeout=60)),
+                              "(d) non-finite score")
+                for f in futs:
+                    check(np.isfinite(f.result(timeout=60)),
+                          "(d) non-finite score")
+            except Exception as e:   # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while sum(sent) < SERVE_CLIENTS * SERVE_REQS // 4 and any(
+                t.is_alive() for t in threads):
+            time.sleep(0.005)
+        end = box.end_pass(trainer=tr, publisher=pub)    # v2, a delta
+        info = end["publish"]
+        check("error" not in info, f"(d) publish failed: {info}")
+        check(srv.poll_once() == 1, "(d) the swap applied nothing")
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        fe.stop()
+        st = fe.stats()
+    finally:
+        hub.disable()
+        flags.trace = False
+        flags.serving_trace_sample = 0
+    check(not errors, f"(d) clients failed: {errors[:3]}")
+    n = sum(sent)
+    check(st["failures"] == 0 and n == SERVE_CLIENTS * SERVE_REQS,
+          f"(d) frontend {st}, {n} sent")
+    check(srv.active.version == info["version"], f"(d) serving "
+          f"v{srv.active.version}, published v{info['version']}")
+    with open(os.path.join(sdir, "events.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    n_w, w50, w99 = span_stats(records, "serve/wait")
+    n_s, s50, s99 = span_stats(records, "serve/score")
+    summary = trace_lib.summarize(trace_lib.merge_roots([sdir]))
+    pub_edges = [e for e in summary["flow_edges"] if e["kind"] == "publish"
+                 and e["key"] == f"v{info['version']}"]
+    check(len(pub_edges) == 1, f"(d) publish edges "
+          f"{[e for e in summary['flow_edges'] if e['kind'] == 'publish']}")
+    e = pub_edges[0]
+    print(f"  (d) serving spans ({card}): {n} requests from "
+          f"{SERVE_CLIENTS} clients in {wall:.3f} s, frontend p50 "
+          f"{st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms, "
+          f"{st['batches']} batches (mean {st['mean_batch']}) | serve/wait "
+          f"{n_w} spans p50 {w50:.3f} ms p99 {w99:.3f} ms | serve/score "
+          f"{n_s} spans p50 {s50:.3f} ms p99 {s99:.3f} ms | publish "
+          f"v{info['version']} ({info['kind']}) -> swap arrow, latency "
+          f"{e['latency_s'] * 1e3:.3f} ms, parent span "
+          f"{e['fields'].get('parent_span_id')} ok")
+
+
+def read_side_phase(torch, kernels, card, bounds: dict) -> dict[str, int]:
+    """Phase 17. Returns the launches of every kernel over the phase
+    (the probe's calls, the training passes, both ranks of (c))."""
+    print(f"== the monitor's read side ({card}): DeepFM, {B} x {S} slots")
+    total: dict[str, int] = {}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for lay in (MULTI, ONEHOT):
+            step_attribution(torch, kernels, card, lay, bounds, total)
+        seconds["attribution"] = round(time.perf_counter() - t0, 1)
+        for name, fn in (("read side", read_side_run),
+                         ("two ranks", two_rank_trace),
+                         ("serving", serving_spans)):
+            t0 = time.perf_counter()
+            fn(torch, kernels, card, total, os.path.join(d, name[:5]))
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            torch.cuda.empty_cache()
+    print(f"launches in phase 17: {total} | seconds: {seconds}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4736,6 +5279,8 @@ def main() -> int:
     dispatched = dispatch_phase(torch, kernels, card)
     meshed = mesh_phase(torch, kernels, card)
     resilient = resilience_phase(torch, kernels, card)
+    read = read_side_phase(torch, kernels, card,
+                           {r["name"]: r["bound_ms"] for r in rows})
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["phase11_launches"] = serving.get(r["name"], 0)
@@ -4744,10 +5289,12 @@ def main() -> int:
         r["phase14_launches"] = dispatched.get(r["name"], 0)
         r["phase15_launches"] = meshed.get(r["name"], 0)
         r["phase16_launches"] = resilient.get(r["name"], 0)
+        r["phase17_launches"] = read.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "phase11_launches", "phase12_launches", "phase13_launches",
-            "phase14_launches", "phase15_launches", "phase16_launches")
+            "phase14_launches", "phase15_launches", "phase16_launches",
+            "phase17_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -4763,6 +5310,8 @@ if __name__ == "__main__":
         sys.exit(remote_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--trace-worker"]:
+        sys.exit(trace_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--resilience-worker"]:
         sys.exit(res_worker().main())
     sys.exit(main())

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any
 
 
@@ -104,6 +105,11 @@ class Flags:
     serving_window_s: float = 30.0
     # serving latency SLO (ms), stamped into every window record
     serving_slo_ms: float = 50.0
+    # request tracing: every Nth dispatched batch opens the frontend's
+    # serve/wait and the server's serve/score spans, the score span
+    # parent-linked to the served version's publish span through the
+    # donefile-carried trace ids. 0 = no request spans (one flag check)
+    serving_trace_sample: int = 0
     # the HBM replica hot tier (FLAGS_use_gpu_replica_cache): at every
     # pass boundary the trainer mirrors the rows the spill tier ranks
     # hottest onto the card, and the feed manager fills a pass's fresh
@@ -163,13 +169,39 @@ class Flags:
     # the next numbered segment (events.jsonl -> events.00001.jsonl);
     # 0 = one unbounded file
     telemetry_rotate_mb: int = 0
-    # the monitor's read side, off as in the JAX package: the live doctor
-    # and the world trace (host records and the per-pass device capture)
-    # are not ported yet, and the hub refuses them when set (ROADMAP
-    # queue 1 item 7)
+    # the monitor's read side, off as in the JAX package. The run doctor's
+    # live mode (monitor/doctor.py): the rules run over the in-memory
+    # flight records at every end_pass and emit doctor.finding events
+    # (BoxPS.end_pass returns the findings too)
     doctor_live: bool = False
+    # the world trace (monitor/trace.py): inside a sampled pass every hub
+    # record carries trace_id / span_id / parent_span_id, flow points mark
+    # the cross-rank edges (the exchange, publish -> serving swap), and
+    # ``python -m paddlebox_tpu_torch.monitor.trace <rank_dirs...>``
+    # merges the per-rank streams into one clock-corrected Chrome trace
     trace: bool = False
+    # trace every Nth pass (1 = every pass); an unsampled pass emits no
+    # trace record and pays only the sampling decision at begin_pass
+    trace_sample_passes: int = 1
+    # run identity baked into every trace_id ("" = "run"), so two runs
+    # sharing a telemetry root never pair their flow points; every rank
+    # of a run must agree
+    trace_run_id: str = ""
+    # per-pass device capture: torch.profiler with CUDA activity from
+    # every sampled begin_pass to its end_pass, written as
+    # trace_device_dir/pass-NNNNN/trace.json ("" = <tmp>/pbtpu_device_trace);
+    # a no-op when the trainer runs on the CPU; a failure is counted
+    # (trace.device_capture_errors), never raised
     trace_device: bool = False
+    trace_device_dir: str = ""
+    # the self-healing loop (runtime/remediation.py): at every pass
+    # boundary the RemediationController reads the live doctor findings
+    # and applies at most one machine-applicable action under the parity
+    # guard, recording it in the pass's flight record
+    self_healing: bool = False
+    # consecutive pass boundaries a rule must fire before its action is
+    # applied: one noisy pass never reconfigures the run
+    self_healing_sustain: int = 2
 
     def set(self, name: str, value: Any) -> None:
         if not hasattr(self, name):
@@ -195,3 +227,11 @@ class Flags:
 
 
 flags = Flags.from_env()
+_lock = threading.Lock()
+
+
+def set_flags(**kwargs: Any) -> None:
+    """Set several flags at once, under one lock."""
+    with _lock:
+        for k, v in kwargs.items():
+            flags.set(k, v)

@@ -226,6 +226,18 @@ def push_wire_bytes(cfg: EmbeddingConfig, lanes: int, wire: str) -> int:
     return lanes * (4 + gbytes + side)
 
 
+def flow_fields(cfg: EmbeddingConfig, wire: str, tokens: int) -> dict:
+    """Edge-label fields of a world-trace ``exchange`` flow point (JAX
+    exchange.py:241): the wire format and an upper bound on the bytes
+    this step's all-to-all crosses (lanes <= tokens — the dedup plan can
+    only shrink it; the exact per-pass totals are the ``exchange.*``
+    counter deltas). Host arithmetic only — a flow point never reads the
+    device."""
+    return {"wire": str(wire), "tokens": int(tokens),
+            "bytes_bound": pull_wire_bytes(cfg, int(tokens))
+            + push_wire_bytes(cfg, int(tokens), wire)}
+
+
 def pull_wire_bytes(cfg: EmbeddingConfig, lanes: int) -> int:
     """A2a bytes for `lanes` pull lanes: the index plane out plus the
     value payload back (quantized tables cross embedx at their storage

@@ -42,8 +42,14 @@ exchange-wire adaptation (``Trainer.adapt_wire_boundary``) before the
 flight record commits. With a heartbeat (``attach_collectives(col,
 heartbeat=hb)``, a ``distributed.resilience.HeartbeatMonitor``) those
 barriers poll its watchdog, so a dead or hung peer fails them by name,
-and each boundary publishes a fresh beat. Not ported yet: the
-self-healing boundary hook (ROADMAP queue 1 item 7).
+and each boundary publishes a fresh beat.
+
+The read side: ``end_pass(trainer=)`` runs the trainer's self-healing
+boundary (``Trainer.remediation_boundary``, ``flags.self_healing``)
+before the flight record commits, so an applied action lands in this
+pass's record (``out["remediation"]``); with ``flags.doctor_live`` the
+doctor's findings of the committed record come back under
+``out["doctor"]``.
 """
 
 from __future__ import annotations
@@ -116,8 +122,7 @@ class BoxPS:
         if self._col is not None:
             # lockstep: no rank opens pass N+1 until the world is ready
             self._col.barrier("begin_pass")
-        # the telemetry pass scope first: it refuses unported read-side
-        # flags before any pass state moves
+        # the telemetry pass scope first: the world trace samples here
         monitor.hub().begin_pass(self.pass_id + 1, phase=self.phase)
         self.in_pass = True
         self.store.boundary_owner = self
@@ -198,10 +203,24 @@ class BoxPS:
                                            "refresh_replica_boundary"):
             trainer.refresh_replica_boundary()
         if trainer is not None and hasattr(trainer, "adapt_wire_boundary"):
-            trainer.adapt_wire_boundary()
+            wire_next = trainer.adapt_wire_boundary()
+            if wire_next is not None:
+                out["exchange_wire_next"] = wire_next
+        # the self-healing boundary (flags.self_healing): at most one
+        # guarded action, before the commit so its record and before-
+        # deltas land in this pass's flight record
+        if trainer is not None and hasattr(trainer, "remediation_boundary"):
+            healed = trainer.remediation_boundary()
+            if healed is not None:
+                out["remediation"] = healed
         # the flight record commits last: the snapshot's, the publish's
         # and the tiers' counters above land in this pass's stats_delta
         out["flight_record"] = monitor.hub().end_pass(metrics=self.metrics)
+        # the live doctor (flags.doctor_live) ran over the committed
+        # records inside end_pass; the caller reads its findings here
+        findings = monitor.hub().last_doctor_findings
+        if findings:
+            out["doctor"] = findings
         if self._heartbeat is not None:
             self._heartbeat.publish()
         if self._col is not None:

@@ -1,13 +1,17 @@
-"""paddlebox_tpu_torch.monitor — the telemetry hub, the write side of the
-JAX package's ``monitor/`` (its ``__init__`` :14-24).
+"""paddlebox_tpu_torch.monitor — the telemetry hub; the port of the JAX
+package's ``monitor/``.
 
-One API over counters, gauges, spans and events with pass/step context
-that worker threads inherit (``context.spawn``), pluggable sinks
-(``MemorySink``, ``JsonlSink``, ``ParityLogSink``), per-pass flight
-records and Prometheus exposition. The records and the JSONL stream are
-the JAX package's formats, so either package's validators read the
-other's. The read side (aggregate, critical path, doctor, world trace)
-is ROADMAP queue 1 item 7.
+The write side: one API over counters, gauges, spans and events with
+pass/step context that worker threads inherit (``context.spawn``),
+pluggable sinks (``MemorySink``, ``JsonlSink``, ``ParityLogSink``),
+per-pass flight records and Prometheus exposition. The read side, each
+module imported on its own: ``aggregate`` (per-rank streams into one
+world view), ``critical_path`` (who owns the pass wall), ``doctor``
+(named findings; ``python -m paddlebox_tpu_torch.monitor.doctor``) and
+``trace`` (the world trace and its per-pass device capture; ``python -m
+paddlebox_tpu_torch.monitor.trace``). The records and the JSONL stream
+are the JAX package's formats, so either package's readers read the
+other's.
 
 This package imports nothing from ``paddlebox_tpu_torch.utils`` at import
 time: ``utils.profiler`` and ``utils.timer`` import it.

@@ -22,11 +22,17 @@ lifecycle; a bare ``Trainer.train_pass`` opens its own pass scope when
 none is active (``open_pass_auto``), so standalone runs still produce
 flight records.
 
-Not ported (ROADMAP queue 1 item 7, the monitor's read side): the world
-trace (``flags.trace``, ``flags.trace_device``) and the live doctor
-(``flags.doctor_live``). With those flags off, which is their default, a
-record carries exactly the JAX package's fields; with one on,
-``enable`` and ``begin_pass`` raise ``NotImplementedError``.
+The read side hooks in here (JAX ``hub.py:54-98, :221, :278, :359-405``):
+inside a pass the world trace samples (``flags.trace``, ``monitor/
+trace.py``) every span and event carries ``trace_id`` / ``span_id`` /
+``parent_span_id``, the flight record is the pass-root span, and the
+per-pass device capture (``flags.trace_device``) opens at ``begin_pass``
+and closes at ``end_pass`` / ``abort_pass``; with ``flags.doctor_live``
+``end_pass`` runs the doctor's rules over the committed records before
+the scope closes (``doctor.finding`` events, ``last_doctor_findings``;
+a broken rule set counts ``doctor.errors`` and never stops the pass).
+With those flags off, which is their default, a record carries exactly
+the fields it had before.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from paddlebox_tpu_torch.monitor.registry import STATS
 from paddlebox_tpu_torch.monitor.sinks import Sink  # noqa: F401  (re-export)
 
 _prof = None
+_trace = None
 
 
 def _profiler():
@@ -53,24 +60,27 @@ def _profiler():
     return _prof
 
 
-def _refuse_unported() -> None:
-    """The read-side flags name features the port does not have yet:
-    refuse them up front, at the start of a pass, not silently."""
-    from paddlebox_tpu_torch.config import flags
-    on = [n for n in ("trace", "trace_device", "doctor_live")
-          if getattr(flags, n)]
-    if on:
-        raise NotImplementedError(
-            f"flags {on}: the world trace and the live doctor are not "
-            f"ported yet (ROADMAP, queue 1 item 7: the monitor's read "
-            f"side)")
+def _tracer():
+    """Lazy handle on monitor.trace (the world-trace layer): keeps the
+    monitor package import-light and lets ``python -m
+    paddlebox_tpu_torch.monitor.trace`` run as __main__ without a double
+    import. Touched only on the hub's enabled paths."""
+    global _trace
+    if _trace is None:
+        from paddlebox_tpu_torch.monitor import trace as t
+        _trace = t
+    return _trace
 
 
 class _Span:
     """Timed scope: chrome-trace span (when the profiler is on) + hub span
-    event (when the hub is on). Disabled cost: two module-global checks."""
+    event (when the hub is on). Disabled cost: two module-global checks
+    (a third — ``trace._ACTIVE`` — only on the already-enabled path).
+    Inside a traced pass the scope also pushes a span id onto the trace
+    stack, so the committed record carries its own ``span_id`` and
+    ``parent_span_id`` (the world trace's parent links)."""
 
-    __slots__ = ("_hub", "_name", "_fields", "_t0")
+    __slots__ = ("_hub", "_name", "_fields", "_t0", "_trace")
 
     def __init__(self, hub, name, fields):
         self._hub = hub
@@ -80,8 +90,12 @@ class _Span:
     def __enter__(self):
         if self._hub._enabled or _profiler()._enabled:
             self._t0 = time.perf_counter()
+            tr = _tracer()
+            self._trace = (tr.push_span(self._name)
+                           if tr._ACTIVE else None)
         else:
             self._t0 = None
+            self._trace = None
         return self
 
     def __exit__(self, *exc):
@@ -89,6 +103,8 @@ class _Span:
         if t0 is None:
             return False
         t1 = time.perf_counter()
+        tr = self._trace
+        ids = _tracer().pop_span(tr) if tr is not None else None
         prof = _profiler()
         if prof._enabled:
             prof.record_span(self._name, t0, t1)
@@ -96,6 +112,8 @@ class _Span:
         if h._enabled:
             rec = h._record("span", self._name, self._fields)
             rec["dur_s"] = t1 - t0
+            if ids is not None:
+                rec["span_id"], rec["parent_span_id"] = ids
             h._dispatch(rec)
         return False
 
@@ -143,6 +161,9 @@ class TelemetryHub:
         self._flight_records: collections.deque = collections.deque(
             maxlen=self.FLIGHT_KEEP)
         self.sink_errors = 0
+        # findings of the last live-doctor evaluation (flags.doctor_live;
+        # BoxPS.end_pass returns them too)
+        self.last_doctor_findings: list | None = None
         # sinks detached by the 3-strike rule / closed by disable(), kept
         # for summary(): a silently-detached JSONL sink must be visible
         self._detached: collections.deque = collections.deque(maxlen=8)
@@ -159,7 +180,6 @@ class TelemetryHub:
         calls add sinks. Turning on from disabled starts a fresh sink-
         health session (the previous session's detached/closed sinks
         drop out of summary())."""
-        _refuse_unported()
         with self._lock:
             if not self._enabled:
                 self._detached.clear()
@@ -206,6 +226,11 @@ class TelemetryHub:
                "thread": threading.current_thread().name}
         if fields:
             rec["fields"] = fields
+        tr = _tracer()
+        if tr._ACTIVE:                # world trace: one check when off
+            tid, enclosing = tr.current_ids()
+            rec["trace_id"] = tid
+            rec["parent_span_id"] = enclosing
         return rec
 
     def event(self, name: str, type: str = "event", **fields) -> None:
@@ -246,7 +271,6 @@ class TelemetryHub:
         """Open the pass scope: set the propagated context, snapshot the
         cumulative counters (per-pass deltas diff against this), mark the
         chrome trace. Cheap enough to run unconditionally."""
-        _refuse_unported()
         if self._pass is not None:
             # a stale scope (crashed pass without abort) must not leak its
             # identity into the new pass
@@ -254,6 +278,10 @@ class TelemetryHub:
         handle = context.enter_pass(pass_id, phase)
         self._pass = _OpenPass(handle, STATS.snapshot(), owner)
         self._auto_pass_id = max(self._auto_pass_id, int(pass_id))
+        # world trace: the sampling decision, the pass-root span and the
+        # (optional) device-capture window — before the pass_begin event,
+        # so it is the first stamped record of a traced pass
+        _tracer().on_begin_pass(int(pass_id), self._enabled)
         if self._enabled:
             self.event("pass_begin", type="lifecycle", owner=owner)
         _profiler().record_instant("pass_begin", {"pass_id": int(pass_id)})
@@ -343,11 +371,30 @@ class TelemetryHub:
                                         in p.boundary_split.items()}
         if merged:
             rec["extra"] = {k: v for k, v in merged.items()}
+        if _tracer()._ACTIVE:
+            # the flight record IS the pass-root span of the world trace
+            # (the merger renders it as the per-rank pass slice)
+            rec["span_id"] = _tracer().pass_root_id()
+            rec["parent_span_id"] = None
         self._flight_records.append(rec)
         if self._enabled:
             self._dispatch(rec)
         _profiler().record_instant("pass_end", {"pass_id": c.pass_id})
-        context.exit_pass(p.handle)
+        # the live doctor (flags.doctor_live): the rules run over the
+        # committed records before the pass scope closes, so the
+        # doctor.finding events carry this pass's tag. Lazy imports: the
+        # doctor imports this module, and the analysis layer must never
+        # take down the training it observes
+        self.last_doctor_findings = None
+        try:
+            from paddlebox_tpu_torch.config import flags as _flags
+            if _flags.doctor_live:
+                from paddlebox_tpu_torch.monitor import doctor as _doctor
+                self.last_doctor_findings = _doctor.run_live(self)
+        except Exception:
+            STATS.add("doctor.errors", 1)
+        _tracer().on_end_pass()       # close the trace window + device
+        context.exit_pass(p.handle)   # capture (no-op when untraced)
         return rec
 
     def abort_pass(self, reason: str = "") -> None:
@@ -359,6 +406,7 @@ class TelemetryHub:
         if self._enabled:
             self.event("pass_aborted", type="lifecycle",
                        reason=str(reason)[:200])
+        _tracer().on_end_pass()
         context.exit_pass(p.handle)
 
     def flight_records(self) -> list[dict]:

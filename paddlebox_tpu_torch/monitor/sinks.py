@@ -90,8 +90,8 @@ class JsonlSink(Sink):
     after a ``sink_rotated`` meta line naming the successor — and opens
     the next numbered segment (:func:`segment_path`). Every segment is
     whole lines only, so each stays independently schema-clean, and
-    the JAX package's ``monitor/aggregate.py`` stitches them back in
-    order (the read side is ROADMAP queue 1 item 7 here). A failed
+    ``monitor/aggregate.py`` (either package's) stitches them back in
+    order. A failed
     rotation latches ``error`` like any other write failure (behind the
     ``telemetry.rotate.pre`` faultpoint): telemetry stops, training does
     not."""

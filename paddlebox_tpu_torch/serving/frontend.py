@@ -12,12 +12,14 @@ group scored on its own. Per-request wall time (submit → result) lands in a ti
 reservoir; :meth:`stats` reports recent p50/p99/max, batch sizes and
 failures. A submit racing :meth:`stop` never leaves a pending future.
 Requests and failures count as ``serving.frontend_requests`` /
-``serving.frontend_failures``; the reference's sampled request spans
-come with the world trace (ROADMAP, queue 1 item 7).
+``serving.frontend_failures``. With ``flags.serving_trace_sample`` = N
+every Nth batch's coalesce window is a ``serve/wait`` span, the queue
+half of request latency (the server's ``serve/score`` is the other).
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -69,6 +71,7 @@ class BatchingFrontend:
             cap=int(max_latencies))
         self._lat_lock = threading.Lock()
         self._batches = 0
+        self._gathers = 0          # coalesce windows, for the span sample
         self._batched_reqs = 0
         self._failures = 0
         self._inflight = 0                 # submitted, not yet resolved
@@ -143,19 +146,27 @@ class BatchingFrontend:
         first = self._q.get()
         if first is None:
             return []
-        batch = [first]
-        deadline = time.perf_counter() + self.max_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                r = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if r is None:
-                break
-            batch.append(r)
+        # sampled request tracing: every Nth batch's coalesce window is a
+        # serve/wait span. 0 = one flag check
+        self._gathers += 1
+        n = int(flags.serving_trace_sample)
+        ctx = (monitor.span("serve/wait", max_batch=self.max_batch)
+               if n > 0 and self._gathers % n == 0
+               else contextlib.nullcontext())
+        with ctx:
+            batch = [first]
+            deadline = time.perf_counter() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    r = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if r is None:
+                    break
+                batch.append(r)
         return batch
 
     def _run(self) -> None:

@@ -11,7 +11,7 @@
   per scored batch, ``observe_labels`` when labels arrive,
   ``due`` / ``commit`` on the window cadence. ``commit`` returns the
   ``serving_window`` record's fields, which the server emits as a hub
-  event; the doctor rules that read them are ROADMAP queue 1 item 7.
+  event; the doctor's serving rules (``monitor/doctor.py``) read them.
 
 No thread of its own: the callers hold one lock around every call.
 """

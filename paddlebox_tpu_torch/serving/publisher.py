@@ -31,8 +31,10 @@ version under ``staging_dir`` (a temp dir by default), uploads it with
 with ``verify_upload`` (the default), downloads it back and re-hashes it
 against its manifest before the donefile line; ``seconds`` /
 ``upload_seconds`` / ``verify_seconds`` in the publish info split the
-time. The trace links come with the world trace (ROADMAP queue 1
-item 7).
+time. In a traced pass (``flags.trace``) the publish span's trace ids
+ride the donefile entry (``entry["trace"]``, the cross-process
+propagation) and a ``publish`` flow point anchors the publish → serving
+swap edge of the merged world trace.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from paddlebox_tpu_torch.embedding.gating import GateSpec
 from paddlebox_tpu_torch.fleet.fleet_util import FleetUtil
 from paddlebox_tpu_torch import monitor
 from paddlebox_tpu_torch.inference import export as export_lib
+from paddlebox_tpu_torch.monitor import trace as trace_lib
 from paddlebox_tpu_torch.serving import artifact as art
 from paddlebox_tpu_torch.utils import checkpoint as ckpt_lib
 from paddlebox_tpu_torch.utils import faultpoint
@@ -182,8 +185,16 @@ class ServingPublisher:
         faultpoint.hit("serving.publish.pre_donefile")
         entry = {"version": version, "pass": int(pass_id), "kind": kind,
                  "parent": parent, "path": target, "ts": int(time.time())}
+        if trace_lib.active():
+            # cross-process trace propagation: the serving side links its
+            # swap back to this publish span through the donefile entry
+            # (the only channel the two processes share)
+            tid, sid = trace_lib.current_ids()
+            entry["trace"] = {"trace_id": tid, "span_id": sid}
         announced = self._fleet.append_donefile(DONEFILE, entry,
                                                 dedup=("version", "path"))
+        trace_lib.flow("publish", f"v{version}", role="src",
+                       kind_published=kind, pass_id=int(pass_id))
         if announced:
             self._entry_count += 1
         # only a new base makes entries droppable, so only a base

@@ -40,9 +40,16 @@ request, shadow and poll failures count under the reference's
 ``serving.*`` names, with the ``serving_swap`` /
 ``serving_version_fallback`` / ``serving_window`` events and the
 ``serving.active_version`` / ``candidate_version`` / ``pass_lag`` /
-``staleness_seconds`` gauges; ``health()`` carries the same numbers. The
-request spans and trace links come with the world trace (ROADMAP
-queue 1 item 7). A local root's artifacts are read in place. A remote
+``staleness_seconds`` gauges; ``health()`` carries the same numbers.
+
+The world trace (``flags.trace``): a pass-less server opens a standing
+trace scope (``trace.ensure_service``) at ``start`` and each poll; each
+swap is the ``dst`` point of the ``publish`` flow edge, activated by the
+trace ids the donefile entry carries even without a local scope
+(``trace.flow_propagated``); every ``flags.serving_trace_sample``-th
+served batch scores inside a ``serve/score`` span parent-linked to the
+version's publish span (the frontend's ``serve/wait`` is the queue
+half). A local root's artifacts are read in place. A remote
 root (``hdfs://...``, any scheme registered with ``utils.fs``) stages
 each announced version under ``staging_dir`` (a temp dir by default):
 ``fetch_attempts`` tries with exponential backoff from
@@ -54,6 +61,7 @@ copy is removed once the version is built.
 
 from __future__ import annotations
 
+import contextlib
 import http.server
 import json
 import os
@@ -77,6 +85,7 @@ from paddlebox_tpu_torch.inference.predictor import Predictor
 from paddlebox_tpu_torch.inference.serving_table import ServingTable
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 from paddlebox_tpu_torch.monitor import context as mon_ctx
+from paddlebox_tpu_torch.monitor import trace as trace_lib
 from paddlebox_tpu_torch.serving import artifact as art
 from paddlebox_tpu_torch.serving.obs import ServingObs
 from paddlebox_tpu_torch.serving.publisher import DONEFILE
@@ -103,7 +112,8 @@ class ServingModel:
     rebinding ``server._active`` is the swap."""
 
     __slots__ = ("version", "pass_id", "kind", "predictor", "table",
-                 "hot_keys", "hot_live", "published_ts", "loaded_ts")
+                 "hot_keys", "hot_live", "published_ts", "loaded_ts",
+                 "trace")
 
     def __init__(self, version: int, pass_id: int, kind: str,
                  predictor: Predictor, table: ServingTable,
@@ -117,6 +127,10 @@ class ServingModel:
         self.hot_live = hot_live          # flagged hot keys in the table
         self.published_ts = published_ts
         self.loaded_ts = time.time()
+        # the producing run's {"trace_id", "span_id"} off the donefile
+        # entry: request spans scored on this version parent-link to its
+        # publish span through these
+        self.trace: dict | None = None
 
 
 class ServingServer:
@@ -160,6 +174,7 @@ class ServingServer:
         # request threads, the tailer and the HTTP thread share the obs
         # bookkeeping, the split accumulator and the request counters
         self._lock = threading.Lock()
+        self._score_n = 0          # served batches, for the span sample
         self._split_acc = 0.0                  # deterministic router
         self._win_failures0 = 0                # counters at last commit
         self._win_swaps0 = 0
@@ -195,6 +210,7 @@ class ServingServer:
         """One tail step: read the donefile, fetch, verify, build and swap
         in every version newer than the newest loaded one, in order.
         Returns the versions applied. Never raises on a bad version."""
+        trace_lib.ensure_service("serving")   # poll_once-stepped servers too
         entries = self._fleet.entries(DONEFILE)
         if entries:
             self._latest_announced = entries[-1]
@@ -266,6 +282,12 @@ class ServingServer:
                 # remote tailer must not keep one artifact a publish
                 if staged is not None:
                     shutil.rmtree(staged, ignore_errors=True)
+            # the producing run's trace context off the donefile entry:
+            # the swap's flow point and every request span scored on this
+            # version parent-link through it
+            parent_trace = e.get("trace") if isinstance(
+                e.get("trace"), dict) else None
+            model.trace = parent_trace
             t_swap = time.perf_counter()
             if self._split_on() and self._active is not None:
                 prev, self._candidate = self._candidate, model
@@ -287,6 +309,13 @@ class ServingServer:
                 monitor.gauge_set("serving.active_version", version)
             applied += 1
             active_v = version
+            # the swap is the dst of the publish flow edge, keyed by the
+            # version (both sides derive it) and activated by the trace
+            # context the donefile entry carries, even in a process with
+            # no trace scope of its own
+            trace_lib.flow_propagated(
+                "publish", f"v{version}", "dst", parent_trace,
+                swap_pause_ms=round(pause_ms, 3))
             monitor.event("serving_swap", type="lifecycle",
                           version=version, kind=kind, role=role,
                           pass_id=model.pass_id,
@@ -444,10 +473,30 @@ class ServingServer:
     def _score(self, model: ServingModel, ids, mask, dense,
                served: bool) -> np.ndarray:
         """Score one batch on ``model``, with per-version latency and
-        score attribution when windows or the split are on."""
+        score attribution when windows or the split are on, and (every
+        ``flags.serving_trace_sample``-th served batch) inside a
+        ``serve/score`` span parent-linked to the version's publish span
+        through the donefile-carried ids."""
         role = "candidate" if model is self._candidate else "stable"
+        n = int(flags.serving_trace_sample)
+        ctx: Any = contextlib.nullcontext()
+        if n > 0 and served:
+            with self._lock:
+                self._score_n += 1
+                sampled = self._score_n % n == 0
+            if sampled:
+                span_fields = {"version": model.version, "role": role}
+                if isinstance(model.trace, dict):
+                    # the parent link rides the fields: the record's own
+                    # trace keys belong to this process's scope
+                    span_fields["parent_trace_id"] = \
+                        model.trace.get("trace_id")
+                    span_fields["parent_span_id"] = \
+                        model.trace.get("span_id")
+                ctx = monitor.span("serve/score", **span_fields)
         t0 = time.perf_counter()
-        out = model.predictor.predict(ids, mask, dense)
+        with ctx:
+            out = model.predictor.predict(ids, mask, dense)
         if flags.serving_window_s > 0 or self._split_on():
             with self._lock:
                 self._obs_get().record(
@@ -624,6 +673,10 @@ class ServingServer:
         keeps serving what it has."""
         if self._thread is not None:
             return self
+        # a pass-less process: with flags.trace on, a standing trace scope
+        # stamps the swap records and flow points, mergeable against the
+        # training ranks' streams
+        trace_lib.ensure_service("serving")
         self._stop.clear()
 
         def _run():

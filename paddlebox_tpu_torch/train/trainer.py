@@ -89,6 +89,17 @@ drain-snapshots, re-forms the world without the dead ranks and reruns
 the coordinated resume election; ``resume(collectives=)`` is that
 election on a fixed world.
 
+The monitor's read side: ``train_step(..., ablate=...)`` replaces
+stages with shape-preserving stand-ins for ``utils.step_probe``'s stage
+attribution (never in training); ``enable_self_healing`` binds a
+``runtime.remediation.RemediationController`` whose pass-boundary step
+(``remediation_boundary``) runs before the flight record commits, in
+``train_pass``'s own scope or ``BoxPS.end_pass``;
+``note_flow_attribution`` feeds the adaptive wire controller's veto; on
+the sharded layout a traced pass (``flags.trace``) stamps one
+``exchange`` flow point a step, keyed by pass and step so every rank
+stamps the same key.
+
 Dispatch modes, the reference's two other ways to run the same step
 (they exclude each other, ``_select_push_overlap``):
 
@@ -172,6 +183,7 @@ from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
                                                         PushOperandStager)
 from paddlebox_tpu_torch.metrics.auc import AucAccumulator
 from paddlebox_tpu_torch.monitor import context as mon_ctx
+from paddlebox_tpu_torch.monitor import trace as mon_trace
 from paddlebox_tpu_torch.monitor.timers import StageTimers
 from paddlebox_tpu_torch.native.key_index import block_plan, dedup_plan
 from paddlebox_tpu_torch.ops import kernels
@@ -348,6 +360,13 @@ class Trainer:
         # or hung peer aborts the pass at a step boundary (the loop's
         # finally then lands the pending push), not at the next barrier
         self.peer_check = None
+        # the self-healing loop (enable_self_healing; flags.self_healing)
+        # and the newest clock-corrected flow-edge attribution, the wire
+        # controller's veto (note_flow_attribution)
+        self._remediation = None
+        self._flow_attribution: tuple | None = None
+        # the world trace's per-pass device capture follows this trainer
+        mon_trace.note_device(self.device)
         # the deferred sparse push (flags.push_overlap): the pending
         # step's operands, the working set they apply to while a pass is
         # open or a push is pending, and the applies launched
@@ -873,41 +892,73 @@ class Trainer:
     def train_step(self, table: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor, dense: torch.Tensor,
                    labels: torch.Tensor, plan=None, extras: tuple = (),
-                   defer: bool = False):
+                   defer: bool = False, ablate: tuple = ()):
         """One training step on device tensors. Updates the dense params
         in place (per ``dense_sync_mode``) and ``table`` too, unless
         ``defer``: the push operands then go to the push stager and the
         table changes when ``_dispatch_pending_apply`` launches them.
         Returns (loss, preds) without a host sync; on a mesh they are this
         rank's slice's, and the pull's over-capacity count adds to
-        ``_dropped`` (a device scalar, read once a pass)."""
+        ``_dropped`` (a device scalar, read once a pass).
+
+        ``ablate`` (a subset of {"lookup", "fwdbwd", "push"}, JAX
+        trainer.py:410-580) replaces that stage with a shape-preserving
+        stand-in, for ``utils.step_probe.attribute_step``: "push" leaves
+        the table untouched; "lookup" feeds zeros of the pulled (or
+        pooled) shape; "fwdbwd" runs no model — zero dense grads, a zero
+        sparse grad of the push's shape and ``loss = sum(pulled) *
+        1e-8``. The dense optimizer still steps in every variant, as in
+        the reference. Never set in training."""
         lay = self.layout
         S, T = lay.num_slots, lay.total_len
         ecfg = self.store.cfg
         B = idx.shape[0]
         fused = self.pull_engine == "fused_gather_pool"
         mode = self.cfg.dense_sync_mode
+        if ablate and defer:
+            raise ValueError("ablate instruments the inline step: "
+                             "defer must be off")
         if mode == "async":
             self._pull_async_params()
-        pulled, model_in, dropped = self._pull(table, idx,
-                                               requires_grad=True,
-                                               plan=plan)
-        logits = self.model(model_in, mask, dense, lay.segment_ids, S,
-                            *extras)
-        loss = F.binary_cross_entropy_with_logits(logits, labels)
-        # a parameter the loss does not reach (MMoE's other task heads)
-        # gets a zero gradient, as jax.grad gives it
-        *gp, gpulled = torch.autograd.grad(loss, [*self.params, pulled],
-                                           allow_unused=True)
-        gp = [torch.zeros_like(p) if g is None else g
-              for p, g in zip(self.params, gp)]
-        # only the (w, embedx) columns train; show/clk are counters
-        if fused:
-            sgrad = sharded.pooled_grad_tokens(gpulled, mask, self._seg, S)
+        if "lookup" in ablate:
+            shape = ((B, S, ecfg.pull_width) if fused
+                     else (B, T, ecfg.pull_width))
+            pulled = torch.zeros(shape, dtype=torch.float32,
+                                 device=idx.device)
+            model_in = PooledSlots(pulled) if fused else pulled
+            dropped = None
+            if "fwdbwd" not in ablate:
+                pulled.requires_grad_()
         else:
-            sgrad = gpulled[..., 2:].reshape(B * T, ecfg.grad_width)
-        if self.n_shards > 1 and self.cfg.scale_sparse_grad_by_global_mean:
-            sgrad = sgrad / self.n_shards
+            pulled, model_in, dropped = self._pull(
+                table, idx, requires_grad="fwdbwd" not in ablate,
+                plan=plan)
+        if "fwdbwd" in ablate:
+            loss = pulled.detach().sum() * 1e-8
+            preds = torch.zeros(B, dtype=torch.float32, device=idx.device)
+            gp = [torch.zeros_like(p) for p in self.params]
+            sgrad = torch.zeros((B * T, ecfg.grad_width),
+                                dtype=torch.float32, device=idx.device)
+        else:
+            logits = self.model(model_in, mask, dense, lay.segment_ids, S,
+                                *extras)
+            loss = F.binary_cross_entropy_with_logits(logits, labels)
+            preds = torch.sigmoid(logits.detach())
+            # a parameter the loss does not reach (MMoE's other task
+            # heads) gets a zero gradient, as jax.grad gives it
+            *gp, gpulled = torch.autograd.grad(
+                loss, [*self.params, pulled], allow_unused=True)
+            gp = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(self.params, gp)]
+            # only the (w, embedx) columns train; show/clk are counters
+            if fused:
+                sgrad = sharded.pooled_grad_tokens(gpulled, mask,
+                                                   self._seg, S)
+            else:
+                sgrad = gpulled[..., 2:].reshape(B * T, ecfg.grad_width)
+            if (self.n_shards > 1
+                    and self.cfg.scale_sparse_grad_by_global_mean):
+                sgrad = sgrad / self.n_shards
         maskf = mask.to(torch.float32)
         show_inc = maskf.reshape(-1)
         clk_inc = (maskf * labels[:, None]).reshape(-1)
@@ -915,7 +966,7 @@ class Trainer:
             ops = sharded.deferred_push_operands(idx.reshape(-1), sgrad,
                                                  show_inc, clk_inc, plan)
             self._push_stager.put((idx, mask, labels, plan, ops))
-        else:
+        elif "push" not in ablate:
             self._push(table, idx.reshape(-1), sgrad, show_inc, clk_inc,
                        plan=plan)
         if mode == "kstep":
@@ -926,7 +977,7 @@ class Trainer:
         else:
             self.dense_opt.step(self._mean_dense_grads(gp))
         self._note_dropped(dropped)
-        return loss.detach(), torch.sigmoid(logits.detach())
+        return loss.detach(), preds
 
     def _note_dropped(self, dropped) -> None:
         if dropped is not None:
@@ -1026,8 +1077,52 @@ class Trainer:
             table_tiering=self.table_tiering)
         if owned_pass:
             self.adapt_wire_boundary()
+            self.remediation_boundary()
             hub.end_pass(metrics=metrics)
         return out
+
+    def enable_self_healing(self, controller=None):
+        """Bind the doctor-driven remediation loop (JAX trainer.py:1401):
+        with ``flags.self_healing`` on, every pass boundary consumes the
+        live doctor findings and applies at most one action under the
+        parity guard (``runtime/remediation.py``). Pass ``controller`` to
+        inject a customized one; returns the bound controller."""
+        if controller is None:
+            from paddlebox_tpu_torch.runtime.remediation import \
+                RemediationController
+            controller = RemediationController(self)
+        self._remediation = controller
+        return controller
+
+    def remediation_boundary(self, findings=None):
+        """Run the bound RemediationController's pass-boundary step, once
+        a pass before the flight record commits (``train_pass`` for a
+        trainer-owned scope, ``BoxPS.end_pass`` for a BoxPS one), so the
+        remediation record lands in the ending pass's record. None when
+        no controller is bound or ``flags.self_healing`` is off; a broken
+        controller is counted (``remediation.errors``) and never aborts
+        the pass boundary."""
+        ctl = self._remediation
+        if ctl is None or not flags.self_healing:
+            return None
+        try:
+            return ctl.boundary(findings=findings)
+        except Exception:
+            monitor.counter_add("remediation.errors")
+            return None
+
+    def note_flow_attribution(self, attribution: dict | None,
+                              wall_seconds: float | None = None) -> None:
+        """Feed the adaptive wire controller a clock-corrected flow-edge
+        attribution (``critical_path.attribute_flow_edges`` over a merged
+        world trace) and the wall it attributes against. In-process
+        records cannot form cross-rank exchange edges, so this evidence
+        comes from whoever holds the merged timeline (the remediation
+        controller reads the doctor's cross-rank-flow finding); the
+        controller uses it as a veto — when the exchange edge is not the
+        limiter, the wire holds."""
+        self._flow_attribution = (
+            (attribution, wall_seconds) if attribution else None)
 
     def adapt_wire_boundary(self) -> str | None:
         """The pass-boundary wire adaptation (``flags.exchange_adaptive``,
@@ -1049,8 +1144,10 @@ class Trainer:
             [delta("exchange.tokens"), delta("exchange.unique_lanes"),
              delta("exchange.overflow_retries")
              + delta("exchange.overflow_dropped")], np.int64))
+        flow, wall = self._flow_attribution or (None, None)
         decision = ctl.observe(tokens=int(tot[0]), unique_lanes=int(tot[1]),
-                               overflow_retries=int(tot[2]))
+                               overflow_retries=int(tot[2]),
+                               flow=flow, wall_seconds=wall)
         self._last_wire_decision = decision
         if decision["switched"]:
             monitor.event(
@@ -1133,6 +1230,19 @@ class Trainer:
                     with monitor.span("pack_batch"):
                         (idx, mask, dense, labels, plan,
                          extras) = self._step_args(staged, stacked, i)
+                    if mon_trace._ACTIVE and self.table_layout == "sharded":
+                        # the world trace's flow point of this step's
+                        # all-to-all: every rank stamps the same key (the
+                        # ranks step in lockstep), so the merger draws
+                        # the cross-rank edge with no trace bytes on the
+                        # wire
+                        mon_trace.flow(
+                            "exchange",
+                            f"p{mon_ctx.current().pass_id}"
+                            f".s{self.global_step}",
+                            **exchange.flow_fields(self.store.cfg,
+                                                   self.exchange_wire,
+                                                   int(idx.numel())))
                     with self.timers("train"), monitor.span("train_step"):
                         if self.push_overlap:
                             # the previous step's apply first: the pull
@@ -1486,8 +1596,7 @@ class Trainer:
         keys of this rank's store shards. ``recover_world`` rebinds the
         feed manager directly after an elastic re-formation, so a shrink
         never reaches the faultpoint: it is the crash window of the
-        elastic grow's rebind (``RemediationController.poll_grow``, the
-        monitor's read side, not ported yet)."""
+        elastic grow's rebind (``RemediationController.poll_grow``)."""
         faultpoint.hit("elastic.ownership.rebind.pre")
         self.feed_mgr.set_ownership(ownership)
 

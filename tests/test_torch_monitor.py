@@ -329,24 +329,41 @@ def test_disabled_path_call_cost():
 
 @pytest.mark.parametrize("flag", ["trace", "trace_device", "doctor_live"])
 def test_read_side_flags_refused_up_front(monkeypatch, flag):
-    """The world trace and the live doctor are not ported: with their
-    flag set the hub refuses to enable or open a pass, naming the
-    ROADMAP item, and a BoxPS pass never starts."""
+    """The read-side flags were refused while the world trace and the live
+    doctor were unported; now the hub enables with each set and a BoxPS
+    pass runs through it: the trace stamps the pass's records, the device
+    capture is a no-op for a CPU trainer (no error counted), the live
+    doctor evaluates at end_pass."""
+    from paddlebox_tpu_torch.monitor import trace as trace_lib
     monkeypatch.setattr(flags, flag, True)
+    if flag == "trace_device":
+        monkeypatch.setattr(flags, "trace", True)
+    errs0 = STATS.get("trace.device_capture_errors")
     h = monitor.hub()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        h.enable(monitor.MemorySink())
-    assert not h.enabled
-    _, _, box = _make("port", carry=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    ms = monitor.MemorySink()
+    h.enable(ms)
+    assert h.enabled
+    store, tr, box = _make("port", carry=False)
+    try:
         box.begin_pass()
-    assert not box.in_pass and box.pass_id == 0
-    assert mon_ctx.current().pass_id is None
+        assert box.in_pass and box.pass_id == 1
+        assert mon_ctx.current().pass_id == 1
+        assert trace_lib.active() == flags.trace
+        end = box.end_pass()
+    finally:
+        trace_lib.on_end_pass()
+        trace_lib._SAW_PASS = False
+    fr = end["flight_record"]
+    if flags.trace:
+        assert fr["trace_id"] == "run:1" and fr["span_id"]
+        assert all(r.get("trace_id") == "run:1" for r in ms.records)
+    else:
+        assert "trace_id" not in fr
+    assert STATS.get("trace.device_capture_errors") == errs0
+    assert trace_lib.last_device_trace is None or flag != "trace_device"
+    assert (h.last_doctor_findings is not None) == (flag == "doctor_live")
+    assert not trace_lib.active()
 
-
-# ---------------------------------------------------------------------------
-# the profiler
-# ---------------------------------------------------------------------------
 
 def test_profiler_ring_buffer_caps_and_counts_drops(monkeypatch):
     monkeypatch.setattr(flags, "profiler_max_events", 16)

@@ -234,6 +234,34 @@ def overflow_phase(mesh, workdir: str, info: dict) -> None:
     flags.exchange_wire = "auto"
 
 
+def trace_phase(mesh, workdir: str, info: dict) -> None:
+    """One traced pass on the sharded layout through BoxPS, the hub
+    writing <workdir>/rank<r>/events.jsonl: one exchange flow point a
+    step, the same key on every rank."""
+    from paddlebox_tpu_torch.fleet import BoxPS
+    flags.table_layout = "sharded"
+    flags.exchange_wire = "f32"
+    flags.trace = True
+    tr, ds, store = _trainer(mesh, 1, {"name": "trace"},
+                             common.dataset_arrays(1), workdir)
+    box = BoxPS(store)
+    hub = monitor.hub()
+    hub.enable(monitor.JsonlSink(os.path.join(workdir, f"rank{mesh.rank}",
+                                              "events.jsonl")))
+    try:
+        box.begin_pass()
+        r = tr.train_pass(ds)
+        box.end_pass(trainer=tr)
+    finally:
+        hub.disable()
+        flags.trace = False
+    info["trace_steps"] = r["steps"]
+    info["trace_layout"] = tr.table_layout
+    tr.feed_mgr.close()
+    flags.table_layout = "auto"
+    flags.exchange_wire = "auto"
+
+
 def main() -> None:
     with open(os.environ["PBT_TEST_SPEC"]) as f:
         spec = json.load(f)
@@ -253,6 +281,8 @@ def main() -> None:
             train_phase(mesh, workdir, spec["recipes"], out, info)
         elif phase == "overflow":
             overflow_phase(mesh, workdir, info)
+        elif phase == "trace":
+            trace_phase(mesh, workdir, info)
         else:
             raise ValueError(f"unknown phase {phase!r}")
     info["jax_loaded"] = "jax" in sys.modules
