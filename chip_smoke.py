@@ -273,7 +273,47 @@ Phases, each of which exits non-zero on failure:
    flags.serving_trace_sample = 1, 4 x 1024 requests (32 in flight a
    client) across pass 2's published delta and its swap: the serve/wait
    and serve/score spans' p50/p99, and the merged trace's publish arrow
-   from the pass to the swap.
+   from the pass to the swap;
+18. the serving fleet and the exported program, DeepFM one-hot at full
+   width: (a) a 16-step pass publishes v1 (a base every pass, f32);
+   ReplicaFleet starts two SubprocessReplica processes on the card
+   (python -m paddlebox_tpu_torch.serving.fleet --serve-replica ...
+   --device cuda, one CUDA context each on cuda:0) off one shared
+   staging cache, behind a Router; four client threads send 128-example
+   requests while a second pass publishes v2 and replica 0, armed at
+   serving.fleet.replica.pre_build (after 1 hit), dies mid-swap: 0
+   failed requests, 0 sheds, at least one restart, the fleet on v2, one
+   verified staging copy a version, and a fleet_window record valid
+   under monitor/flight.validate_fleet_record; (b) a second, shorter leg
+   (4 x 100 requests) with flags.serving_hedge_factor 1.5; (c) the
+   active model exported with export_stablehlo at batch 8192, loaded on
+   the card, its scores equal to Predictor.predict's (rtol 1e-5, atol
+   1e-6) and a torn module/meta pair rejected. Prints the router's
+   p50/p99, requests, retries, hedges, the restart and convergence
+   seconds, and the export's and load's seconds and a call's ms. The
+   two passes are counted between a reset just before and a read just
+   after (binned_merge_acc and merge_update 16 each); the serving and
+   the export launch none (the sums are phase18_launches);
+19. tensor, expert, sequence and pipeline parallelism, each at world 1
+   over NCCL in this process and at world 2 over gloo on the one card
+   (this script with --parallel-worker; NCCL refuses two ranks on one
+   device), held to the port's single-device references: the TP MLP
+   (dims 1024-4096-4096-1024, batch 8192), the MoE (8 experts, d_model
+   1024, d_hidden 4096, 8192 tokens, top-2 at capacity factor 2.0, and
+   top-1 at 0.25 whose zeroed rows must be dropped_tokens), ring and
+   Ulysses attention (16 heads x 64, 16,384 causal tokens, and a bf16
+   ring), GPipe (2 stages of 2 layers, width 1024, 8 microbatches of
+   1024; at world 1 one stage holds all 4 layers). Forwards are held in
+   f32 (bf16) at the JAX tests' tolerances; the gradients in float64
+   (GRAD_DTYPE's note), attention's at 4,096 tokens (tokens cut, widths
+   kept: the reference's autograd holds (S, S) scores a head). Prints
+   each call's ms, the gloo staging seconds and the peak memory; no
+   kernel launches (phase19_launches 0).
+
+CHIP_SMOKE_PHASES=18,19 (comma-separated phase numbers) runs phases 1-4
+and the named ones alone; phases 9, 12 and 17 read phase 5's results
+and bring it with them. Unset, every phase runs. The kernels line writes
+null in the launch columns of a phase that did not run.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -5247,6 +5287,737 @@ def read_side_phase(torch, kernels, card, bounds: dict) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serving fleet and the exported program
+# ---------------------------------------------------------------------------
+
+FLEET_REQ = 128            # examples a request
+FLEET_CLIENTS = 4          # client threads hammering the router
+FLEET_HEDGE_REQS = 100     # requests a client in the hedged leg
+FLEET_HEDGE_FACTOR = 1.5   # flags.serving_hedge_factor in that leg
+FWD_TOL = dict(rtol=1e-5, atol=1e-6)      # tests/test_inference.py
+
+
+def fleet_health(rep) -> dict:
+    try:
+        return rep.health()
+    except Exception:   # a replica between its spawn and its bind
+        return {}
+
+
+def wait_for(cond, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise SmokeFailure(f"(18) timed out after {timeout_s} s waiting for "
+                       f"{what}")
+
+
+def hammer(router, reqs, stop, errors, count, limit=None) -> None:
+    """One client: router.score on the requests in turn until ``stop``
+    (or ``limit`` requests); failures land in ``errors``."""
+    i = 0
+    while not stop.is_set() and (limit is None or i < limit):
+        ids, mask, dense = reqs[i % len(reqs)]
+        try:
+            out = router.score(ids, mask, dense)
+            if out.shape != (len(ids),) or not np.all(np.isfinite(out)):
+                errors.append(f"bad scores {out.shape}")
+        except Exception as e:   # reported by the caller
+            errors.append(repr(e))
+        i += 1
+        count[0] += 1
+
+
+def run_clients(router, reqs, limit=None):
+    """FLEET_CLIENTS client threads; returns (stop event, threads,
+    errors, count)."""
+    import threading
+    stop, errors, count = threading.Event(), [], [0]
+    threads = [threading.Thread(target=hammer,
+                                args=(router, reqs, stop, errors, count,
+                                      limit))
+               for _ in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    return stop, threads, errors, count
+
+
+def fleet_serving(torch, kernels, card, total: dict, d: str) -> str:
+    """(a) two SubprocessReplicas on cuda:0 behind a Router under four
+    client threads, across a publish that kills replica 0 mid-swap;
+    (b) the hedged leg. Returns the serving root."""
+    from paddlebox_tpu_torch import monitor
+    from paddlebox_tpu_torch.config import flags
+    from paddlebox_tpu_torch.data import SlotDataset
+    from paddlebox_tpu_torch.fleet import BoxPS
+    from paddlebox_tpu_torch.monitor import flight
+    from paddlebox_tpu_torch.serving import ServingPublisher
+    from paddlebox_tpu_torch.serving.fleet import ReplicaFleet
+    from paddlebox_tpu_torch.serving.router import Router
+    lay = ONEHOT
+    keys, rng = draw_keys(lay.n_keys)
+    store, schema, tr = make_trainer(torch, lay, B, None)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, lay.steps * B, keys, rng, lay.max_len)
+    box = BoxPS(store)
+    root = os.path.join(d, "serve")
+    # a base every pass: a restarted replica cold-starts onto the newest
+    # version in one build (the reference test's setting)
+    pub = ServingPublisher(root, tr.model, schema, quant="f32",
+                           publish_base_every=1, hot_top_k=1024)
+    want = {k: lay.steps for k in lay.kernels}
+
+    def publish_pass(p):
+        box.begin_pass()
+        out, launches = count_pass(kernels, f"(18) pass {p}",
+                                   functools.partial(tr.train_pass, ds),
+                                   want)
+        add_counts(total, launches)
+        check(out["steps"] == lay.steps and np.isfinite(out["loss_mean"]),
+              f"(18) pass {p}: {out}")
+        t0 = time.perf_counter()
+        info = box.end_pass(trainer=tr, publisher=pub)["publish"]
+        check("error" not in info, f"(18) publish failed: {info}")
+        print(f"  (a) pass {p} ({card}): loss {out['loss_mean']:.6f} | "
+              f"launches {launches} | publish v{info['version']} "
+              f"{info['kind']} {info['bytes']} bytes, end_pass "
+              f"{time.perf_counter() - t0:.3f} s")
+        return info
+
+    publish_pass(1)                                       # v1
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base_env = {"PYTHONPATH": repo}
+    kill_env = dict(base_env,
+                    PBTPU_FAULTPOINT="serving.fleet.replica.pre_build",
+                    PBTPU_FAULTPOINT_AFTER="1")   # hit 2 = the v2 build
+    fleet = ReplicaFleet(root, replicas=2, workdir=os.path.join(d, "fw"),
+                         poll_s=0.1, backoff0_s=0.2, supervise_tick_s=0.05,
+                         window_s=0, replica_env=lambda i: (
+                             kill_env if i == 0 else base_env))
+    check(fleet.device == "cuda", f"(18) fleet device {fleet.device}")
+    router = Router(fleet.replicas, timeout_s=120.0, health_ttl_s=0.5,
+                    hedge_factor=0.0)
+    fleet.attach_router(router)
+    sink = monitor.MemorySink()
+    monitor.hub().enable(sink)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        procs += [r.proc for r in fleet.replicas]
+        wait_for(lambda: all(fleet_health(r).get("active_version") == 1
+                             for r in fleet.replicas), 300,
+                 "both replicas on v1")
+        ids, mask, dense = request_arrays(tr, next(iter(ds.batches(B))))
+        reqs = [(ids[i:i + FLEET_REQ], mask[i:i + FLEET_REQ],
+                 dense[i:i + FLEET_REQ]) for i in range(0, B, FLEET_REQ)]
+        router.score(*reqs[0])
+        print(f"  (a) two replica processes on {fleet.device} ({card}): "
+              f"spawned and serving v1 in {time.perf_counter() - t0:.1f} s")
+        stop, threads, errors, count = run_clients(router, reqs)
+        try:
+            t_pub = time.perf_counter()
+            info = publish_pass(2)                         # v2: replica 0
+            wait_for(lambda: 137 in fleet.replicas[0].exits, 300,
+                     "replica 0's fault-point kill")
+            t_restart = wait_for(lambda: fleet.replicas[0].alive()
+                                 and fleet_health(fleet.replicas[0]).get(
+                                     "active_version") == 2, 300,
+                                 "replica 0 restarted on v2")
+            wait_for(lambda: all(
+                r.alive() and fleet_health(r).get("active_version") == 2
+                and fleet_health(r).get("status") == "ok"
+                for r in fleet.replicas), 300, "the fleet on v2")
+            t_conv = time.perf_counter() - t_pub
+            router.score(*reqs[0])
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        rs = router.stats()
+        check(not errors, f"(18) failed requests: {errors[:3]}")
+        check(rs["failures"] == 0 and rs["sheds"] == 0,
+              f"(18) router {rs}")
+        check(fleet.restarts >= 1 and not fleet.replicas[0].quarantined,
+              f"(18) restarts {fleet.restarts}")
+        staged = sorted(os.listdir(os.path.join(fleet.staging_root,
+                                                "versions")))
+        check(staged == ["v-000001", "v-000002"],
+              f"(18) staging holds {staged}")
+        fields = fleet.commit_window(force=True)
+        rec = sink.find("fleet_window")[-1]
+        errs = flight.validate_fleet_record(rec)
+        check(errs == [], f"(18) fleet_window: {errs}")
+        check(fields["healthy"] == 2 and fields["restarts"] >= 1,
+              f"(18) fleet_window {fields}")
+        print(f"  (a) replica 0 killed mid-swap ({card}): exits "
+              f"{fleet.replicas[0].exits}, back on v2 {t_restart:.3f} s "
+              f"after its kill was seen, the fleet on v{info['version']} "
+              f"{t_conv:.3f} s after pass 2 began | {count[0]} requests "
+              f"of {FLEET_REQ} from {FLEET_CLIENTS} clients, 0 failed, 0 "
+              f"shed | router requests {rs['requests']} retries "
+              f"{rs['retries']} timeouts {rs['timeouts']} degraded "
+              f"{rs['degraded_dispatches']} | p50 {rs['p50_ms']:.3f} ms "
+              f"p99 {rs['p99_ms']:.3f} ms | staging {staged} (one "
+              f"verified copy a version) | fleet_window valid: {fields}")
+        # (b) the hedged leg: the flag's factor, a fresh window
+        old = flags.serving_hedge_factor
+        flags.serving_hedge_factor = FLEET_HEDGE_FACTOR
+        try:
+            hedged = Router(fleet.replicas, timeout_s=120.0,
+                            health_ttl_s=0.5)
+        finally:
+            flags.serving_hedge_factor = old
+        check(hedged.hedge_factor == FLEET_HEDGE_FACTOR,
+              f"(18) hedge factor {hedged.hedge_factor}")
+        t0 = time.perf_counter()
+        stop, threads, errors, count = run_clients(
+            hedged, reqs, limit=FLEET_HEDGE_REQS)
+        for t in threads:
+            t.join(timeout=300)
+        hs = hedged.stats()
+        check(not errors and hs["failures"] == 0
+              and hs["requests"] == FLEET_CLIENTS * FLEET_HEDGE_REQS,
+              f"(18) hedged leg: {errors[:3]} {hs}")
+        print(f"  (b) hedged leg, serving_hedge_factor "
+              f"{FLEET_HEDGE_FACTOR} ({card}): {hs['requests']} requests "
+              f"in {time.perf_counter() - t0:.3f} s | hedges "
+              f"{hs['hedges']} won {hs['hedges_won']} discarded "
+              f"{hs['hedge_discards']} | retries {hs['retries']} | p50 "
+              f"{hs['p50_ms']:.3f} ms p99 {hs['p99_ms']:.3f} ms")
+    finally:
+        monitor.hub().disable()
+        fleet.stop()
+    check(all(p.poll() is not None for p in procs),
+          "(18) a replica process outlived the fleet")
+    del store, tr, ds, box
+    torch.cuda.empty_cache()
+    return root
+
+
+def fleet_export(torch, card, root: str, d: str) -> None:
+    """(c) the active model exported at B with export_stablehlo, loaded
+    on the card, held to Predictor.predict; a torn pair rejected."""
+    from paddlebox_tpu_torch.data import DataFeedSchema, SlotDataset
+    from paddlebox_tpu_torch.inference.stablehlo import (META_FILE,
+                                                         MODULE_FILE,
+                                                         export_stablehlo,
+                                                         load_stablehlo)
+    from paddlebox_tpu_torch.serving import ServingServer
+    from paddlebox_tpu_torch.utils.checkpoint import CheckpointCorruptError
+    srv = ServingServer(root)
+    check(srv.poll_once() >= 1, "(18) the server loaded nothing")
+    m = srv.active
+    pred = m.predictor
+    path = os.path.join(d, "program")
+    t0 = time.perf_counter()
+    export_stablehlo(path, pred.model, pred.params, pred.schema,
+                     batch_size=B, pull_width=pred.table.pull_width)
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call = load_stablehlo(path)
+    t_load = time.perf_counter() - t0
+    check(call.device.type == "cuda", f"(18) program on {call.device}")
+    lay = ONEHOT
+    keys, _ = draw_keys(lay.n_keys)
+    schema = DataFeedSchema.ctr(num_sparse=S, num_float=DENSE,
+                                batch_size=B, max_len=lay.max_len)
+    ds = SlotDataset(schema)
+    ds.records = make_records(schema, B, keys,
+                              np.random.default_rng(SEED + 18),
+                              lay.max_len)
+    pb = next(iter(ds.batches(B)))
+    lc, lw, _ = schema.float_split_cols("label")
+    dense = np.ascontiguousarray(np.concatenate(
+        [pb.floats[:, :lc], pb.floats[:, lc + lw:]], axis=1), np.float32)
+    ids, mask = pb.ids.astype(np.uint64), pb.mask
+    want = pred.predict(ids, mask, dense)
+    pulled = pred.table.lookup(ids, mask)
+    got = call(pulled, mask, dense)
+    err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, **FWD_TOL)
+    staged = [torch.as_tensor(a, device=call.device)
+              for a in (pulled, mask, dense)]
+    with torch.no_grad():
+        ms = time_ms(lambda: call.program(*staged), iters=20)
+        ms_eager = time_ms(lambda: pred.forward(*staged), iters=20)
+    t0 = time.perf_counter()
+    call(pulled, mask, dense)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(os.path.join(path, MODULE_FILE))
+    meta_p = os.path.join(path, META_FILE)
+    with open(meta_p) as f:
+        meta = json.load(f)
+    meta["module_crc32"] = (meta["module_crc32"] + 1) & 0xFFFFFFFF
+    with open(meta_p, "w") as f:
+        json.dump(meta, f)
+    try:
+        load_stablehlo(path)
+        raise SmokeFailure("(18) a torn program/meta pair loaded")
+    except CheckpointCorruptError:
+        pass
+    print(f"  (c) export_stablehlo of v{m.version} at batch {B} ({card}): "
+          f"export {t_exp:.3f} s, {size} bytes | load on the card "
+          f"{t_load:.3f} s | program {ms:.4f} ms a call on staged inputs "
+          f"(the eager forward {ms_eager:.4f} ms), {host_ms:.3f} ms with "
+          f"H2D and D2H | max abs err vs Predictor.predict {err:.3g} "
+          f"(rtol {FWD_TOL['rtol']:g} atol {FWD_TOL['atol']:g}) ok | torn "
+          f"pair rejected ok")
+    srv.stop()
+
+
+def fleet_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 18. Returns the launches of every kernel over the phase (the
+    two publishing passes; serving and the export launch none)."""
+    print(f"== the serving fleet and the exported program ({card}): "
+          f"DeepFM one-hot, {B} x {S} slots, two replica processes on "
+          f"the card")
+    total: dict[str, int] = {}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        root = fleet_serving(torch, kernels, card, total, d)
+        seconds["fleet"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        _, launches = count_pass(
+            kernels, "(c) export",
+            functools.partial(fleet_export, torch, card, root, d), {})
+        add_counts(total, launches)
+        seconds["export"] = round(time.perf_counter() - t0, 1)
+    print(f"launches in phase 18: {total} | seconds: {seconds}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 19: tensor, expert, sequence and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+PAR_TP_DIMS = (1024, 4096, 4096, 1024)
+PAR_TP_BATCH = 8192
+PAR_MOE = dict(experts=8, d_model=1024, d_hidden=4096, tokens=8192, top_k=2,
+               capacity=2.0, drop_capacity=0.25)
+PAR_ATTN = dict(heads=16, head_dim=64, seq=16384, grad_seq=4096)
+PAR_PP = dict(stages=2, width=1024, layers=2, micro=8, micro_batch=1024)
+PAR_WORLD = 2
+# the dtype of the gradient checks: at these widths two f32 reductions
+# of the same sum in different orders (a 2048-lane expert group against
+# an 8192-row dense einsum) differ by f32 rounding near the JAX tests'
+# atol where the sum cancels (2 of 33.5M MoE elements past it on the
+# card), so the gradients are held in float64, where the modules'
+# own arithmetic is all that can differ; forwards are held in f32
+GRAD_DTYPE = "float64"
+PAR_TOL = {"tp": dict(rtol=2e-5, atol=2e-5),   # tests/test_tensor_parallel
+           "tp_grad": dict(rtol=2e-4, atol=2e-5),
+           "ep": dict(rtol=2e-4, atol=2e-5),   # tests/test_expert_parallel
+           "sp": dict(rtol=2e-4, atol=2e-5),   # test_sequence_parallel
+           "sp_grad": dict(rtol=5e-4, atol=5e-4),
+           "sp_bf16": dict(rtol=0.06, atol=0.06),
+           "pp": dict(rtol=2e-5, atol=2e-5),   # tests/test_pipeline.py
+           "pp_grad": dict(rtol=1e-4, atol=1e-5)}
+
+
+def par_close(name, got, want, tol, errs: dict) -> None:
+    import torch
+    dt = torch.promote_types(torch.promote_types(got.dtype, want.dtype),
+                             torch.float32)
+    got, want = got.detach().to(dt), want.detach().to(dt)
+    err = max_err(got, want)
+    errs[name] = max(errs.get(name, 0.0), err)
+    try:
+        torch.testing.assert_close(got, want, **tol)
+    except AssertionError as e:
+        raise SmokeFailure(f"(19) {name}: max abs err {err:.3g} past rtol "
+                           f"{tol['rtol']:g} atol {tol['atol']:g}: "
+                           f"{e}") from e
+
+
+def wall_ms(torch, fn) -> float:
+    """One call's wall ms, the card synchronised on both sides (at world
+    2 it includes the call's host-staged collectives)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def seeded(torch, shape, seed, scale=1.0):
+    """A seeded normal tensor made on the host (the same on every rank)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g) * scale
+
+
+def par_tp(torch, mesh, rec: dict) -> None:
+    """The TP MLP against mlp_reference, forward in f32 and gradients in
+    GRAD_DTYPE (the output is replicated over tp: every rank's loss is
+    the whole one)."""
+    from paddlebox_tpu_torch.parallel import tensor as tp
+    dev = mesh.device
+    dims = PAR_TP_DIMS
+    params = [{k: v.to(dev) for k, v in p.items()}
+              for p in tp.init_tp_mlp(SEED, dims, device="cpu")]
+    x = seeded(torch, (PAR_TP_BATCH, dims[0]), SEED + 1).to(dev)
+    errs = rec.setdefault("err", {})
+    n, i = mesh.axis_size("tp"), mesh.axis_index("tp")
+    modes = tp.plan_modes(dims, n)
+    fn = tp.make_tp_mlp(mesh, dims)
+    shards = tp.shard_tp_params(mesh, params)
+    with torch.no_grad():
+        par_close("tp forward", fn(shards, x), tp.mlp_reference(params, x),
+                  PAR_TOL["tp"], errs)
+        staged0 = mesh.staged_seconds
+        rec["tp_ms"] = wall_ms(torch, lambda: fn(shards, x))
+        rec["tp_staged_s"] = mesh.staged_seconds - staged0
+    rec["tp_modes"] = modes
+    gd = getattr(torch, GRAD_DTYPE)
+    params = [{k: v.to(gd) for k, v in p.items()} for p in params]
+    x = x.to(gd)
+    ref = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+           for p in params]
+    (tp.mlp_reference(ref, x) ** 2).sum().backward()
+    shards = tp.shard_tp_params(mesh, params)
+    for p in shards:
+        for v in p.values():
+            v.requires_grad_(True)
+    (fn(shards, x) ** 2).sum().backward()
+    for mode, p, r in zip(modes, shards, ref):
+        gw, gb = r["w"].grad, r["b"].grad
+        if mode == "col":
+            k = gw.shape[1] // n
+            gw, gb = gw[:, i * k:(i + 1) * k], gb[i * k:(i + 1) * k]
+        elif mode == "row":
+            k = gw.shape[0] // n
+            gw = gw[i * k:(i + 1) * k]
+        par_close("tp grads", p["w"].grad, gw, PAR_TOL["tp_grad"], errs)
+        par_close("tp grads", p["b"].grad, gb, PAR_TOL["tp_grad"], errs)
+
+
+def par_moe(torch, mesh, rec: dict) -> None:
+    """The MoE against moe_reference: top-2 at capacity factor 2.0,
+    forward in f32 and gradients in GRAD_DTYPE (each rank's loss is its
+    rows: the experts' gradients sum every rank's, the replicated
+    gate's are this rank's), then top-1 at 0.25 in f32, whose zeroed
+    rows must be dropped_tokens."""
+    from paddlebox_tpu_torch.parallel import expert as ep
+    dev = mesh.device
+    c = PAR_MOE
+    params = {k: v.to(dev) for k, v in ep.init_moe(
+        SEED, c["experts"], c["d_model"], c["d_hidden"],
+        device="cpu").items()}
+    x = seeded(torch, (c["tokens"], c["d_model"]), SEED + 2).to(dev)
+    n, i = mesh.axis_size("ep"), mesh.axis_index("ep")
+    b, e = c["tokens"] // n, c["experts"] // n
+    rows = slice(i * b, (i + 1) * b)
+    errs = rec.setdefault("err", {})
+    check(ep.dropped_tokens(params, x, n, c["top_k"], c["capacity"]) == 0,
+          f"(19) moe: capacity factor {c['capacity']} dropped tokens")
+    fn = ep.make_moe(mesh, c["experts"], top_k=c["top_k"],
+                     capacity_factor=c["capacity"])
+    shards = ep.shard_moe_params(mesh, params)
+    with torch.no_grad():
+        par_close("moe forward", fn(shards, x[rows]),
+                  ep.moe_reference(params, x, top_k=c["top_k"])[rows],
+                  PAR_TOL["ep"], errs)
+        torch.cuda.empty_cache()
+        staged0 = mesh.staged_seconds
+        rec["moe_ms"] = wall_ms(torch, lambda: fn(shards, x[rows]))
+        rec["moe_staged_s"] = mesh.staged_seconds - staged0
+    gd = getattr(torch, GRAD_DTYPE)
+    p64 = {k: v.to(gd) for k, v in params.items()}
+    ref = {k: v.clone().requires_grad_(True) for k, v in p64.items()}
+    (ep.moe_reference(ref, x.to(gd), top_k=c["top_k"])[rows] ** 2).sum() \
+        .backward()
+    mine = ep.shard_moe_params(mesh, p64)
+    for v in mine.values():
+        v.requires_grad_(True)
+    (fn(mine, x[rows].to(gd)) ** 2).sum().backward()
+    par_close("moe grads", mine["gate"].grad, ref["gate"].grad,
+              PAR_TOL["ep"], errs)
+    for k in ("w1", "b1", "w2", "b2"):
+        g = mesh.psum(ref[k].grad.contiguous(), "ep")[i * e:(i + 1) * e]
+        par_close("moe grads", mine[k].grad, g, PAR_TOL["ep"], errs)
+    del ref, mine, p64
+    torch.cuda.empty_cache()
+    fn1 = ep.make_moe(mesh, c["experts"], top_k=1,
+                      capacity_factor=c["drop_capacity"])
+    with torch.no_grad():
+        y1 = fn1(shards, x[rows])
+        want1 = ep.moe_reference(params, x, top_k=1)[rows]
+    zero = (y1 == 0).all(dim=1)
+    match = torch.isclose(y1, want1, **PAR_TOL["ep"]).all(dim=1)
+    dropped = ep.dropped_tokens(params, x[rows], 1, 1, c["drop_capacity"])
+    check(bool((zero | match).all()), "(19) moe drops: a kept row differs")
+    check(int(zero.sum()) == dropped > 0,
+          f"(19) moe drops: {int(zero.sum())} zeroed rows, {dropped} "
+          f"dropped")
+    rec["moe_dropped"] = dropped
+    rec["moe_dropped_world"] = ep.dropped_tokens(params, x, n, 1,
+                                                 c["drop_capacity"])
+
+
+def par_attention(torch, mesh, rec: dict) -> None:
+    """Ring and Ulysses (causal) and a bf16 ring against
+    attention_reference at PAR_ATTN's sequence, forward in f32 (bf16);
+    the gradients in GRAD_DTYPE at grad_seq tokens (tokens cut, widths
+    kept: the reference's autograd holds (S, S) scores per head)."""
+    from paddlebox_tpu_torch.parallel import sequence as sp
+    dev = mesh.device
+    c = PAR_ATTN
+    axis = "dp"
+    errs = rec.setdefault("err", {})
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+
+    def qkv(seq, seed):
+        return [seeded(torch, (1, seq, c["heads"], c["head_dim"]),
+                       seed + j, 0.5).to(dev) for j in range(3)]
+
+    def reference_rows(q, k, v, rows, chunk=2):
+        """The full reference's rows, two heads at a time."""
+        out = []
+        with torch.no_grad():
+            for h in range(0, c["heads"], chunk):
+                hs = slice(h, h + chunk)
+                out.append(sp.attention_reference(
+                    q[:, :, hs], k[:, :, hs], v[:, :, hs],
+                    causal=True)[:, rows])
+                torch.cuda.empty_cache()
+        return torch.cat(out, dim=2)
+
+    q, k, v = qkv(c["seq"], SEED + 3)
+    shards = [sp.seq_shard(t, mesh, axis) for t in (q, k, v)]
+    s_l = c["seq"] // n
+    want = reference_rows(q, k, v, slice(i * s_l, (i + 1) * s_l))
+    for mode in ("ring", "ulysses"):
+        fn = sp.make_sequence_parallel_attention(mesh, axis, mode=mode,
+                                                 causal=True)
+        staged0 = mesh.staged_seconds
+        with torch.no_grad():
+            par_close(f"{mode} forward", fn(*shards), want, PAR_TOL["sp"],
+                      errs)
+            torch.cuda.empty_cache()
+            rec[f"{mode}_ms"] = wall_ms(torch, lambda: fn(*shards))
+        rec[f"{mode}_staged_s"] = mesh.staged_seconds - staged0
+        torch.cuda.empty_cache()
+    fn = sp.make_sequence_parallel_attention(mesh, axis, mode="ring",
+                                             causal=True)
+    half = [t.to(torch.bfloat16) for t in shards]
+    with torch.no_grad():
+        y = fn(*half)
+        check(y.dtype == torch.bfloat16, f"(19) bf16 ring gave {y.dtype}")
+        par_close("ring bf16 forward", y, want, PAR_TOL["sp_bf16"], errs)
+        del y
+        torch.cuda.empty_cache()
+        rec["ring_bf16_ms"] = wall_ms(torch, lambda: fn(*half))
+    del q, k, v, shards, half, want
+    torch.cuda.empty_cache()
+    gd = getattr(torch, GRAD_DTYPE)
+    q, k, v = (t.to(gd) for t in qkv(c["grad_seq"], SEED + 6))
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    s_l = c["grad_seq"] // n
+    rows = slice(i * s_l, (i + 1) * s_l)
+    # this rank's rows of the loss; the ranks' gradients sum
+    (sp.attention_reference(*ref, causal=True)[:, rows] ** 2).sum() \
+        .backward()
+    g_ref = [mesh.psum(t.grad.contiguous(), axis)[:, rows] for t in ref]
+    del ref
+    for mode in ("ring", "ulysses"):
+        fn = sp.make_sequence_parallel_attention(mesh, axis, mode=mode,
+                                                 causal=True)
+        mine = [sp.seq_shard(t, mesh, axis).clone().requires_grad_(True)
+                for t in (q, k, v)]
+        (fn(*mine) ** 2).sum().backward()
+        for t, g in zip(mine, g_ref):
+            par_close(f"{mode} grads", t.grad, g, PAR_TOL["sp_grad"], errs)
+    torch.cuda.empty_cache()
+
+
+def par_pipeline(torch, mesh, rec: dict) -> None:
+    """GPipe against the stages run back to back, forward in f32 and
+    the gradients of the mean squared error in GRAD_DTYPE. At pp = 1 one
+    stage holds both stages' layers."""
+    from paddlebox_tpu_torch.parallel import pipeline as pp
+    dev = mesh.device
+    c = PAR_PP
+    n, i = mesh.axis_size("pp"), mesh.axis_index("pp")
+    errs = rec.setdefault("err", {})
+    w = seeded(torch, (c["stages"], c["layers"], c["width"], c["width"]),
+               SEED + 7, 1.0 / c["width"] ** 0.5).to(dev)
+    bias = seeded(torch, (c["stages"], c["layers"], c["width"]), SEED + 8,
+                  0.01).to(dev)
+    batch = c["micro"] * c["micro_batch"]
+    x = seeded(torch, (batch, c["width"]), SEED + 9).to(dev)
+    tgt = seeded(torch, (batch, c["width"]), SEED + 10).to(dev)
+    stage_fn = pp.mlp_stage_fn(torch.tanh)
+    per = c["stages"] // n
+    fn = pp.make_pipeline(mesh, stage_fn, c["micro"])
+
+    def run(w, bias, x, grads):
+        ref_w = w.clone().requires_grad_(grads)
+        ref_b = bias.clone().requires_grad_(grads)
+        h = x
+        for s in range(c["stages"]):
+            h = stage_fn({"w": ref_w[s], "b": ref_b[s]}, h)
+        stacked = {"w": w.reshape(n, per * c["layers"], c["width"],
+                                  c["width"]),
+                   "b": bias.reshape(n, per * c["layers"], c["width"])}
+        mine = pp.shard_stage_params(mesh, stacked)
+        for t in mine.values():
+            t.requires_grad_(grads)
+        y = fn(mine, x)
+        if grads:
+            ((h - tgt.to(h.dtype)) ** 2).mean().backward()
+            ((y - tgt.to(y.dtype)) ** 2).mean().backward()
+        return h, y, ref_w, ref_b, mine
+
+    with torch.no_grad():
+        h, y, _, _, mine = run(w, bias, x, False)
+        par_close("pipeline forward", y, h, PAR_TOL["pp"], errs)
+        staged0 = mesh.staged_seconds
+        rec["pp_ms"] = wall_ms(torch, lambda: fn(mine, x))
+        rec["pp_staged_s"] = mesh.staged_seconds - staged0
+    gd = getattr(torch, GRAD_DTYPE)
+    _, _, ref_w, ref_b, mine = run(w.to(gd), bias.to(gd), x.to(gd), True)
+    gw = ref_w.grad.reshape(n, -1, c["width"], c["width"])[i:i + 1]
+    gb = ref_b.grad.reshape(n, -1, c["width"])[i:i + 1]
+    par_close("pipeline grads", mine["w"].grad, gw, PAR_TOL["pp_grad"],
+              errs)
+    par_close("pipeline grads", mine["b"].grad, gb, PAR_TOL["pp_grad"],
+              errs)
+    rec["pp_stages_here"] = per
+
+
+def par_modules(torch, backend: str) -> dict:
+    """The four modules on this world's meshes; returns the numbers."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.parallel import expert as ep
+    from paddlebox_tpu_torch.parallel import pipeline as pp
+    from paddlebox_tpu_torch.parallel import tensor as tp
+    from paddlebox_tpu_torch.parallel.mesh import make_mesh
+    rec: dict = {}
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    for name, build, fn in (
+            ("tp", lambda: tp.make_tp_mesh(world, backend=backend),
+             par_tp),
+            ("moe", lambda: ep.make_ep_mesh(world, backend=backend),
+             par_moe),
+            ("attention", lambda: make_mesh(backend=backend),
+             par_attention),
+            ("pipeline", lambda: pp.make_pp_mesh(world, backend=backend),
+             par_pipeline)):
+        mesh = build()
+        check(mesh.backend == backend and mesh.device.type == "cuda",
+              f"(19) {name}: {mesh}")
+        t0 = time.perf_counter()
+        fn(torch, mesh, rec)
+        rec[f"{name}_s"] = round(time.perf_counter() - t0, 3)
+        torch.cuda.empty_cache()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rec
+
+
+def par_line(card, label, rec) -> str:
+    errs = ", ".join(f"{k} {v:.3g}" for k, v in sorted(rec["err"].items()))
+    return (f"  {label} ({card}): tp {rec['tp_ms']:.3f} ms (modes "
+            f"{rec['tp_modes']}) | moe top-2 {rec['moe_ms']:.3f} ms, "
+            f"capacity {PAR_MOE['drop_capacity']} top-1 dropped "
+            f"{rec['moe_dropped']} here of "
+            f"{rec['moe_dropped_world']} | ring {rec['ring_ms']:.3f} ms, "
+            f"ulysses {rec['ulysses_ms']:.3f} ms, bf16 ring "
+            f"{rec['ring_bf16_ms']:.3f} ms | gpipe {rec['pp_ms']:.3f} ms "
+            f"({rec['pp_stages_here']} stage(s) a rank) | gloo staging s: "
+            f"tp {rec['tp_staged_s']:.3f} moe {rec['moe_staged_s']:.3f} "
+            f"ring {rec['ring_staged_s']:.3f} ulysses "
+            f"{rec['ulysses_staged_s']:.3f} pp {rec['pp_staged_s']:.3f} | "
+            f"module seconds tp {rec['tp_s']} moe {rec['moe_s']} "
+            f"attention {rec['attention_s']} pipeline {rec['pipeline_s']} "
+            f"| peak {rec['peak_gib']:.1f} GiB | max abs err: {errs} ok")
+
+
+def parallel_worker(argv: list[str]) -> int:
+    """One rank of phase 19's world 2: joins over gloo on the current
+    card, runs the four modules and writes <dir>/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.distributed import RoleMaker
+    d = argv[0]
+    RoleMaker.from_env().init_distributed(backend="gloo", device="cuda")
+    rec = par_modules(torch, "gloo")
+    rec["jax_loaded"] = "jax" in sys.modules
+    with open(os.path.join(d, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(torch, kernels, card) -> dict[str, int]:
+    """Phase 19. Returns the launches of every kernel over the phase
+    (none: the modules reach no custom kernel)."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.distributed.launch import launch
+    print(f"== tensor, expert, sequence and pipeline parallelism ({card}):"
+          f" world 1 over nccl, world {PAR_WORLD} over gloo on one card")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "(19) a process group is open")
+    torch.cuda.reset_peak_memory_stats()
+    rec = par_modules(torch, "nccl")
+    dist.destroy_process_group()
+    print(par_line(card, "(a) world 1 over nccl", rec))
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        code = launch(PAR_WORLD, [sys.executable, os.path.abspath(__file__),
+                                  "--parallel-worker", d],
+                      store_dir=os.path.join(d, "store"),
+                      base_env={"GLOO_SOCKET_IFNAME": "lo"},
+                      timeout_s=600, local_ranks=[0] * PAR_WORLD)
+        check(code == 0, f"(19) a rank of the world of {PAR_WORLD} exited "
+              f"{code}")
+        for r in range(PAR_WORLD):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                rr = json.load(f)
+            check(not rr["jax_loaded"], "(19) a rank loaded jax")
+            print(par_line(card, f"(b) rank {r} of world {PAR_WORLD} over "
+                                 f"gloo", rr))
+    total = launch_counts(kernels)
+    expect_launches("(19)", total, {})
+    print(f"launches in phase 19: {total} | seconds: world 1 "
+          f"{t1 - t0:.1f}, world {PAR_WORLD} {time.perf_counter() - t1:.1f}")
+    return total
+
+
+PHASES_ENV = "CHIP_SMOKE_PHASES"
+ALL_PHASES = tuple(range(5, 20))
+# phases that read phase 5's one-hot pass or its profiled busy time
+NEEDS_PHASE5 = (9, 12, 17)
+
+
+def selected_phases() -> set[int]:
+    """Phases 5-19 to run: all of them, or those CHIP_SMOKE_PHASES names
+    (comma-separated numbers; 1-4 always run, and a phase that reads
+    phase 5's results brings phase 5 with it)."""
+    raw = os.environ.get(PHASES_ENV, "").strip()
+    if not raw:
+        return set(ALL_PHASES)
+    try:
+        want = {int(p) for p in raw.split(",") if p.strip()}
+    except ValueError:
+        raise SmokeFailure(f"{PHASES_ENV}={raw!r}: want comma-separated "
+                           f"phase numbers") from None
+    bad = sorted(p for p in want if p not in range(1, 20))
+    check(not bad, f"{PHASES_ENV}: no phase {bad} (1-19)")
+    want = {p for p in want if p >= 5}
+    if want & set(NEEDS_PHASE5):
+        want.add(5)
+    return want
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5254,47 +6025,78 @@ def main() -> int:
         return 2
     from paddlebox_tpu_torch.ops import kernels
 
+    sel = selected_phases()
+    t_start = time.perf_counter()
+    print(f"phases: 1-4, {', '.join(map(str, sorted(sel)))}"
+          + (f" ({PHASES_ENV}={os.environ[PHASES_ENV]})"
+             if os.environ.get(PHASES_ENV, "").strip() else " (all)"))
     header(torch)
     build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = kernel_phase(torch, kernels, dev, gen)
-    launches = {}
+    seconds = {"1-4": round(time.perf_counter() - t_start, 1)}
+    launches = None
     onehot_pass: dict = {}
-    for lay in (MULTI, ONEHOT):
-        launches.update(main_path(torch, kernels, lay,
-                                  onehot_pass if lay is ONEHOT else None))
-        torch.cuda.empty_cache()
-    for lay in (MULTI, ONEHOT):
-        reference_check(torch, lay)
-    persistence_phase(torch, kernels)
     card = smi_line()
-    boundary_drill(torch, card)
-    boundary_trainer(torch, kernels, card)
-    ingest_phase(torch, kernels, card, onehot_pass)
-    zoo_phase(torch, kernels, card)
-    serving = serving_phase(torch, kernels, card)
-    storage = storage_phase(torch, kernels, card, onehot_pass)
-    monitored = monitor_phase(torch, kernels, card)
-    dispatched = dispatch_phase(torch, kernels, card)
-    meshed = mesh_phase(torch, kernels, card)
-    resilient = resilience_phase(torch, kernels, card)
-    read = read_side_phase(torch, kernels, card,
-                           {r["name"]: r["bound_ms"] for r in rows})
+    phase_launches: dict[int, dict] = {}
+
+    def timed(n, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[str(n)] = round(time.perf_counter() - t0, 1)
+        return out
+
+    def main_paths():
+        out = {}
+        for lay in (MULTI, ONEHOT):
+            out.update(main_path(torch, kernels, lay,
+                                 onehot_pass if lay is ONEHOT else None))
+            torch.cuda.empty_cache()
+        return out
+
+    def boundary():
+        boundary_drill(torch, card)
+        boundary_trainer(torch, kernels, card)
+
+    if 5 in sel:
+        launches = timed(5, main_paths)
+    if 6 in sel:
+        timed(6, lambda: [reference_check(torch, lay)
+                          for lay in (MULTI, ONEHOT)])
+    if 7 in sel:
+        timed(7, persistence_phase, torch, kernels)
+    if 8 in sel:
+        timed(8, boundary)
+    if 9 in sel:
+        timed(9, ingest_phase, torch, kernels, card, onehot_pass)
+    if 10 in sel:
+        timed(10, zoo_phase, torch, kernels, card)
+    counted = {11: lambda: serving_phase(torch, kernels, card),
+               12: lambda: storage_phase(torch, kernels, card, onehot_pass),
+               13: lambda: monitor_phase(torch, kernels, card),
+               14: lambda: dispatch_phase(torch, kernels, card),
+               15: lambda: mesh_phase(torch, kernels, card),
+               16: lambda: resilience_phase(torch, kernels, card),
+               17: lambda: read_side_phase(
+                   torch, kernels, card,
+                   {r["name"]: r["bound_ms"] for r in rows}),
+               18: lambda: fleet_phase(torch, kernels, card),
+               19: lambda: parallel_phase(torch, kernels, card)}
+    for n, fn in counted.items():
+        if n in sel:
+            phase_launches[n] = timed(n, fn)
+    # launch columns of the phases that did not run are null
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["phase11_launches"] = serving.get(r["name"], 0)
-        r["phase12_launches"] = storage.get(r["name"], 0)
-        r["phase13_launches"] = monitored.get(r["name"], 0)
-        r["phase14_launches"] = dispatched.get(r["name"], 0)
-        r["phase15_launches"] = meshed.get(r["name"], 0)
-        r["phase16_launches"] = resilient.get(r["name"], 0)
-        r["phase17_launches"] = read.get(r["name"], 0)
+        r["launches"] = None if launches is None else launches[r["name"]]
+        for n in counted:
+            r[f"phase{n}_launches"] = (phase_launches[n].get(r["name"], 0)
+                                       if n in phase_launches else None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "phase11_launches", "phase12_launches", "phase13_launches",
-            "phase14_launches", "phase15_launches", "phase16_launches",
-            "phase17_launches")
+            *(f"phase{n}_launches" for n in counted))
+    print(f"seconds by phase: {seconds} | whole script "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -5314,4 +6116,6 @@ if __name__ == "__main__":
         sys.exit(trace_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--resilience-worker"]:
         sys.exit(res_worker().main())
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
     sys.exit(main())

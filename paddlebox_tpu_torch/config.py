@@ -105,6 +105,21 @@ class Flags:
     serving_window_s: float = 30.0
     # serving latency SLO (ms), stamped into every window record
     serving_slo_ms: float = 50.0
+    # the serving fleet (serving/fleet.py, serving/router.py): replicas
+    # per host the fleet CLI supervises off one donefile, each building
+    # from the shared verified staging copy
+    serving_fleet_replicas: int = 2
+    # verdict-guarded auto-promotion: the doctor's version-regression
+    # verdict drives promote_candidate() fleet-wide (a critical verdict
+    # holds the candidate and quarantines its version); off = promotion
+    # stays the operator's call
+    serving_auto_promote: bool = False
+    # consecutive clean serving windows before auto-promotion fires
+    serving_promote_windows: int = 2
+    # router hedging: a request outstanding past factor x the router's
+    # windowed p99 gets a second copy on another replica (first answer
+    # wins, the loser is cancelled and counted). 0.0 = hedging off
+    serving_hedge_factor: float = 0.0
     # request tracing: every Nth dispatched batch opens the frontend's
     # serve/wait and the server's serve/score spans, the score span
     # parent-linked to the served version's publish span through the

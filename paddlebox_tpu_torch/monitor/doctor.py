@@ -33,9 +33,9 @@ Three entry points:
   carrying extras such as ``utils.step_probe.push_floor_analysis``'s
   statement (the push-floor rule's input).
 
-Rules whose inputs the port does not emit yet (the serving fleet's
-window records, ROADMAP queue 1 item 8) answer ``no-data``, as the
-reference's do without their inputs.
+A rule whose inputs a run did not emit answers ``no-data``, as the
+reference's do. The ``fleet-degraded`` rule reads the ``fleet_window``
+records that ``serving/fleet.ReplicaFleet.commit_window`` emits.
 """
 
 from __future__ import annotations

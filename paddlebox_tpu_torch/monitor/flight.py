@@ -6,9 +6,9 @@ benchmark and the tests key off these shapes, so the schema is code
 (validators returning error strings), not prose. The flight record is
 the per-pass unit: stage-time split, throughput, STATS deltas since the
 pass started, and the metric-registry snapshot — the log_for_profile
-line, made parseable. ``validate_fleet_record`` describes a record only
-the serving fleet emits (ROADMAP queue 1 item 8); it is kept so the two
-packages' schemas stay one text.
+line, made parseable. ``validate_fleet_record`` describes the
+``fleet_window`` record that the serving fleet
+(``serving/fleet.ReplicaFleet.commit_window``) emits each window.
 """
 
 from __future__ import annotations

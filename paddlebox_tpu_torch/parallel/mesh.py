@@ -19,6 +19,15 @@ local device:
 - ``host_psum`` reduces small host values (loss vectors, histograms,
   drop counts, touch bitmaps) over a gloo group kept beside the device
   group.
+- ``shift`` moves each rank's tensor one hop around the ring of an axis
+  (``lax.ppermute`` with the perm ``d → d + offset``), by
+  ``dist.batch_isend_irecv``: the sends and receives of a hop are posted
+  together, so a ring never deadlocks on blocking pairs.
+- ``make_named_mesh(axes)`` builds a mesh with any named axes (the
+  parallel modules' ``("dp", "tp")``, ``("ep",)``, ``("dp", "pp")``);
+  ``axis_index`` is this rank's position along an axis.
+  ``parallel/collective_ops.py`` wraps the collectives as autograd
+  Functions for the modules that differentiate through them.
 
 The backend is the caller's: ``nccl`` on the card by default, ``gloo``
 where the caller asks for it. With ``gloo`` and CUDA tensors every
@@ -100,6 +109,14 @@ class Mesh:
                 raise ValueError(f"axis {a!r} not in mesh axes "
                                  f"{self.axis_names}")
         return axes
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (``lax.axis_index``):
+        ranks fill the mesh in row-major order."""
+        (axis,) = self._axes(axis)
+        i = self.axis_names.index(axis)
+        stride = int(np.prod(self.shape[i + 1:]))
+        return (self.rank // stride) % self.shape[i]
 
     def axis_size(self, axes=None) -> int:
         axes = self._axes(axes)
@@ -189,6 +206,31 @@ class Mesh:
             self.staged_seconds += time.perf_counter() - t0
         return out
 
+    def shift(self, x: torch.Tensor, axis: str, offset: int = 1
+              ) -> torch.Tensor:
+        """The tensor of the rank ``offset`` hops back along ``axis``'s
+        ring: each rank sends ``x`` to position ``(i + offset) % n`` and
+        receives from ``(i - offset) % n`` (``lax.ppermute``). Bytes
+        cross as uint8, so every dtype travels over both backends."""
+        n = self.axis_size(axis)
+        if n == 1 or offset % n == 0:
+            return x
+        t0 = time.perf_counter()
+        group = self.group(axis)
+        me = dist.get_rank(group)
+        dst = dist.get_global_rank(group, (me + offset) % n)
+        src = dist.get_global_rank(group, (me - offset) % n)
+        send = self._out(x).reshape(-1).view(torch.uint8)
+        recv = torch.empty_like(send, pin_memory=self._staged(x))
+        ops = [dist.P2POp(dist.isend, send, dst, group=group),
+               dist.P2POp(dist.irecv, recv, src, group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = self._back(recv.view(x.dtype).reshape(x.shape), x)
+        if self._staged(x):
+            self.staged_seconds += time.perf_counter() - t0
+        return out
+
     def pmean(self, x: torch.Tensor, axes=None) -> torch.Tensor:
         return self.psum(x, axes) / self.axis_size(axes)
 
@@ -242,6 +284,61 @@ class MeshHostCollectives:
         self.mesh.barrier()
 
 
+def _join(backend, dev):
+    """The process group (a world of one formed here when none exists)
+    and its backend, checked against the caller's ``backend``."""
+    if not dist.is_initialized():
+        be = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        if be not in BACKENDS:
+            raise ValueError(f"backend={be!r} (want one of {BACKENDS})")
+        dist.init_process_group(be, init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+    be = dist.get_backend()
+    if backend is not None and backend != be:
+        raise ValueError(f"make_mesh(backend={backend!r}): the process "
+                         f"group runs {be!r}")
+    if be == "nccl" and dev.type != "cuda":
+        raise ValueError("an nccl group needs device='cuda'")
+    return be
+
+
+def _rank_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_named_mesh(axes, backend: str | None = None,
+                    device: str | torch.device | None = None) -> Mesh:
+    """A mesh over the process group's ranks with the named ``axes``
+    (``[(name, size), ...]``, outermost first; their product must be
+    the world size). ``backend`` and ``device`` as in :func:`make_mesh`;
+    with no process group yet a world of one is formed here."""
+    axes = [(str(a), int(n)) for a, n in axes]
+    names = tuple(a for a, _ in axes)
+    shape = tuple(n for _, n in axes)
+    if len(set(names)) != len(names) or any(n < 1 for n in shape):
+        raise ValueError(f"mesh axes {axes}: names must differ and sizes "
+                         f"be >= 1")
+    dev = _rank_device(device)
+    n = int(np.prod(shape))
+    if not dist.is_initialized() and n != 1:
+        raise RuntimeError(
+            f"a mesh of {n} ranks needs a process group — join the world "
+            f"first (RoleMaker.init_distributed, one process per card "
+            f"through distributed.launch)")
+    be = _join(backend, dev)
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"mesh {dict(axes)} has {n} ranks in a world of "
+                         f"{world}: one rank per device")
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh("cuda" if be == "nccl" else "cpu", shape,
+                          mesh_dim_names=names)
+    return Mesh(shape, names, dev, be, dm)
+
+
 def make_mesh(num_devices: int | None = None, num_nodes: int = 1,
               backend: str | None = None,
               device: str | torch.device | None = None) -> Mesh:
@@ -256,27 +353,14 @@ def make_mesh(num_devices: int | None = None, num_nodes: int = 1,
     here. ``device``: this rank's device (the card unless ``"cpu"``);
     the card's index is the current CUDA device, which the launcher set
     from ``LOCAL_RANK`` before the group formed."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if not dist.is_initialized():
-        if num_devices not in (None, 1):
-            raise RuntimeError(
-                f"make_mesh({num_devices}): no process group — join the "
-                f"world first (RoleMaker.init_distributed, one process per "
-                f"card through distributed.launch)")
-        be = backend or ("nccl" if dev.type == "cuda" else "gloo")
-        if be not in BACKENDS:
-            raise ValueError(f"backend={be!r} (want one of {BACKENDS})")
-        dist.init_process_group(be, init_method=f"tcp://127.0.0.1:"
-                                f"{free_port()}", world_size=1, rank=0)
+    dev = _rank_device(device)
+    if not dist.is_initialized() and num_devices not in (None, 1):
+        raise RuntimeError(
+            f"make_mesh({num_devices}): no process group — join the "
+            f"world first (RoleMaker.init_distributed, one process per "
+            f"card through distributed.launch)")
+    _join(backend, dev)
     world = dist.get_world_size()
-    be = dist.get_backend()
-    if backend is not None and backend != be:
-        raise ValueError(f"make_mesh(backend={backend!r}): the process "
-                         f"group runs {be!r}")
-    if be == "nccl" and dev.type != "cuda":
-        raise ValueError("an nccl group needs device='cuda'")
     n = world if num_devices is None else int(num_devices)
     if n != world:
         raise ValueError(f"make_mesh({n}) in a world of {world} ranks: one "
@@ -285,14 +369,10 @@ def make_mesh(num_devices: int | None = None, num_nodes: int = 1,
         if n % num_nodes:
             raise ValueError(f"{n} devices not divisible by {num_nodes} "
                              f"nodes")
-        shape: tuple[int, ...] = (num_nodes, n // num_nodes)
-        names: tuple[str, ...] = (NODE_AXIS, DP_AXIS)
+        axes = [(NODE_AXIS, num_nodes), (DP_AXIS, n // num_nodes)]
     else:
-        shape, names = (n,), (DP_AXIS,)
-    from torch.distributed.device_mesh import init_device_mesh
-    dm = init_device_mesh("cuda" if be == "nccl" else "cpu", shape,
-                          mesh_dim_names=names)
-    return Mesh(shape, names, dev, be, dm)
+        axes = [(DP_AXIS, n)]
+    return make_named_mesh(axes, device=dev)
 
 
 def shard_axes(mesh: Mesh) -> tuple[str, ...]:

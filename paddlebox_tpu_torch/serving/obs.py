@@ -70,6 +70,21 @@ class LatencyWindow:
                 "p99_ms": float(np.percentile(lats, 99)),
                 "max_ms": float(lats.max())}
 
+    def hedge_threshold_ms(self, factor: float, *, min_count: int = 20,
+                           floor_ms: float = 1.0,
+                           now: float | None = None) -> float | None:
+        """The router's hedging trigger (``serving/router.py``):
+        ``factor`` x the windowed p99, or None while the window holds
+        fewer than ``min_count`` samples (a threshold from a handful of
+        samples would hedge on noise). ``floor_ms`` keeps a very fast
+        window from hedging every request."""
+        if factor <= 0.0:
+            return None
+        snap = self.snapshot(now)
+        if snap["count"] < int(min_count):
+            return None
+        return max(float(floor_ms), float(factor) * float(snap["p99_ms"]))
+
 
 class VersionStats:
     """One served version's window: latency, scores, pending labels."""

@@ -32,6 +32,9 @@ per-version ``ReplicaCache`` that no request reads; the port has the
 class (``embedding/replica_cache.py``) and builds none. Scoring runs on
 the card unless
 ``device="cpu"``: every Predictor the server builds gets its device.
+``staging_cache=`` (a ``serving/fleet.SharedStagingCache``) makes the
+server a fleet replica: each version comes from the host's one verified
+copy.
 
 ``/healthz`` serves ``health()`` as JSON (503 before the first load);
 ``/metrics`` serves the telemetry hub's Prometheus text, as the
@@ -144,12 +147,16 @@ class ServingServer:
                  fetch_attempts: int = 3, fetch_backoff_s: float = 0.25,
                  stale_pass_lag: int = 2, stale_after_s: float = 600.0,
                  health_port: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 staging_cache=None):
         self.device = resolve_device(device)
         self._remote = fs_lib.is_remote(root)
         self._fs, resolved = fs_lib.resolve(root)   # file:// → local path
         self.root = root.rstrip("/") if self._remote else resolved
         self._fleet = FleetUtil(self.root)   # torn-line-safe discovery
+        # fleet mode (serving/fleet.py): the replicas of one host share
+        # one download and verify per version through this cache
+        self._staging_cache = staging_cache
         self._staging = staging_dir
         self.fetch_attempts = max(1, int(fetch_attempts))
         self.fetch_backoff_s = float(fetch_backoff_s)
@@ -338,7 +345,13 @@ class ServingServer:
         remove once it is built (None when read in place). A remote
         artifact gets ``fetch_attempts`` tries with exponential backoff;
         the partial download is removed before each retry and on
-        exhaustion, which raises."""
+        exhaustion, which raises. With a ``staging_cache`` (a fleet
+        replica) the copy comes from the host's shared cache, verified
+        once under its lease: it is read with ``verify=False`` and stays
+        after the build, for the other replicas."""
+        if self._staging_cache is not None:
+            local = self._staging_cache.materialize(path)
+            return art.read_artifact(local, verify=False), None
         if not self._remote:
             if not os.path.isdir(path):
                 raise FileNotFoundError(

@@ -121,6 +121,17 @@ POINTS: tuple[str, ...] = (
     # train/trainer.set_shard_ownership: the build partition is about to
     # rebind after an elastic resize.
     "elastic.ownership.rebind.pre",
+    # serving/fleet.SharedStagingCache.materialize: the lease holder's
+    # bytes are staged, verify and rename not yet run — dying here must
+    # leave the lease expirable and never a torn copy under the final
+    # name.
+    "serving.fleet.lease.pre_verify",
+    # serving/fleet.FleetReplicaServer._build: a replica is about to
+    # build a fetched version (the replica-killed-mid-swap window).
+    "serving.fleet.replica.pre_build",
+    # serving/router.Router: a request's primary dispatch is about to go
+    # to its chosen replica.
+    "serving.fleet.router.pre_dispatch",
 )
 
 # points that fire only inside an elastic re-formation (no plain
@@ -137,6 +148,16 @@ ADMIT_POINTS: tuple[str, ...] = (
     "elastic.admit.pre_register",
     "elastic.admit.post_ack",
     "elastic.ownership.rebind.pre",
+)
+
+
+# points that fire only inside the serving fleet (shared staging, replica
+# builds, router dispatch): covered by the fleet's own kill matrix
+# (tests/test_torch_fleet.py), all prefixed "serving.fleet."
+FLEET_POINTS: tuple[str, ...] = (
+    "serving.fleet.lease.pre_verify",
+    "serving.fleet.replica.pre_build",
+    "serving.fleet.router.pre_dispatch",
 )
 
 

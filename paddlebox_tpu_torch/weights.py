@@ -187,3 +187,50 @@ def load_table(ws: PassWorkingSet, table) -> None:
     """Copy a (n_rows, W) NumPy table into the working set's device
     table in place (shapes must match)."""
     _copy(ws.table, table, "table")
+
+
+# ---------------------------------------------------------------------------
+# the parallel modules' parameters (parallel/tensor.py, expert.py,
+# pipeline.py): the JAX package's trees carried across as NumPy arrays
+# ---------------------------------------------------------------------------
+
+def _to_torch(tree, device, path: str):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, f"{path}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, f"{path}/{i}")
+                for i, v in enumerate(tree)]
+    a = np.asarray(tree)
+    if a.dtype.kind != "f":
+        raise ValueError(f"{path}: dtype {a.dtype} is not floating")
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _keys(tree: dict, want: tuple, where: str) -> None:
+    if not isinstance(tree, dict) or set(tree) != set(want):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"{where}: keys {got}, want {sorted(want)}")
+
+
+def tp_mlp_params(params, device="cpu") -> list[dict]:
+    """JAX ``tensor.init_tp_mlp`` params (a list of ``{"w": (din, dout),
+    "b": (dout,)}``) → the port's (unsharded) list of tensors."""
+    for i, p in enumerate(params):
+        _keys(p, ("w", "b"), f"layer {i}")
+    return _to_torch(list(params), device, "mlp")
+
+
+def moe_params(params, device="cpu") -> dict:
+    """JAX ``expert.init_moe`` params (``gate``, stacked ``w1 b1 w2
+    b2``) → the port's (unsharded) dict of tensors."""
+    _keys(params, ("gate", "w1", "b1", "w2", "b2"), "moe")
+    return _to_torch(dict(params), device, "moe")
+
+
+def stage_params(stacked, device="cpu") -> dict:
+    """JAX ``pipeline.stack_stage_params`` of ``mlp_stage_fn`` stages
+    (``{"w": (S, L, D, D), "b": (S, L, D)}``) → the port's stacked
+    tensors."""
+    _keys(stacked, ("w", "b"), "stages")
+    return _to_torch(dict(stacked), device, "stages")

@@ -7,8 +7,9 @@ serves there,
 it parses through its native parser and runs a MultiSlotDataGenerator
 pipe command (itself blocked the same way) there, the serving CLI
 starts there, it names none of them in any import, and its entry points
-(Trainer, PassWorkingSet, Predictor, ServingServer, PhasedTrainer)
-refuse to run on the CPU unless asked."""
+(Trainer, PassWorkingSet, Predictor, ServingServer, PhasedTrainer, the
+serving fleet's replicas, the exported program, the parallel modules'
+meshes and initializers) refuse to run on the CPU unless asked."""
 
 import ast
 import os
@@ -67,7 +68,15 @@ for name in ("paddlebox_tpu_torch.serving.server",
              "paddlebox_tpu_torch.distributed.resilience",
              "paddlebox_tpu_torch.distributed.ps",
              "paddlebox_tpu_torch.data.shuffle",
-             "paddlebox_tpu_torch.monitor.trace"):
+             "paddlebox_tpu_torch.monitor.trace",
+             "paddlebox_tpu_torch.serving.router",
+             "paddlebox_tpu_torch.serving.fleet",
+             "paddlebox_tpu_torch.inference.stablehlo",
+             "paddlebox_tpu_torch.parallel.collective_ops",
+             "paddlebox_tpu_torch.parallel.tensor",
+             "paddlebox_tpu_torch.parallel.expert",
+             "paddlebox_tpu_torch.parallel.sequence",
+             "paddlebox_tpu_torch.parallel.pipeline"):
     assert name in walked, (name, walked)
 # the multi-rank tests' rank program and its helpers: a spawned rank
 # imports no JAX
@@ -75,7 +84,8 @@ tests_dir = os.path.join(os.path.dirname(paddlebox_tpu_torch.__path__[0]),
                          "tests")
 sys.path.insert(0, tests_dir)
 for name in ("torch_multirank_common", "torch_multirank_spawn",
-             "torch_multirank_worker", "torch_resilience_worker"):
+             "torch_multirank_worker", "torch_resilience_worker",
+             "torch_parallel_worker"):
     importlib.import_module(name)
 from paddlebox_tpu_torch.models import MODEL_REGISTRY
 assert len(MODEL_REGISTRY) == 7, sorted(MODEL_REGISTRY)
@@ -257,3 +267,37 @@ def test_serving_entry_points_refuse_without_a_card(tmp_path):
                          device="cpu").device.type == "cpu"
     pt = PhasedTrainer(model, upd, store, schema, device="cpu")
     assert pt.join.device.type == pt.update.device.type == "cpu"
+
+
+def test_fleet_export_and_parallel_entry_points_refuse_without_a_card(
+        tmp_path):
+    """The fleet's replicas, the exported program and the parallel
+    modules' meshes and initializers run on the card unless asked for
+    the CPU: without a card and without that request they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    from paddlebox_tpu_torch.inference.stablehlo import load_stablehlo
+    from paddlebox_tpu_torch.parallel import expert, pipeline, tensor
+    from paddlebox_tpu_torch.serving.fleet import (FleetReplicaServer,
+                                                   ReplicaFleet,
+                                                   SubprocessReplica)
+    root = str(tmp_path / "serve")
+    for make in (lambda: ReplicaFleet(root, workdir=str(tmp_path / "fw")),
+                 lambda: SubprocessReplica(0, root, staging_root=root,
+                                           workdir=str(tmp_path / "w")),
+                 lambda: FleetReplicaServer(root),
+                 lambda: load_stablehlo(str(tmp_path / "prog")),
+                 lambda: tensor.make_tp_mesh(1),
+                 lambda: expert.make_ep_mesh(1),
+                 lambda: pipeline.make_pp_mesh(1),
+                 lambda: tensor.init_tp_mlp(0, (4, 8)),
+                 lambda: expert.init_moe(0, 2, 4, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # each builds when asked for the CPU (the fleet spawns nothing yet)
+    fleet = ReplicaFleet(root, workdir=str(tmp_path / "fw"), device="cpu")
+    assert fleet.device == "cpu"
+    assert all(r.device == "cpu" for r in fleet.replicas)
+    assert FleetReplicaServer(root, device="cpu").device.type == "cpu"
+    assert tensor.init_tp_mlp(0, (4, 8), device="cpu")[0]["w"].shape == (4,
+                                                                           8)

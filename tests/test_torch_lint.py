@@ -53,5 +53,8 @@ def test_port_is_lint_clean():
     # cleanup and the checkpoint mirror's own snapshots.donefile writes
     # (the reference's waivers at the same sites) joined the 7 before,
     # then the rendezvous FileStore's two (distributed/store.py, copied
-    # with the reference's waivers at the same sites)
-    assert len(rules) == 15, out["waived"]
+    # with the reference's waivers at the same sites), then the serving
+    # fleet's three (serving/fleet.py: a retaken lease's release, the
+    # first spawn's missing port file, a replica's health before its
+    # HTTP bind — the reference's waivers at the same sites)
+    assert len(rules) == 18, out["waived"]
