@@ -1,0 +1,12 @@
+"""The pull's share of its roofline, in %: the least time for its bytes
+(``counts/sectors.py``'s ``pull_bytes`` over the card's memory rate)
+over the pull alone on one batch of the last pass, as device time
+(``utils.step_probe.attribute_step``'s isolated ``lookup``)."""
+
+
+def read(ctx: dict):
+    rate, t = ctx.get("hbm_bytes_per_s"), ctx.get("isolated", {}).get(
+        "lookup")
+    if not rate or not t or t <= 0:
+        return None
+    return ctx["pull_bytes"] / rate / t * 100.0
