@@ -39,6 +39,14 @@
   as store-fetched rows do. Every write-back site tells the replica
   which keys it pushed (``note_written``).
 
+- **Timers** (``timers=``, a ``monitor.StageTimers``; the trainer passes
+  its own, a standalone manager makes one): ``feed_begin`` is all of
+  ``begin_pass`` (``last_boundary_seconds`` is read from that scope),
+  ``feed_wait`` each join on the feed thread that ``begin_pass`` and
+  ``begin_feed_pass`` make, and ``writeback`` the retiring rows' D2H
+  and store write. They emit no hub event; under a torch.profiler
+  session each opens the range ``pbt/<stage>``.
+
 The reference's combine and patch are XLA programs, not Pallas kernels;
 here they are plain torch (``index_select`` and indexed assignment).
 The working set keeps the port's row rule, ``max(min_rows, K + 1)``
@@ -93,11 +101,14 @@ from paddlebox_tpu_torch.monitor import context as mon_ctx
 from paddlebox_tpu_torch.monitor import counter_add as stat_add
 from paddlebox_tpu_torch.monitor import event as mon_event
 from paddlebox_tpu_torch.monitor import gauge_set as stat_set
+from paddlebox_tpu_torch.monitor.timers import StageTimers
 from paddlebox_tpu_torch.native.key_index import sorted_unique
 from paddlebox_tpu_torch.utils import faultpoint
 
 _EMPTY_KEYS = np.zeros(0, dtype=np.uint64)
 _SPLIT_KEYS = ("build", "h2d", "spill_fault_in")
+# the manager's timer stages (module doc)
+FEED_STAGES = ("feed_begin", "feed_wait", "writeback")
 
 
 def _planes(table) -> list[torch.Tensor]:
@@ -128,8 +139,11 @@ class FeedPassManager:
 
     def __init__(self, store: HostEmbeddingStore,
                  device: str | torch.device | None = None,
-                 min_rows: int = 8, mesh=None, ownership=None):
+                 min_rows: int = 8, mesh=None, ownership=None,
+                 timers: StageTimers | None = None):
         self.store = store
+        self.timers = (timers if timers is not None
+                       else StageTimers(list(FEED_STAGES), emit_stages=set()))
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
@@ -282,7 +296,8 @@ class FeedPassManager:
         N trains. Safe beside training: it reads only the current pass's
         key index (lookups, no inserts) and the host store (under the
         store lock), and copies the fresh rows on the manager's stream."""
-        self.wait_feed_pass_done()        # one feed in flight at a time
+        with self.timers("feed_wait"):
+            self.wait_feed_pass_done()    # one feed in flight at a time
         keys = sorted_unique(np.asarray(keys).astype(np.uint64))
         keys, layout = self._layout(keys)
         n_rows = None if layout is None else layout.rows_per_shard
@@ -421,14 +436,24 @@ class FeedPassManager:
         Consumes a matching staged feed if one exists; otherwise does the
         same work synchronously. test_mode passes (eval) reuse resident
         rows but never insert into the store, never retire or consume the
-        retained table, and are not retained themselves."""
-        t0 = time.perf_counter()
+        retained table, and are not retained themselves. Its wall time,
+        the queued copies and combine waited for, is
+        ``last_boundary_seconds``."""
+        with self.timers("feed_begin") as scope:
+            ws = self._begin_pass(keys, test_mode)
+        self.last_boundary_seconds = scope.seconds
+        stat_set("feed_pass.boundary_seconds", round(scope.seconds, 6))
+        return ws
+
+    def _begin_pass(self, keys: np.ndarray,
+                    test_mode: bool) -> PassWorkingSet:
         keys = sorted_unique(np.asarray(keys).astype(np.uint64))
         keys, layout = self._layout(keys)
         n_rows = None if layout is None else layout.rows_per_shard
         # join + resolve once: mutations happen only on this thread, so
         # the stale set cannot change between here and the consume below
-        self.wait_feed_pass_done()
+        with self.timers("feed_wait"):
+            self.wait_feed_pass_done()
         prev, stale = self._resolve_reuse()
         staged = self._take_staging(keys, test_mode, prev, n_rows)
         if prev is None and self._current is not None:
@@ -450,7 +475,7 @@ class FeedPassManager:
             n_patch, patch_bytes = self._apply_patch(
                 ws, staged.patch_keys, None)
             self._account_begin(staged.h2d_bytes + patch_bytes, 0,
-                                staged.n_fresh, 0, t0, split=staged.timings,
+                                staged.n_fresh, 0, split=staged.timings,
                                 patched=n_patch)
             self.last_replica_hits = 0
             if not self._eager:
@@ -464,7 +489,7 @@ class FeedPassManager:
                 test_mode=test_mode, timing_out=timing, n_rows=n_rows)
             timing["spill_fault_in"] = (tiering.fault_in_seconds(self.store)
                                         - fault0)
-            self._account_begin(ws.h2d_bytes, 0, len(ws.sorted_keys), 0, t0,
+            self._account_begin(ws.h2d_bytes, 0, len(ws.sorted_keys), 0,
                                 split=timing)
             self.last_replica_hits = 0
             if not test_mode and not self._eager:
@@ -476,12 +501,13 @@ class FeedPassManager:
                                  n_rows=n_rows)
         d2h = 0
         if not test_mode:
-            d2h = self._writeback_retiring(prev, keys)
+            with self.timers("writeback"):
+                d2h = self._writeback_retiring(prev, keys)
         ws, carried = self._combine(staged, test_mode)
         n_patch, patch_bytes = self._apply_patch(ws, staged.patch_keys,
                                                  carried)
         self._account_begin(staged.h2d_bytes + patch_bytes, d2h,
-                            staged.n_fresh, len(keys) - staged.n_fresh, t0,
+                            staged.n_fresh, len(keys) - staged.n_fresh,
                             split=staged.timings,
                             patched=n_patch, stale=int(staged.n_stale or 0))
         self.last_replica_hits = int(staged.replica_hits or 0)
@@ -761,14 +787,13 @@ class FeedPassManager:
                           else np.zeros_like(ws.touched))
 
     def _account_begin(self, h2d: int, d2h: int, fresh: int, reused: int,
-                       t0: float, split: dict | None = None, patched: int = 0,
+                       split: dict | None = None, patched: int = 0,
                        stale: int = 0) -> None:
         if self.device.type == "cuda":
             # the copies and the combine are queued, not done: wait for
             # them, or the boundary reads near zero and its cost lands in
             # the first steps
             torch.cuda.synchronize(self.device)
-        self.last_boundary_seconds = time.perf_counter() - t0
         self.last_h2d_bytes = h2d
         self.last_d2h_bytes = d2h
         self.last_fresh_rows = fresh
@@ -790,8 +815,6 @@ class FeedPassManager:
         stat_set("feed_pass.last_reused_rows", reused)
         stat_set("feed_pass.last_patched_rows", patched)
         stat_set("feed_pass.last_stale_rows", stale)
-        stat_set("feed_pass.boundary_seconds",
-                 round(self.last_boundary_seconds, 6))
         stat_set("feed_pass.boundary_build_s",
                  round(self.last_boundary_split["build"], 6))
         stat_set("feed_pass.boundary_h2d_s",

@@ -14,7 +14,7 @@ are the JAX package's formats, so either package's readers read the
 other's.
 
 This package imports nothing from ``paddlebox_tpu_torch.utils`` at import
-time: ``utils.profiler`` and ``utils.timer`` import it.
+time: ``utils.profiler`` imports it.
 """
 
 from paddlebox_tpu_torch.monitor import context  # noqa: F401

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import re
+import sys
 import threading
 import time
 
@@ -72,22 +73,61 @@ def _tracer():
     return _trace
 
 
+# the ranges a scope opens in a running torch.profiler session:
+# ``pbt/<stage or span name>``
+RANGE_PREFIX = "pbt/"
+
+
+class _UntilTorchLoads:
+    """Stands in for ``torch.autograd.profiler`` while torch is not
+    loaded (no profiler can run then), so the monitor imports without
+    torch; the first read after torch loads puts the module in its place,
+    and from then on the gate is one attribute read of a module global
+    that every thread sees."""
+
+    def __getattr__(self, name):
+        global _torch_profiler
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return False
+        _torch_profiler = mod
+        return getattr(mod, name)
+
+
+_torch_profiler = _UntilTorchLoads()
+
+
+def open_range(name: str):
+    """Open the profiler range ``pbt/<name>`` (on the profiler's clock) and
+    return it for the caller to close; called only while
+    ``_torch_profiler._is_profiler_enabled``."""
+    rf = _torch_profiler.record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
     """Timed scope: chrome-trace span (when the profiler is on) + hub span
-    event (when the hub is on). Disabled cost: two module-global checks
-    (a third — ``trace._ACTIVE`` — only on the already-enabled path).
-    Inside a traced pass the scope also pushes a span id onto the trace
-    stack, so the committed record carries its own ``span_id`` and
-    ``parent_span_id`` (the world trace's parent links)."""
+    event (when the hub is on) + the torch.profiler range ``pbt/<name>``
+    (while a profiler session runs; ``range_name`` renames it). Disabled
+    cost: three module-global checks (a fourth — ``trace._ACTIVE`` —
+    only on the already-enabled path). Inside a traced pass the scope
+    also pushes a span id onto the trace stack, so the committed record
+    carries its own ``span_id`` and ``parent_span_id`` (the world trace's
+    parent links)."""
 
-    __slots__ = ("_hub", "_name", "_fields", "_t0", "_trace")
+    __slots__ = ("_hub", "_name", "_fields", "_t0", "_trace", "_range",
+                 "_range_name")
 
-    def __init__(self, hub, name, fields):
+    def __init__(self, hub, name, fields, range_name=None):
         self._hub = hub
         self._name = name
         self._fields = fields
+        self._range_name = name if range_name is None else range_name
 
     def __enter__(self):
+        self._range = (open_range(self._range_name)
+                       if _torch_profiler._is_profiler_enabled else None)
         if self._hub._enabled or _profiler()._enabled:
             self._t0 = time.perf_counter()
             tr = _tracer()
@@ -99,6 +139,8 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         t0 = self._t0
         if t0 is None:
             return False
@@ -119,7 +161,8 @@ class _Span:
 
     def __call__(self, fn):
         def wrapped(*a, **kw):
-            with _Span(self._hub, self._name, self._fields):
+            with _Span(self._hub, self._name, self._fields,
+                       self._range_name):
                 return fn(*a, **kw)
         wrapped.__name__ = getattr(fn, "__name__", self._name)
         return wrapped

@@ -60,15 +60,25 @@ both.
 
 Telemetry (``monitor``): ``train_pass`` runs inside the hub's pass
 scope — BoxPS's, or its own (``open_pass_auto``) — and contributes the
-stage split of ``self.timers`` (read, translate, train, auc, drain), the
-steps, examples and seconds, and the boundary account to the pass's
-flight record (``hub.record_train``). Each step emits the
-``pack_batch``, ``h2d_stage``, ``train_step`` and ``auc_update`` spans;
-the pack thread, spawned through ``monitor.context``, counts
-``trainer.tokens`` / ``pull_bytes`` / ``push_bytes`` (and the dedup
-plan's ``trainer.plan_tokens`` / ``plan_unique_tokens``) from the host
-arrays it already holds. No counter, span or timer reads a CUDA tensor:
-with the hub on, a step still makes no host sync.
+stage split of ``self.timers`` (read, translate, train, auc, drain:
+``FLIGHT_STAGES``), the steps, examples and seconds, and the boundary
+account to the pass's flight record (``hub.record_train``). Each step
+emits the ``pack_batch``, ``h2d_stage``, ``train_step`` and
+``auc_update`` spans; the pack thread, spawned through
+``monitor.context``, counts ``trainer.tokens`` / ``pull_bytes`` /
+``push_bytes`` (and the dedup plan's ``trainer.plan_tokens`` /
+``plan_unique_tokens``) from the host arrays it already holds. No
+counter, span or timer reads a CUDA tensor: with the hub on, a step
+still makes no host sync. ``self.timers`` also times, with no hub
+event, the main thread's work between those spans: the pass's key set
+(``pass_keys``), the boundary (``feed_begin``, ``feed_wait``,
+``writeback``: the feed manager's scopes), ``preload``, ``pass_close``,
+the pass's AUC (``auc_compute``), and the step's phases as
+``utils.step_probe`` names them (``lookup``, ``dense_fwd_bwd``,
+``sparse_push``, ``dense_update``: host dispatch time). While a
+torch.profiler session runs every scope and span opens the range
+``pbt/<name>``, so a device trace names what the host did in each of
+the device's idle gaps.
 
 Mid-pass snapshots (``enable_midpass_snapshots``): every
 ``every_steps`` trained steps of a pass the loop commits a
@@ -176,7 +186,8 @@ from paddlebox_tpu_torch.data.schema import DataFeedSchema
 from paddlebox_tpu_torch.data.slot_record import PackedBatch, SparseLayout
 from paddlebox_tpu_torch.device import resolve_device
 from paddlebox_tpu_torch.embedding import exchange, quant, sharded, tiering
-from paddlebox_tpu_torch.embedding.feed_pass import FeedPassManager
+from paddlebox_tpu_torch.embedding.feed_pass import (FEED_STAGES,
+                                                     FeedPassManager)
 from paddlebox_tpu_torch.embedding.replica_cache import TrainerReplicaCache
 from paddlebox_tpu_torch.embedding.store import HostEmbeddingStore
 from paddlebox_tpu_torch.embedding.working_set import (PassWorkingSet,
@@ -194,6 +205,13 @@ from paddlebox_tpu_torch.utils import faultpoint
 from paddlebox_tpu_torch.utils.checkpoint import flatten_tree
 from paddlebox_tpu_torch.utils.profiler import (DumpStream, dump_tree,
                                                 find_nonfinite)
+
+# the stages of the flight record's stage split, and no others:
+# monitor.critical_path attributes the pass wall over exactly these
+FLIGHT_STAGES = ("read", "translate", "train", "auc", "drain")
+# train_step's phases, as utils.step_probe names them (dense_update has
+# no ablation of its own there)
+STEP_PHASES = ("lookup", "dense_fwd_bwd", "sparse_push", "dense_update")
 
 
 @dataclasses.dataclass
@@ -334,12 +352,13 @@ class Trainer:
                                     dtype=torch.int64, device=self.device)
         self.global_step = 0
         self.last_ws: PassWorkingSet | None = None
-        # "train"/"auc" scopes are covered by the train_step/auc_update
-        # spans: only the stages without one emit hub events themselves
-        self.timers = StageTimers(["read", "translate", "train", "auc",
-                                   "drain"],
-                                  emit_stages={"read", "translate",
-                                               "drain"})
+        # "train"/"auc" scopes are the train_step/auc_update spans; of
+        # the rest only the flight record's stages emit hub events
+        self.timers = StageTimers(
+            [*FLIGHT_STAGES, "pass_keys", *FEED_STAGES, "preload",
+             "pass_close", "auc_compute", *STEP_PHASES],
+            emit_stages={"read", "translate", "drain"},
+            spans={"train": "train_step", "auc": "auc_update"})
         # the mid-pass snapshot hook (enable_midpass_snapshots):
         # (checkpointer, every_steps, box, metrics). midpass_cursor_extra
         # carries caller-supplied cursor fields — the shuffle state taken
@@ -378,7 +397,8 @@ class Trainer:
         # across passes, write-back lazy. Pass a shared manager when
         # several trainers drive one table.
         self.feed_mgr = feed_mgr or FeedPassManager(store, self.device,
-                                                    mesh=mesh)
+                                                    mesh=mesh,
+                                                    timers=self.timers)
         self.feed_mgr.register_pre_flush(self.flush_push)
         # the host table's storage tier: "spill" or None (in RAM)
         self.table_tiering = tiering.describe(store)
@@ -918,64 +938,72 @@ class Trainer:
         if ablate and defer:
             raise ValueError("ablate instruments the inline step: "
                              "defer must be off")
+        timers = self.timers
         if mode == "async":
             self._pull_async_params()
-        if "lookup" in ablate:
-            shape = ((B, S, ecfg.pull_width) if fused
-                     else (B, T, ecfg.pull_width))
-            pulled = torch.zeros(shape, dtype=torch.float32,
-                                 device=idx.device)
-            model_in = PooledSlots(pulled) if fused else pulled
-            dropped = None
-            if "fwdbwd" not in ablate:
-                pulled.requires_grad_()
-        else:
-            pulled, model_in, dropped = self._pull(
-                table, idx, requires_grad="fwdbwd" not in ablate,
-                plan=plan)
-        if "fwdbwd" in ablate:
-            loss = pulled.detach().sum() * 1e-8
-            preds = torch.zeros(B, dtype=torch.float32, device=idx.device)
-            gp = [torch.zeros_like(p) for p in self.params]
-            sgrad = torch.zeros((B * T, ecfg.grad_width),
-                                dtype=torch.float32, device=idx.device)
-        else:
-            logits = self.model(model_in, mask, dense, lay.segment_ids, S,
-                                *extras)
-            loss = F.binary_cross_entropy_with_logits(logits, labels)
-            preds = torch.sigmoid(logits.detach())
-            # a parameter the loss does not reach (MMoE's other task
-            # heads) gets a zero gradient, as jax.grad gives it
-            *gp, gpulled = torch.autograd.grad(
-                loss, [*self.params, pulled], allow_unused=True)
-            gp = [torch.zeros_like(p) if g is None else g
-                  for p, g in zip(self.params, gp)]
-            # only the (w, embedx) columns train; show/clk are counters
-            if fused:
-                sgrad = sharded.pooled_grad_tokens(gpulled, mask,
-                                                   self._seg, S)
+        with timers("lookup"):
+            if "lookup" in ablate:
+                shape = ((B, S, ecfg.pull_width) if fused
+                         else (B, T, ecfg.pull_width))
+                pulled = torch.zeros(shape, dtype=torch.float32,
+                                     device=idx.device)
+                model_in = PooledSlots(pulled) if fused else pulled
+                dropped = None
+                if "fwdbwd" not in ablate:
+                    pulled.requires_grad_()
             else:
-                sgrad = gpulled[..., 2:].reshape(B * T, ecfg.grad_width)
-            if (self.n_shards > 1
-                    and self.cfg.scale_sparse_grad_by_global_mean):
-                sgrad = sgrad / self.n_shards
-        maskf = mask.to(torch.float32)
-        show_inc = maskf.reshape(-1)
-        clk_inc = (maskf * labels[:, None]).reshape(-1)
-        if defer:
-            ops = sharded.deferred_push_operands(idx.reshape(-1), sgrad,
-                                                 show_inc, clk_inc, plan)
-            self._push_stager.put((idx, mask, labels, plan, ops))
-        elif "push" not in ablate:
-            self._push(table, idx.reshape(-1), sgrad, show_inc, clk_inc,
-                       plan=plan)
-        if mode == "kstep":
-            self.dense_opt.step(gp)          # local copy; param_sync later
-        elif mode == "async":
-            flat = dense_sync.flat_tensor(self._mean_dense_grads(gp))
-            self.dense_table.push(flat.detach().cpu().numpy())
-        else:
-            self.dense_opt.step(self._mean_dense_grads(gp))
+                pulled, model_in, dropped = self._pull(
+                    table, idx, requires_grad="fwdbwd" not in ablate,
+                    plan=plan)
+        with timers("dense_fwd_bwd"):
+            if "fwdbwd" in ablate:
+                loss = pulled.detach().sum() * 1e-8
+                preds = torch.zeros(B, dtype=torch.float32,
+                                    device=idx.device)
+                gp = [torch.zeros_like(p) for p in self.params]
+                sgrad = torch.zeros((B * T, ecfg.grad_width),
+                                    dtype=torch.float32, device=idx.device)
+            else:
+                logits = self.model(model_in, mask, dense, lay.segment_ids,
+                                    S, *extras)
+                loss = F.binary_cross_entropy_with_logits(logits, labels)
+                preds = torch.sigmoid(logits.detach())
+                # a parameter the loss does not reach (MMoE's other task
+                # heads) gets a zero gradient, as jax.grad gives it
+                *gp, gpulled = torch.autograd.grad(
+                    loss, [*self.params, pulled], allow_unused=True)
+                gp = [torch.zeros_like(p) if g is None else g
+                      for p, g in zip(self.params, gp)]
+                # only the (w, embedx) columns train; show/clk are
+                # counters
+                if fused:
+                    sgrad = sharded.pooled_grad_tokens(gpulled, mask,
+                                                       self._seg, S)
+                else:
+                    sgrad = gpulled[..., 2:].reshape(B * T,
+                                                     ecfg.grad_width)
+                if (self.n_shards > 1
+                        and self.cfg.scale_sparse_grad_by_global_mean):
+                    sgrad = sgrad / self.n_shards
+        with timers("sparse_push"):
+            maskf = mask.to(torch.float32)
+            show_inc = maskf.reshape(-1)
+            clk_inc = (maskf * labels[:, None]).reshape(-1)
+            if defer:
+                ops = sharded.deferred_push_operands(
+                    idx.reshape(-1), sgrad, show_inc, clk_inc, plan)
+                self._push_stager.put((idx, mask, labels, plan, ops))
+            elif "push" not in ablate:
+                self._push(table, idx.reshape(-1), sgrad, show_inc,
+                           clk_inc, plan=plan)
+        with timers("dense_update"):
+            if mode == "kstep":
+                self.dense_opt.step(gp)      # local copy; param_sync later
+            elif mode == "async":
+                flat = dense_sync.flat_tensor(self._mean_dense_grads(gp))
+                self.dense_table.push(flat.detach().cpu().numpy())
+            else:
+                self.dense_opt.step(self._mean_dense_grads(gp))
         self._note_dropped(dropped)
         return loss.detach(), preds
 
@@ -1057,8 +1085,8 @@ class Trainer:
             raise
         fm = self.feed_mgr
         hub.record_train(
-            stage_seconds={k: self.timers.total.get(k, 0.0)
-                           - stage0.get(k, 0.0) for k in self.timers.total},
+            stage_seconds={k: self.timers.total[k] - stage0[k]
+                           for k in FLIGHT_STAGES},
             steps=out["steps"],
             examples=out["steps"] * self.cfg.global_batch_size,
             seconds=time.perf_counter() - pass_t0,
@@ -1180,7 +1208,9 @@ class Trainer:
                 f"{self._midpass[1]} is not a multiple of {k}")
         t0 = time.perf_counter()
         fm = self.feed_mgr
-        ws = fm.begin_pass(dataset.unique_keys())
+        with self.timers("pass_keys"):
+            keys = dataset.unique_keys()
+        ws = fm.begin_pass(keys)
         self.last_ws = ws
         self._overlap_ws = ws if self.push_overlap else None
         self.midpass_saves = []
@@ -1243,7 +1273,7 @@ class Trainer:
                             **exchange.flow_fields(self.store.cfg,
                                                    self.exchange_wire,
                                                    int(idx.numel())))
-                    with self.timers("train"), monitor.span("train_step"):
+                    with self.timers("train"):
                         if self.push_overlap:
                             # the previous step's apply first: the pull
                             # below reads the table it updates, in
@@ -1256,7 +1286,7 @@ class Trainer:
                         if (mode == "kstep"
                                 and pass_step % cfg.param_sync_step == 0):
                             self.param_sync()
-                    with self.timers("auc"), monitor.span("auc_update"):
+                    with self.timers("auc"):
                         auc.update(preds, labels)
                         if metrics is not None:
                             metrics.add_batch(preds, labels,
@@ -1284,37 +1314,39 @@ class Trainer:
             # for drain_and_snapshot after the exception lands
             self.last_pass_steps = pass_step
             self._pass_aborted = sys.exc_info()[0] is not None
-            if pack_it is not None:
-                # close the pack generator now, so its producer stops
-                # before anything reads or persists the table (the
-                # exception's traceback would keep it alive otherwise)
-                pack_it.close()
-            if self.push_overlap:
-                # the pass boundary: the last step's apply is still
-                # pending — land it before anything reads or persists
-                # the table, also when a batch raised
-                self._dispatch_pending_apply(ws.table)
-            if mode == "async":
-                # every pushed grad applied; the model holds the table's
-                # parameters
-                self.dense_table.flush()
-                self._pull_async_params()
-            elif mode == "kstep" and sys.exc_info()[0] is None:
-                self.param_sync()            # the end-of-pass sync
-            fm.pass_closed()
-            if dump_stream is not None:
-                # flush the tail batch even when the pass raised (a nan
-                # trip must keep its debug stream); a dump failure is
-                # reported but never masks the training exception
-                try:
-                    if dump_pending is not None:
-                        dump_stream.write_fields(*dump_pending)
-                    if cfg.dump_param:
-                        self._dump_params(dump_stream)
-                    dump_stream.close()
-                except Exception as e:
-                    warnings.warn(f"dump stream failed: {e}")
-        fm.end_pass(ws, ws.table)
+            with self.timers("pass_close"):
+                if pack_it is not None:
+                    # close the pack generator now, so its producer stops
+                    # before anything reads or persists the table (the
+                    # exception's traceback would keep it alive otherwise)
+                    pack_it.close()
+                if self.push_overlap:
+                    # the pass boundary: the last step's apply is still
+                    # pending — land it before anything reads or persists
+                    # the table, also when a batch raised
+                    self._dispatch_pending_apply(ws.table)
+                if mode == "async":
+                    # every pushed grad applied; the model holds the
+                    # table's parameters
+                    self.dense_table.flush()
+                    self._pull_async_params()
+                elif mode == "kstep" and not self._pass_aborted:
+                    self.param_sync()        # the end-of-pass sync
+                fm.pass_closed()
+                if dump_stream is not None:
+                    # flush the tail batch even when the pass raised (a
+                    # nan trip must keep its debug stream); a dump failure
+                    # is reported but never masks the training exception
+                    try:
+                        if dump_pending is not None:
+                            dump_stream.write_fields(*dump_pending)
+                        if cfg.dump_param:
+                            self._dump_params(dump_stream)
+                        dump_stream.close()
+                    except Exception as e:
+                        warnings.warn(f"dump stream failed: {e}")
+                if not self._pass_aborted:
+                    fm.end_pass(ws, ws.table)
         with self.timers("drain"):
             lv = (torch.stack(losses).cpu().numpy().astype(np.float64)
                   if losses else np.zeros(0))
@@ -1323,7 +1355,8 @@ class Trainer:
             lv = self.mesh.host_psum(lv) / self.n_shards
         # every launched apply has drained: release the retired slot
         self._push_stager.clear()
-        out = self._auc_out(auc)
+        with self.timers("auc_compute"):
+            out = self._auc_out(auc)
         out["loss_first"] = float(lv[0]) if len(lv) else float("nan")
         out["loss_last"] = float(lv[-1]) if len(lv) else float("nan")
         out["loss_mean"] = float(np.mean(lv)) if len(lv) else float("nan")
@@ -1415,7 +1448,8 @@ class Trainer:
         """BeginFeedPass: stage the next pass's working set (key diff,
         host fetch, H2D of fresh rows) on a background thread while the
         current pass trains."""
-        self.feed_mgr.begin_feed_pass(keys)
+        with self.timers("preload"):
+            self.feed_mgr.begin_feed_pass(keys)
 
     def wait_feed_pass_done(self) -> None:
         """Join the background feed pass (WaitFeedPassDone); its error,

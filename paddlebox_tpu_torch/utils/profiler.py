@@ -194,7 +194,10 @@ def start_device_trace(logdir: str, device=None) -> None:
     activity (CUPTI), the counterpart of the JAX package's
     ``jax.profiler.start_trace``. Runs on the card unless ``device="cpu"``
     (host activity only); :func:`stop_device_trace` writes the Chrome
-    trace to ``<logdir>/trace.json``."""
+    trace to ``<logdir>/trace.json``. Every thread's host work is traced
+    where the installed torch offers it (``profile_all_threads``), so the
+    pack and feed threads' ``pbt/*`` ranges land beside the main
+    thread's; elsewhere the calling thread's alone."""
     global _device_trace, _device_trace_path
     import torch
 
@@ -205,7 +208,13 @@ def start_device_trace(logdir: str, device=None) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    try:
+        prof = torch.profiler.profile(
+            activities=acts,
+            experimental_config=torch.profiler._ExperimentalConfig(
+                profile_all_threads=True))
+    except (AttributeError, TypeError):
+        prof = torch.profiler.profile(activities=acts)
     prof.__enter__()
     os.makedirs(logdir, exist_ok=True)
     _device_trace, _device_trace_path = prof, os.path.join(logdir,
