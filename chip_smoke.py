@@ -1582,7 +1582,7 @@ def boundary_trainer(torch, kernels, card: str) -> None:
                     nxt = (dss[p + 1].unique_keys()
                            if name == "preload" and p < 2 else None)
                     t0 = time.perf_counter()
-                    ds.unique_keys()     # timed alone: train_pass calls it
+                    ds.unique_keys(tr.device)  # train_pass's call, timed alone
                     uk_s = time.perf_counter() - t0
                     box.set_date(20261017)
                     box.begin_pass()
@@ -3166,8 +3166,8 @@ class StopAfter:
     def __init__(self, ds, n):
         self.ds, self.n = ds, n
 
-    def unique_keys(self):
-        return self.ds.unique_keys()
+    def unique_keys(self, device=None):
+        return self.ds.unique_keys(device)
 
     def batches(self, batch_size=None, drop_last=True):
         for i, pb in enumerate(self.ds.batches(batch_size, drop_last)):

@@ -310,9 +310,10 @@ class SlotDataset:
 
     # ---- hand-off to the trainers ----
 
-    def unique_keys(self) -> np.ndarray:
-        """The pass's feature-sign working set."""
-        return self._loaded().unique_keys()
+    def unique_keys(self, device=None) -> np.ndarray:
+        """The pass's feature-sign working set (sorted on ``device`` when
+        it is a CUDA card: ``SlotRecordBatch.unique_keys``)."""
+        return self._loaded().unique_keys(device)
 
     def prepare_train(self, num_shards: int) -> None:
         """Slice the records round-robin into per-device shards

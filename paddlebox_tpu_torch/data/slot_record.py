@@ -21,7 +21,74 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from paddlebox_tpu_torch.data.schema import DataFeedSchema, SlotType
+from paddlebox_tpu_torch.monitor import counter_add
 from paddlebox_tpu_torch.native.key_index import sorted_unique
+
+# ids a chunk of the card's key-set sort holds (128 MiB of int64). The
+# sort's transient card memory stays under 4x a chunk's bytes (the chunk,
+# its sorted copy, the sort's scratch, the unique keys) however large the
+# pass, plus 3x the distinct keys' bytes while a chunk merges into them
+CARD_CHUNK_IDS = 1 << 24
+
+
+def sorts_on_card(cols: Sequence[np.ndarray], device) -> bool:
+    """Whether the card computes the key set of ``cols``: ``device`` is a
+    CUDA ``torch.device``, every column has the one dtype int64 or
+    uint64, and there is at least one id. Otherwise (no device, a CPU
+    device, another dtype, a mix that np.concatenate would promote, no
+    ids) the host sorts."""
+    if getattr(device, "type", None) != "cuda":
+        return False
+    dtypes = {c.dtype for c in cols}
+    return (len(dtypes) == 1 and dtypes.pop() in (np.int64, np.uint64)
+            and any(len(c) for c in cols))
+
+
+def device_sorted_unique(cols: Sequence[np.ndarray], device) -> np.ndarray:
+    """``sorted_unique(np.concatenate(cols))`` for int64 or uint64 columns
+    of one dtype, computed on ``device`` (the CUDA card; any torch device
+    runs it, so the CPU tests it too): each column's int64 view copied to
+    one device buffer at its offset, sorted and made unique there
+    ``CARD_CHUNK_IDS`` ids at a time (a chunk's keys merged into the keys
+    before it), and the distinct keys copied back to host memory, pinned
+    on a card. uint64 ids sort as their int64 views, whose signed order
+    puts the ids at or above 2^63 first: that block goes last, which
+    gives ascending uint64 order."""
+    import torch
+    device = torch.device(device)
+    dtype = cols[0].dtype
+    chunk = CARD_CHUNK_IDS
+    sizes = [len(c) for c in cols]
+    total = sum(sizes)
+    buf = torch.empty(min(total, chunk), dtype=torch.int64, device=device)
+    keys = None
+    for a in range(0, total, chunk):
+        b = min(a + chunk, total)
+        o = 0
+        for c, n in zip(cols, sizes):
+            lo, hi = max(a, o), min(b, o + n)
+            if lo < hi:
+                part = c[lo - o:hi - o].view(np.int64)
+                buf[lo - a:hi - a].copy_(torch.from_numpy(part))
+            o += n
+        u = torch.unique(buf[:b - a])
+        if keys is not None:
+            # merge: only the joined keys live on while they sort
+            u, keys = torch.cat((keys, u)), None
+            u = torch.unique(u)
+        keys = u
+    n = len(keys)
+    neg = 0
+    if dtype == np.uint64:
+        zero = torch.zeros(1, dtype=torch.int64, device=device)
+        neg = int(torch.searchsorted(keys, zero))
+    card = device.type == "cuda"
+    out = torch.empty(n, dtype=torch.int64, pin_memory=card)
+    out[:n - neg].copy_(keys[neg:], non_blocking=card)
+    out[n - neg:].copy_(keys[:neg], non_blocking=card)
+    if card:
+        torch.cuda.current_stream(device).synchronize()
+    return out.numpy().view(dtype)
 
 
 @dataclasses.dataclass
@@ -123,9 +190,17 @@ class SlotRecordBatch:
     def shuffle(self, rng: np.random.Generator) -> "SlotRecordBatch":
         return self.select(rng.permutation(self.num))
 
-    def unique_keys(self) -> np.ndarray:
-        """All distinct feature signs in this batch — the FeedPass key
-        extraction (reference MergeInsKeys data_set.cc:1786)."""
+    def unique_keys(self, device=None) -> np.ndarray:
+        """All distinct feature signs in this batch, ascending, in the
+        columns' dtype — the FeedPass key extraction (reference
+        MergeInsKeys data_set.cc:1786). On a CUDA ``device`` the sort runs
+        on the card where ``sorts_on_card`` allows it, with the host path's
+        values, order and dtype (counter ``pass_keys.device``); else on
+        the host (``pass_keys.host``)."""
+        if sorts_on_card(self.sparse_values, device):
+            counter_add("pass_keys.device")
+            return device_sorted_unique(self.sparse_values, device)
+        counter_add("pass_keys.host")
         if not self.sparse_values:
             return np.zeros(0, dtype=np.int64)
         return sorted_unique(np.concatenate(self.sparse_values))

@@ -71,14 +71,14 @@ emits the ``pack_batch``, ``h2d_stage``, ``train_step`` and
 counter, span or timer reads a CUDA tensor: with the hub on, a step
 still makes no host sync. ``self.timers`` also times, with no hub
 event, the main thread's work between those spans: the pass's key set
-(``pass_keys``), the boundary (``feed_begin``, ``feed_wait``,
-``writeback``: the feed manager's scopes), ``preload``, ``pass_close``,
-the pass's AUC (``auc_compute``), and the step's phases as
-``utils.step_probe`` names them (``lookup``, ``dense_fwd_bwd``,
-``sparse_push``, ``dense_update``: host dispatch time). While a
-torch.profiler session runs every scope and span opens the range
-``pbt/<name>``, so a device trace names what the host did in each of
-the device's idle gaps.
+(``pass_keys``, sorted on the card for a CUDA trainer), the boundary
+(``feed_begin``, ``feed_wait``, ``writeback``: the feed manager's
+scopes), ``preload``, ``pass_close``, the pass's AUC
+(``auc_compute``), and the step's phases as ``utils.step_probe`` names
+them (``lookup``, ``dense_fwd_bwd``, ``sparse_push``, ``dense_update``:
+host dispatch time). While a torch.profiler session runs every scope
+and span opens the range ``pbt/<name>``, so a device trace names what
+the host did in each of the device's idle gaps.
 
 Mid-pass snapshots (``enable_midpass_snapshots``): every
 ``every_steps`` trained steps of a pass the loop commits a
@@ -1209,7 +1209,7 @@ class Trainer:
         t0 = time.perf_counter()
         fm = self.feed_mgr
         with self.timers("pass_keys"):
-            keys = dataset.unique_keys()
+            keys = dataset.unique_keys(device=self.device)
         ws = fm.begin_pass(keys)
         self.last_ws = ws
         self._overlap_ws = ws if self.push_overlap else None
@@ -1491,7 +1491,8 @@ class Trainer:
         cfg = self.cfg
         bs = cfg.global_batch_size
         t0 = time.perf_counter()
-        ws = self.feed_mgr.begin_pass(dataset.unique_keys(), test_mode=True)
+        ws = self.feed_mgr.begin_pass(dataset.unique_keys(device=self.device),
+                                      test_mode=True)
         self._preplan_capacity(dataset, ws, drop_last=False, for_eval=True)
         auc = AucAccumulator(cfg.auc_buckets, device=self.device)
         rows = torch.arange(bs // self.n_shards, device=self.device)

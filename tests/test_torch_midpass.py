@@ -189,8 +189,8 @@ class _RaisingDataset:
     def __init__(self, ds, n):
         self.ds, self.n = ds, n
 
-    def unique_keys(self):
-        return self.ds.unique_keys()
+    def unique_keys(self, device=None):
+        return self.ds.unique_keys(device)
 
     def batches(self, batch_size=None, drop_last=True):
         for i, pb in enumerate(self.ds.batches(batch_size,
