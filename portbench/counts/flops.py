@@ -1,17 +1,20 @@
 """Model FLOPs of one training example, forward and backward, and the
-card's published peaks.
+card's published peaks. Each family's count is in
+``families/<family>.py``, from ``_mlp`` and the rules below.
 
 A matrix product of an (m, k) by a (k, n) operand is 2 m k n FLOPs. The
 backward of a dense layer computes the weight gradient (as many FLOPs as
 the forward) and the input gradient (as many again), except where the
 input needs no gradient: the first layer of a network fed only by the
 dense floats. The counts cover the dense nets' products and the
-interaction; the elementwise work (activations, the loss, the FM sums)
-is below a thousandth of it and left out, so a share of the peak read
-from them is a lower bound.
+interaction; the elementwise work (activations, the loss, the FM sums,
+the sums that pool a multi-hot field's rows) is below a thousandth of it
+and left out, so a share of the peak read from them is a lower bound.
 """
 
 from __future__ import annotations
+
+from portbench import harness
 
 # published dense peaks, FLOP/s, by torch.cuda.get_device_name(); NVIDIA's
 # H100 SXM data sheet at its 700 W limit. "float32" is the rate outside
@@ -29,31 +32,8 @@ def _mlp(dims, first_needs_grad: bool) -> float:
     return 3.0 * fwd - (0.0 if first_needs_grad else first)
 
 
-def deepfm(cfg: dict) -> float:
-    """DeepFM: the deep net over [w, embedding] of every slot and the
-    dense floats; its input carries the pulled rows, so its first layer
-    takes an input gradient too."""
-    s, d = cfg["num_sparse"], cfg["embedding_dim"]
-    dims = [s * (1 + d) + cfg["num_dense"], *cfg["hidden"], 1]
-    return _mlp(dims, first_needs_grad=True)
-
-
-def dlrm(cfg: dict) -> float:
-    """DLRM: the bottom net over the dense floats (no input gradient),
-    the (S+1) x (S+1) Gram matrix of [bottom output, slot embeddings] as
-    one batched product (its backward two more), and the top net over
-    [bottom output, the upper triangle, the slots' w column]."""
-    s, d = cfg["num_sparse"], cfg["embedding_dim"]
-    bottom = [cfg["num_dense"], *cfg["bottom_hidden"], d]
-    n = s + 1
-    top = [d + n * (n - 1) // 2 + s, *cfg["top_hidden"], 1]
-    gram = 3.0 * 2.0 * n * n * d
-    return (_mlp(bottom, first_needs_grad=False) + gram
-            + _mlp(top, first_needs_grad=True))
-
-
-FAMILIES = {"deepfm": deepfm, "dlrm": dlrm}
-
-
 def train_flops_per_example(cfg: dict) -> float:
-    return FAMILIES[cfg["family"]](cfg)
+    """The configuration's family counts them:
+    ``families/<family>.py``'s ``train_flops_per_example``."""
+    return harness.load_module("families", cfg["family"]) \
+        .train_flops_per_example(cfg)

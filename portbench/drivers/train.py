@@ -241,6 +241,17 @@ def build(cfg: dict, seed: int, device):
     return gen, params0, store, schema, tr, box
 
 
+def pull_bytes(idx: np.ndarray, slots: int, stride: int,
+               pull_width: int) -> int:
+    """The least bytes of the pull of a batch's row ids ``idx`` (B,
+    tokens): its output is counted pooled, B x ``slots`` x
+    ``pull_width``, the least any pull must write (at one id a slot, the
+    tokens' rows)."""
+    rows = torch.from_numpy(np.asarray(idx, np.int64))
+    return sectors.pull_bytes(rows, stride, pull_width,
+                              idx.shape[0] * slots * pull_width)
+
+
 def _attribute(tr, ds, cfg: dict, step_s: float) -> dict:
     """step_probe's device-time account of one batch of the last pass,
     with the pull's and the push's least bytes from ``counts``."""
@@ -255,8 +266,8 @@ def _attribute(tr, ds, cfg: dict, step_s: float) -> dict:
     rows = torch.from_numpy(np.asarray(idx, np.int64))
     stride = int(ws.table.shape[1])
     return {"isolated": att["isolated"],
-            "pull_bytes": sectors.pull_bytes(rows, stride, ecfg.pull_width,
-                                             idx.size * ecfg.pull_width),
+            "pull_bytes": pull_bytes(idx, cfg["num_sparse"], stride,
+                                     ecfg.pull_width),
             "push_bytes": sectors.push_bytes(rows, stride, ecfg.row_width,
                                              ecfg.grad_width)}
 

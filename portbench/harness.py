@@ -2,10 +2,13 @@
 check, the no-JAX check, the profiler's reduction and the result line.
 
 A cell is ``<config>.<mix>``: ``configs/<config>.json`` holds the model's
-sizes, ``traffic/<mix>.json`` names the loop that runs it
-(``drivers/<loop>.py``) and its parameters, and each per-layer metric is
-read by ``metrics/<metric>.py``. Nothing here names a cell, a configuration or a
-metric, so a later change adds a cell by adding files and entries.
+sizes, its ``family`` (``families/<family>.py`` builds the program's model
+and counts its FLOPs, ``reference/<family>.py`` is its plain forward) and
+its optional ``hotness``; ``traffic/<mix>.json`` names the loop that runs
+it (``drivers/<loop>.py``) and its parameters, and each per-layer metric
+is read by ``metrics/<metric>.py``. Nothing here names a cell, a
+configuration, a family or a metric, so a later change adds a cell by
+adding files and entries.
 """
 
 from __future__ import annotations
@@ -73,11 +76,24 @@ def by_name(workload: str) -> tuple[dict, dict]:
 def load_module(kind: str, name: str):
     """``<kind>/<name>.py`` under the harness; a name may hold dots."""
     path = os.path.join(HERE, kind, f"{name}.py")
+    if not os.path.exists(path):
+        raise BenchError(f"no {kind} file {name!r}: "
+                         f"portbench/{kind}/{name}.py is missing")
     spec = importlib.util.spec_from_file_location(
         f"portbench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def hotness(cfg: dict) -> list[int]:
+    """Ids an example holds in each field: the configuration's
+    ``hotness``, or 1 in every field."""
+    hot = [int(h) for h in cfg.get("hotness", [1] * cfg["num_sparse"])]
+    if len(hot) != cfg["num_sparse"] or min(hot) < 1:
+        raise BenchError(f"hotness {hot} is not one count of 1 or more "
+                         f"for each of the {cfg['num_sparse']} fields")
+    return hot
 
 
 def limits(workload: str) -> dict:

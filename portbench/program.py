@@ -4,7 +4,11 @@ through the loops in ``drivers/``."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from portbench import harness
 
 
 def embedding_config(cfg: dict):
@@ -18,23 +22,21 @@ def embedding_config(cfg: dict):
 
 
 def schema(cfg: dict):
+    """Slot i holds ``hotness[i]`` ids an example (1 each by default)."""
     from paddlebox_tpu_torch.data import DataFeedSchema
-    return DataFeedSchema.ctr(num_sparse=cfg["num_sparse"],
+    base = DataFeedSchema.ctr(num_sparse=cfg["num_sparse"],
                               num_float=cfg["num_dense"],
                               batch_size=cfg["batch_size"], max_len=1)
+    hot = iter(harness.hotness(cfg))
+    return DataFeedSchema(
+        [dataclasses.replace(s, max_len=next(hot))
+         if s in base.sparse_slots else s for s in base.slots],
+        batch_size=base.batch_size)
 
 
 def model(cfg: dict):
-    from paddlebox_tpu_torch.models import DeepFMModel, DLRMModel
-    s, d, f = cfg["num_sparse"], cfg["embedding_dim"], cfg["num_dense"]
-    if cfg["family"] == "deepfm":
-        return DeepFMModel(s, d, f, hidden=tuple(cfg["hidden"]),
-                           use_cvm=cfg["use_cvm"])
-    if cfg["family"] == "dlrm":
-        return DLRMModel(s, d, f, bottom_hidden=tuple(cfg["bottom_hidden"]),
-                         top_hidden=tuple(cfg["top_hidden"]),
-                         use_cvm=cfg["use_cvm"])
-    raise ValueError(f"no program model for family {cfg['family']!r}")
+    """The program's model, built by ``families/<family>.py``."""
+    return harness.load_module("families", cfg["family"]).model(cfg)
 
 
 def param_tree(params: dict) -> dict:

@@ -12,10 +12,15 @@ formulas):
 - a table row is [show, clk, w, embedding (dim), optimizer state]; a new
   key's row is zero but for its embedding, a hash of the key uniform in
   [-initial_range, initial_range) (``init_rows``);
-- the pull reads the rows of a batch's keys; the forward consumes
-  [w, embedding] of each slot;
-- the push merges a batch's tokens per distinct key: the gradients sum,
-  show grows by the key's tokens and clk by its positive tokens; then
+- the pull reads the rows of a batch's keys; a slot of the
+  configuration's ``hotness`` h holds h keys an example, side by side,
+  and their [w, embedding] sum-pool per (example, slot), as
+  ``fused_seqpool_cvm`` with ``use_cvm=False`` does (``ops/
+  seqpool_cvm.py``); at one key a slot nothing pools; the forward
+  consumes the pooled [w, embedding] of each slot;
+- each token's gradient is its slot's pooled gradient; the push merges
+  a batch's tokens per distinct key: the gradients sum, show grows by
+  the key's tokens and clk by its positive tokens; then
   the key's row takes one optimizer step. adagrad (BoxPS's per-feature
   scalar accumulators): g2_w += g_w^2, g2_x += mean(g_x^2), each block
   moves by lr * sqrt(g0 / (g0 + g2)) * g. sgd: lr * g;
@@ -34,6 +39,8 @@ import importlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from portbench import harness
 
 
 @contextlib.contextmanager
@@ -70,6 +77,18 @@ def mlp(params: dict, prefix: str, n: int, x: torch.Tensor,
 def family(cfg: dict):
     return importlib.import_module(
         f"portbench.reference.{cfg['family']}")
+
+
+def pool(cfg: dict, t: torch.Tensor) -> torch.Tensor:
+    """(B, sum of hotness, ...) per-token values -> (B, S, ...) sums per
+    (example, slot), slot f's tokens side by side; unchanged at one token
+    a slot."""
+    hot = harness.hotness(cfg)
+    if max(hot) == 1:
+        return t
+    ends = np.cumsum(hot)
+    return torch.stack([t[:, e - h:e].sum(dim=1)
+                        for h, e in zip(hot, ends)], dim=1)
 
 
 def make_params(cfg: dict, gen: torch.Generator, device) -> dict:
@@ -163,12 +182,12 @@ class DenseOptimizer:
 
 
 def train(cfg: dict, params: dict, batches, precision: str = "float32"):
-    """Train ``batches`` (each (keys (B, S) int64, label (B,), dense
-    (B, F)) on one device) from ``params`` and fresh rows. Returns
-    {"loss": [per step], "state1": the state after step 1 ("dense": adam's
-    first moment or sgd's parameters, "rows": every key's row), "params":
-    the dense parameters after, "keys": the distinct keys (uint64),
-    "rows": their rows after}."""
+    """Train ``batches`` (each (keys (B, sum of hotness) int64, label
+    (B,), dense (B, F)) on one device) from ``params`` and fresh rows.
+    Returns {"loss": [per step], "state1": the state after step 1
+    ("dense": adam's first moment or sgd's parameters, "rows": every
+    key's row), "params": the dense parameters after, "keys": the
+    distinct keys (uint64), "rows": their rows after}."""
     fam = family(cfg)
     dev = batches[0][0].device
     all_keys = torch.unique(torch.cat([b[0].reshape(-1) for b in batches]))
@@ -184,7 +203,8 @@ def train(cfg: dict, params: dict, batches, precision: str = "float32"):
             w = pulled[..., 2].clone().requires_grad_()
             x = pulled[..., lay["x"]].clone().requires_grad_()
             p = {k: v.detach().requires_grad_() for k, v in params.items()}
-            logit = fam.forward(cfg, p, w, x, dense, precision)
+            logit = fam.forward(cfg, p, pool(cfg, w), pool(cfg, x), dense,
+                                precision)
             loss = F.binary_cross_entropy_with_logits(logit, label)
             names = list(p)
             grads = torch.autograd.grad(loss, [p[k] for k in names]
@@ -214,9 +234,10 @@ def train(cfg: dict, params: dict, batches, precision: str = "float32"):
 def scores(cfg: dict, params: dict, rows: torch.Tensor,
            dense: torch.Tensor, precision: str = "float32"):
     """Probabilities of examples whose pulled rows are given:
-    rows (N, S, >= 3 + dim) as [show, clk, w, embedding]."""
+    rows (N, sum of hotness, >= 3 + dim) as [show, clk, w, embedding]."""
     lay = row_layout(cfg)
     with matmul_precision(precision), torch.no_grad():
-        logit = family(cfg).forward(cfg, params, rows[..., 2],
-                                    rows[..., lay["x"]], dense, precision)
+        logit = family(cfg).forward(cfg, params, pool(cfg, rows[..., 2]),
+                                    pool(cfg, rows[..., lay["x"]]), dense,
+                                    precision)
     return torch.sigmoid(logit)

@@ -54,12 +54,19 @@ def bench_for(workload: str, root: str = ROOT) -> dict:
     return bench
 
 
+# a multi-hot layout of the 26 fields, uneven (3, 1, 2, ...): 51 ids an
+# example
+UNEVEN = [3, 1, 2] * 8 + [1, 2]
+
+
 def shrink(cfg: dict, mix: dict) -> tuple[dict, dict]:
+    """The nets a configuration names cut to widths of 32 and 64 (a
+    DLRM-shaped one's rows to 16 wide), whatever its family."""
     cfg = dict(cfg, batch_size=64,
                cardinalities=[min(c, 5000) for c in cfg["cardinalities"]])
-    if cfg["family"] == "deepfm":
+    if "hidden" in cfg:
         cfg["hidden"] = [32, 32]
-    else:
+    if "bottom_hidden" in cfg:
         cfg.update(bottom_hidden=[32], top_hidden=[64, 32],
                    embedding_dim=16)
     mix = dict(mix)
@@ -72,19 +79,25 @@ def shrink(cfg: dict, mix: dict) -> tuple[dict, dict]:
 
 
 def run_cell(workload: str, seed: int = 3000000001, seconds: float = 1.0,
-             trace: int = 0, root: str = ROOT, prelude: str = "") -> dict:
+             trace: int = 0, root: str = ROOT, prelude: str = "",
+             cfg: dict | None = None) -> dict:
     """One tiny run on the CPU in a fresh process, from ``root``; the
-    result line parsed. ``prelude`` runs first (a planted fault)."""
+    result line parsed. ``prelude`` runs first (a planted fault);
+    ``cfg``'s keys are set in the shrunk configuration (a ``hotness``)."""
     code = (
         "import json, sys\n"
         f"sys.path.insert(0, {root!r})\n"
         f"{prelude}\n"
         "from portbench import harness, run\n"
         "from portbench.tests.portbench_tiny import bench_for, shrink\n"
+        "def override(c, m):\n"
+        "    c, m = shrink(c, m)\n"
+        f"    c.update(json.loads({json.dumps(cfg or {})!r}))\n"
+        "    return c, m\n"
         f"res = run.execute(['--workload', {workload!r}, '--seed', "
         f"'{seed}', '--seconds', '{seconds}', '--trace', '{trace}'], "
         f"device='cpu', bench=bench_for({workload!r}, {root!r}), "
-        "cfg_override=shrink)\n"
+        "cfg_override=override)\n"
         "assert not harness.forbidden_modules(), harness.forbidden_modules()\n"
         "print(json.dumps(res))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -5,10 +5,13 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
+from portbench import program
 from portbench.counts import flops, sectors
+from portbench.drivers import train
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                        "configs")
@@ -64,3 +67,27 @@ def test_pull_and_push_bytes_by_hand():
     # 4 tokens x (11 grads + id + show + clk) x 4 B = 224 B -> 7 sectors;
     # rows 0-1, 15 floats each at stride 15: 120 B -> 4 sectors, twice
     assert sectors.push_bytes(rows, 15, 15, 11) == (7 + 2 * 4) * 32
+
+
+def test_one_hot_pull_bytes_as_before():
+    """The pull's output counted pooled (examples x slots x width) is the
+    per-token count at one id a slot: the value recorded from the count
+    before it pooled."""
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, 5000, (64, 26), generator=gen).numpy()
+    assert train.pull_bytes(idx.astype(np.int32), 26, 133, 131) == 1650752
+    # a multi-hot batch of 2 ids a slot writes the same pooled output
+    wide = np.repeat(idx, 2, axis=1)
+    assert train.pull_bytes(wide, 26, 133, 131) == \
+        1650752 + sectors.dense_bytes(wide.size * 4) \
+        - sectors.dense_bytes(idx.size * 4)
+
+
+@pytest.mark.parametrize("name", ["deepfm_criteo", "dlrm_criteo_tb"])
+def test_one_hot_schema_as_before(name):
+    from paddlebox_tpu_torch.data import DataFeedSchema
+    cfg = _cfg(name)
+    want = DataFeedSchema.ctr(num_sparse=26, num_float=13,
+                              batch_size=8192, max_len=1)
+    assert program.schema(cfg) == want
+    assert program.schema(dict(cfg, hotness=[1] * 26)) == want

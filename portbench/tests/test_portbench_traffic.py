@@ -3,9 +3,13 @@ inside each field and skewed."""
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
+import pytest
 import torch
 
+from portbench import harness
 from portbench.traffic import criteo
 
 CFG = {"cardinalities": [3, 1000, 40_000_000], "zipf_exponent": 1.1,
@@ -51,3 +55,28 @@ def test_records_and_unique_keys():
     assert rec.num == 4096
     assert np.array_equal(np.sort(rec.unique_keys().astype(np.uint64)),
                           criteo.unique_keys(keys))
+
+
+# sha256 of draw_examples' keys, labels and dense floats (their bytes, in
+# that order) for 2048 examples from seed 2^31 + 5 on the CPU, recorded
+# from the generator before it took a hotness: at one id a field it
+# makes the same calls
+ONE_HOT_DIGESTS = {
+    "deepfm_criteo":
+        "923fb351ccdc2e005e9de787504d6277b3c9889e3b77170971791b1c259a139c",
+    "dlrm_criteo_tb":
+        "11ad547fa983e926629c1f6a27a30e7129e6d524236e1d0961d78e867a44a58a",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONE_HOT_DIGESTS))
+@pytest.mark.parametrize("hotness", [None, 1], ids=["absent", "ones"])
+def test_hotness_one_draws_as_before(name, hotness):
+    cfg = harness.config(name)
+    if hotness is not None:
+        cfg["hotness"] = [hotness] * cfg["num_sparse"]
+    gen = torch.Generator().manual_seed(2**31 + 5)
+    h = hashlib.sha256()
+    for t in criteo.draw_examples(gen, 2048, cfg, "cpu"):
+        h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest() == ONE_HOT_DIGESTS[name]

@@ -2,11 +2,11 @@
 
 Adapted from ``chip_smoke.py``'s ``make_records`` (line 926 of the
 port's smoke script at the benchmark's first version): the same record
-layout (one id per categorical slot, a 25%-positive label, 13 standard
-normal dense floats, zeroed metadata columns) built into the port's
-``SlotRecordBatch``. Two things differ, because the smoke script draws
-from one materialised key array, which does not scale to fields of
-40 million keys:
+layout (a 25%-positive label, 13 standard normal dense floats, zeroed
+metadata columns; one id per categorical slot, or the configuration's
+``hotness`` ids) built into the port's ``SlotRecordBatch``. Two things
+differ, because the smoke script draws from one materialised key array,
+which does not scale to fields of 40 million keys:
 
 - each field has a cardinality of its own (the configuration's), and its
   ids are power-law (Zipf-like) draws over ranks 0..card-1, by the
@@ -60,18 +60,24 @@ def power_law_ranks(gen: torch.Generator, n: int, card: int, s: float,
     return (x.floor().long() - 1).clamp_(0, card - 1)
 
 
-def draw_keys(gen: torch.Generator, n: int, cards, s: float,
-              device) -> torch.Tensor:
-    """(n, fields) int64 keys, one power-law draw per field."""
-    return torch.stack([key_of(f, power_law_ranks(gen, n, c, s, device))
-                        for f, c in enumerate(cards)], dim=1)
+def draw_keys(gen: torch.Generator, n: int, cards, s: float, device,
+              hotness=None) -> torch.Tensor:
+    """(n, sum of hotness) int64 keys: field f's ``hotness[f]`` ids an
+    example (1 by default) drawn as one power-law draw of n * h ranks,
+    field after field, each field's ids side by side."""
+    hot = hotness or [1] * len(cards)
+    return torch.cat([key_of(f, power_law_ranks(gen, n * h, c, s, device))
+                      .reshape(n, h)
+                      for f, (c, h) in enumerate(zip(cards, hot,
+                                                     strict=True))],
+                     dim=1)
 
 
 def draw_examples(gen: torch.Generator, n: int, cfg: dict, device):
-    """n examples: (keys (n, S) int64, label (n,) f32, dense (n, F) f32),
-    all on ``device``."""
+    """n examples: (keys (n, sum of hotness) int64, label (n,) f32, dense
+    (n, F) f32), all on ``device``."""
     keys = draw_keys(gen, n, cfg["cardinalities"], cfg["zipf_exponent"],
-                     device)
+                     device, cfg.get("hotness"))
     label = (torch.rand(n, generator=gen, device=device) < 0.25).float()
     dense = torch.randn(n, cfg["num_dense"], generator=gen, device=device)
     return keys, label, dense
@@ -79,16 +85,24 @@ def draw_examples(gen: torch.Generator, n: int, cfg: dict, device):
 
 def records(schema, keys: torch.Tensor, label: torch.Tensor,
             dense: torch.Tensor):
-    """The port's SlotRecordBatch of one-id-per-slot examples (the
-    columns made contiguous on the device, one copy each to the host)."""
+    """The port's SlotRecordBatch of examples whose slot f holds the
+    schema's ``max_len`` ids each, side by side in ``keys`` (the slots'
+    columns laid end to end on the device and copied to the host at
+    once, the floats likewise)."""
     from paddlebox_tpu_torch.data.slot_record import SlotRecordBatch
     n = keys.shape[0]
-    vals = list(keys.T.contiguous().cpu().numpy())
-    offs = np.arange(n + 1, dtype=np.int64)
+    hot = [s.max_len for s in schema.sparse_slots]
+    ends = np.cumsum(hot)
+    flat = torch.cat([keys[:, e - h:e].reshape(-1)
+                      for h, e in zip(hot, ends)]).cpu().numpy()
+    vals = np.split(flat, n * ends[:-1])
+    # one offsets array shared by the slots of a hotness: a pool of passes
+    # would otherwise hold one a slot (4 MB each at 524,288 examples)
+    offs = {h: np.arange(n + 1, dtype=np.int64) * h for h in set(hot)}
     floats = list(torch.cat([label[None], dense.T]).contiguous()
                   .cpu().numpy())
     z64, z32 = np.zeros(n, np.uint64), np.zeros(n, np.int32)
-    return SlotRecordBatch(schema, n, vals, [offs] * len(vals), floats,
+    return SlotRecordBatch(schema, n, vals, [offs[h] for h in hot], floats,
                            z64, z64, z32, z32)
 
 
