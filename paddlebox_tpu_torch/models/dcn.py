@@ -1,6 +1,11 @@
 """DCN-v2 — the port of ``models/dcn.py``: deep & cross network with
 full-matrix cross layers, x_{l+1} = x0 ⊙ (x_l W_l + b_l) + x_l, beside a
 deep tower over x0; both concatenate into the logit layer.
+
+``LowRankCrossNet`` is the cross network with low-rank layers (torchrec's
+``LowRankCrossNet``, the interaction of MLPerf's DLRM-DCNv2), which the
+JAX package does not have: ``models/dlrm.py``'s ``DLRMDCNv2Model`` uses
+it.
 """
 
 from __future__ import annotations
@@ -10,6 +15,39 @@ from torch import nn
 
 from paddlebox_tpu_torch.models.nn import MLP, Dense, matmul
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
+
+
+class LowRankCross(nn.Module):
+    """One low-rank cross layer: ``v`` projects dim -> rank with no bias,
+    ``w`` projects rank -> dim with a bias."""
+
+    def __init__(self, dim: int, rank: int):
+        super().__init__()
+        self.v = Dense(dim, rank, bias=False)
+        self.w = Dense(rank, dim)
+
+
+class LowRankCrossNet(nn.ModuleList):
+    """x_{l+1} = x0 ⊙ (W_l (V_l x_l) + b_l) + x_l for l = 0..L-1, V_l
+    (dim -> rank) and W_l (rank -> dim): parameters ``<l>.v.w`` (dim,
+    rank), ``<l>.w.w`` (rank, dim) and ``<l>.w.b`` (dim,); ``init`` draws
+    Glorot-normal kernels and zero biases (``Dense.init``)."""
+
+    def __init__(self, dim: int, rank: int, num_layers: int):
+        super().__init__(LowRankCross(dim, rank) for _ in range(num_layers))
+
+    def init(self, generator: torch.Generator) -> None:
+        for layer in self:
+            layer.v.init(generator)
+            layer.w.init(generator)
+
+    def forward(self, x0: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = x0
+        for layer in self:
+            x = x0 * layer.w(layer.v(x, compute_dtype=compute_dtype),
+                             compute_dtype=compute_dtype) + x
+        return x
 
 
 class DCNv2Model(nn.Module):

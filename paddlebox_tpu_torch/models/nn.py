@@ -38,11 +38,15 @@ def activate(y: torch.Tensor, activation: str | None) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, scale: str = "glorot"):
+    """``x @ w + b``; with ``bias=False`` a plain projection, ``x @ w``
+    (no ``b`` parameter)."""
+
+    def __init__(self, in_dim: int, out_dim: int, scale: str = "glorot",
+                 bias: bool = True):
         super().__init__()
         self.scale = scale
         self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
-        self.b = nn.Parameter(torch.zeros(out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -52,12 +56,13 @@ class Dense(nn.Module):
         std = ((2.0 / (in_dim + out_dim)) ** 0.5 if self.scale == "glorot"
                else 0.01)
         self.w.copy_(torch.randn(in_dim, out_dim, generator=generator) * std)
-        self.b.zero_()
+        if self.b is not None:
+            self.b.zero_()
 
     def forward(self, x: torch.Tensor, activation: str | None = None,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return activate(matmul(x, self.w, compute_dtype) + self.b,
-                        activation)
+        y = matmul(x, self.w, compute_dtype)
+        return activate(y if self.b is None else y + self.b, activation)
 
 
 class MLP(nn.ModuleList):

@@ -171,7 +171,9 @@ def attribute_step(trainer, ws, staged, step_seconds: float,
     cost given the stages removed before it. ``glue_residual`` is what
     the emptied step still costs above the no-op ``dispatch_floor`` (the
     zero grads, the dense optimizer). ``isolated`` times each stage's own
-    function alone.
+    function alone, and, for a model with an ``interaction`` (and its
+    ``interaction_input``), that interaction's forward and backward alone
+    (``isolated["interaction"]``).
 
     Under push overlap (``trainer.push_overlap``) ``overlap_ab`` times
     the inline step against the deferred pair (the pending apply, then
@@ -289,6 +291,24 @@ def attribute_step(trainer, ws, staged, step_seconds: float,
     isolated["dense_fwd_bwd"] = timed_repeat(fwdbwd, k=k, windows=windows,
                                              device=dev, calls=calls,
                                              name="isolated_fwd_bwd")
+    if callable(getattr(model, "interaction", None)):
+        # the model's interaction alone (DLRM-DCNv2's cross network),
+        # forward and backward (its input's gradient and its weights'), on
+        # this batch's pooled inputs
+        with torch.no_grad():
+            x0 = model.interaction_input(
+                PooledSlots(pulled0) if fused else pulled0, mask, dense, seg)
+        x0.requires_grad_()
+        gy = torch.ones_like(x0)
+
+        def interaction_fn():
+            return torch.autograd.grad(model.interaction(x0),
+                                       [x0, *trainer.params], gy,
+                                       allow_unused=True)[0]
+
+        isolated["interaction"] = timed_repeat(
+            interaction_fn, k=k, windows=windows, device=dev, calls=calls,
+            name="isolated_interaction")
     gpulled0 = fwdbwd()
     if fused:
         sgrad0 = sharded.pooled_grad_tokens(gpulled0, mask, trainer._seg, S)

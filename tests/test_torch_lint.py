@@ -56,5 +56,7 @@ def test_port_is_lint_clean():
     # with the reference's waivers at the same sites), then the serving
     # fleet's three (serving/fleet.py: a retaken lease's release, the
     # first spawn's missing port file, a replica's health before its
-    # HTTP bind — the reference's waivers at the same sites)
-    assert len(rules) == 18, out["waived"]
+    # HTTP bind — the reference's waivers at the same sites), then
+    # DLRM-DCNv2's interaction span (models/dlrm.py: a model the JAX
+    # package lacks, so a span name its closed registry lacks)
+    assert len(rules) == 19, out["waived"]
